@@ -1,0 +1,31 @@
+"""Unified federated engine API of the port.
+
+The same contract as ``repro.engine``: name-based registries
+(``register_policy`` / ``register_aggregator``), the ``Policy`` /
+``Aggregator`` / ``Engine`` protocols, and ``RunConfig`` in, ``RunResult``
+out, with one JSON-safe serializer. So far the calm asynchronous engine is
+ported (``AsyncEngine``); ``RunConfig`` rejects every other option.
+"""
+from repro_torch.engine.registry import (  # noqa: F401
+    aggregator_names,
+    make_aggregator,
+    make_policy,
+    policy_names,
+    register_aggregator,
+    register_policy,
+)
+from repro_torch.engine.serialize import dump_json, to_jsonable  # noqa: F401
+from repro_torch.engine.aggregators import Aggregator, staleness_weight  # noqa: F401
+from repro_torch.engine.config import (  # noqa: F401
+    RoundRecord,
+    RunConfig,
+    RunResult,
+)
+from repro_torch.engine.api import (  # noqa: F401
+    HISTORY_CELL_CAP,
+    Engine,
+    make_engine,
+    run_engine,
+)
+from repro_torch.engine.async_engine import AsyncEngine  # noqa: F401
+from repro_torch.core.selection import Policy  # noqa: F401  (registers built-ins)

@@ -1,0 +1,146 @@
+"""Pluggable server-side aggregation: ``weigh/init/accumulate/finalize``.
+
+An ``Aggregator`` owns everything between "the cohort's local updates are
+stacked on axis 0" and "here are the new global params":
+
+    w     = agg.weigh(mask, staleness)        # (B,) float32 weights
+    acc   = agg.init(global_params)           # accumulator dict
+    acc   = agg.accumulate(acc, updates, bases, w)
+    new_g = agg.finalize(global_params, acc)
+
+``updates`` is a params dict with a stacked cohort axis; ``bases`` is the
+params each cohort member trained *from* (the dispatch-time ring version),
+which is what lets delta-based aggregators express staleness. All
+functions stay on the tensors' device and are safe with an all-zero
+weight vector (an empty buffer leaves the global params untouched).
+
+Built-ins, as in the reference:
+  * ``fedavg``  — weighted mean of the updated params; ignores staleness.
+  * ``fedbuff`` — staleness-discounted mean of *deltas* added to the
+                  global params (FedBuff/FedAsync style, ``(1+s)^-a``).
+  * ``fedprox`` — fedbuff with the mean delta scaled by ``1/(1+mu)``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.engine.registry import register_aggregator
+
+
+@dataclasses.dataclass(frozen=True)
+class Aggregator:
+    """The aggregation protocol the engine dispatches through. (The
+    reference's ``additive`` flag and ``stat_names`` telemetry arrive with
+    the slices that use them: cohort sharding and robust aggregators.)"""
+
+    name: str
+    weigh: Callable  # (mask bool (B,), staleness i32 (B,)) -> f32 (B,)
+    init: Callable  # (global_params) -> acc
+    accumulate: Callable  # (acc, updates, bases, weights) -> acc
+    finalize: Callable  # (global_params, acc) -> new global_params
+
+
+def staleness_weight(s: torch.Tensor, mode: str = "poly",
+                     exp: float = 0.5) -> torch.Tensor:
+    """Aggregation discount for an update of staleness ``s`` versions."""
+    s = torch.clamp(s.to(torch.float32), min=0.0)
+    if mode == "const":
+        return torch.ones_like(s)
+    if mode == "poly":
+        return (1.0 + s) ** (-exp)
+    raise ValueError(f"unknown staleness mode {mode!r}")
+
+
+def _wview(w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    return w.view((-1,) + (1,) * (u.dim() - 1))
+
+
+@register_aggregator("fedavg")
+def make_fedavg() -> Aggregator:
+    """Weighted mean of updated params; empty cohorts keep the old params."""
+
+    def weigh(mask, staleness):
+        return mask.to(torch.float32)
+
+    def init(g):
+        return {"usum": tree_map(torch.zeros_like, g),
+                "wsum": torch.zeros((), dtype=torch.float32,
+                                    device=tree_leaves(g)[0].device)}
+
+    def accumulate(acc, updates, bases, w):
+        usum = tree_map(
+            lambda s, u: s + torch.sum(u * _wview(w, u).to(u.dtype), dim=0),
+            acc["usum"], updates,
+        )
+        return {"usum": usum, "wsum": acc["wsum"] + w.sum()}
+
+    def finalize(g, acc):
+        empty = acc["wsum"] == 0.0
+        denom = torch.clamp(acc["wsum"], min=1.0)
+        return tree_map(
+            lambda gl, s: torch.where(empty, gl, (s / denom.to(s.dtype)).to(gl.dtype)),
+            g, acc["usum"],
+        )
+
+    return Aggregator("fedavg", weigh, init, accumulate, finalize)
+
+
+def _delta_aggregator(name: str, staleness_mode: str, staleness_exp: float,
+                      scale: float) -> Aggregator:
+    """Shared core of fedbuff/fedprox: staleness-weighted mean delta,
+    scaled by ``scale`` and added to the global params."""
+
+    def weigh(mask, staleness):
+        return mask.to(torch.float32) * staleness_weight(
+            staleness, staleness_mode, staleness_exp
+        )
+
+    def init(g):
+        return {
+            "dsum": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), g),
+            "wsum": torch.zeros((), dtype=torch.float32,
+                                device=tree_leaves(g)[0].device),
+        }
+
+    def accumulate(acc, updates, bases, w):
+        dsum = tree_map(
+            lambda s, u, b: s + torch.sum((u - b).to(torch.float32) * _wview(w, u),
+                                          dim=0),
+            acc["dsum"], updates, bases,
+        )
+        return {"dsum": dsum, "wsum": acc["wsum"] + w.sum()}
+
+    def finalize(g, acc):
+        has = acc["wsum"] > 0
+        denom = torch.clamp(acc["wsum"], min=1e-9)
+
+        def fin(gl, s):
+            d = s / denom
+            if scale != 1.0:
+                d = d * scale
+            return torch.where(has, gl + d.to(gl.dtype), gl)
+
+        return tree_map(fin, g, acc["dsum"])
+
+    return Aggregator(name, weigh, init, accumulate, finalize)
+
+
+@register_aggregator("fedbuff")
+def make_fedbuff(staleness_mode: str = "poly", staleness_exp: float = 0.5) -> Aggregator:
+    """Staleness-discounted buffered delta aggregation (FedBuff-style)."""
+    return _delta_aggregator("fedbuff", staleness_mode, staleness_exp, scale=1.0)
+
+
+@register_aggregator("fedprox")
+def make_fedprox(prox_mu: float = 0.1, staleness_mode: str = "poly",
+                 staleness_exp: float = 0.5) -> Aggregator:
+    """Proximally damped delta aggregation: mean delta scaled by 1/(1+mu)."""
+    if prox_mu < 0:
+        raise ValueError(f"prox_mu must be >= 0, got {prox_mu}")
+    return _delta_aggregator(
+        "fedprox", staleness_mode, staleness_exp, scale=1.0 / (1.0 + prox_mu)
+    )

@@ -1,0 +1,319 @@
+"""The buffered asynchronous engine over the event-driven fleet simulator.
+
+One server step = admission control (idle+available clients consult their
+selection policy — the Markov chain decides *locally* whether to pull the
+model, preserving the paper's zero-coordination property) -> dispatch with
+sampled wall-clock latencies -> pop the next ``buffer_size`` completions
+(the ``event_topk`` CUDA kernel at fleet scale) -> local training of the
+whole cohort, each member from its *dispatch-time* model version (a ring of
+the last ``max_versions`` global models) -> aggregator
+``weigh/init/accumulate/finalize`` over the buffered deltas -> clock/
+version advance.
+
+This is the calm path of ``repro.engine.async_engine`` (no topology,
+faults, re-dispatch or defense; ``RunConfig`` rejects those). Every tensor
+of the state lives on the task's device and no step syncs with the host:
+masked scatters go through ``sim.events.scatter_set``, and the only host
+pulls are the per-chunk aux transfer and ``finalize``.
+
+The load metric is reported on two clocks: X in decision epochs (the
+paper's round-indexed Var[X]) and X in simulated seconds (wall-clock
+inter-update gaps per client).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.core.aoi import age_update, peak_age_accumulate
+from repro_torch.core.draws import GeneratorDraws
+from repro_torch.core.load_metric import (
+    empirical_load_stats,
+    init_selection_accum,
+    selection_stats_from_accum,
+)
+from repro_torch.core.selection import Policy
+from repro_torch.core.tree import tree_map
+from repro_torch.engine.aggregators import Aggregator
+from repro_torch.engine.chunk import ChunkRunner, step_once
+from repro_torch.engine.config import RoundRecord, RunConfig, RunResult
+from repro_torch.engine.registry import make_aggregator, make_policy
+from repro_torch.fl.client import make_local_update
+from repro_torch.fl.task import FLTask
+from repro_torch.optim.schedules import exponential_decay
+from repro_torch.sim import events as ev_mod
+from repro_torch.sim import latency as lat_mod
+
+
+def _resolved_profile(profile) -> lat_mod.LatencyProfile:
+    if isinstance(profile, lat_mod.LatencyProfile):
+        return profile
+    return lat_mod.get_profile(profile)
+
+
+def _init_stats(device) -> Dict[str, torch.Tensor]:
+    def z():
+        return torch.zeros((), dtype=torch.float32, device=device)
+
+    out = {
+        "wall_sx": z(), "wall_sx2": z(), "wall_cnt": z(),  # X in simulated seconds
+        "ep_sx": z(), "ep_sx2": z(), "ep_cnt": z(),  # X in decision epochs
+        "stale_sum": z(), "stale_cnt": z(),
+        "stale_max": torch.zeros((), dtype=torch.int32, device=device),
+        "updates": z(),  # successful updates aggregated
+        "aggs": z(),  # server versions produced
+    }
+    return out
+
+
+class AsyncEngine:
+    """Asynchronous server steps: one buffer flush per step, clients train
+    from (possibly stale) ring-buffered model versions.
+
+    ``draws`` is the run's random source (``core.draws``); by default a
+    ``torch.Generator`` on the task's device seeded with ``cfg.seed``.
+    """
+
+    def __init__(
+        self,
+        task: FLTask,
+        cfg: RunConfig,
+        policy: Optional[Policy] = None,
+        aggregator: Optional[Aggregator] = None,
+        draws=None,
+    ):
+        if cfg.mode != "async":
+            raise ValueError(f"AsyncEngine needs mode='async', got {cfg.mode!r}")
+        self.task = task
+        self.cfg = cfg
+        self.policy = policy or make_policy(
+            cfg.policy, cfg.n_clients, cfg.k, cfg.m, **dict(cfg.policy_kwargs)
+        )
+        self.aggregator = aggregator or make_aggregator(
+            cfg.resolved_aggregator(), **dict(cfg.aggregator_kwargs)
+        )
+        self.profile = _resolved_profile(cfg.profile)
+        self.draws = draws if draws is not None else GeneratorDraws(cfg.seed,
+                                                                    task.device)
+        self._init_state, core = _make_async_step(
+            task, cfg, self.policy, self.aggregator, self.profile
+        )
+        self._chunk = ChunkRunner(
+            core, aux_keys=("loss", "clock", "version", "buffer_fill")
+        )
+
+    def init(self) -> Dict:
+        cfg, d = self.cfg, self.draws
+        params = self.task.init(d)
+        sched = self.policy.init(d, cfg.n_clients)
+        state = self._init_state(params, sched, d)
+        state["load_acc"] = init_selection_accum(cfg.n_clients, cfg.k,
+                                                 self.task.device)
+        return state
+
+    def step(self, state: Dict, r: int):
+        return step_once(self._chunk, state, self.draws, r)
+
+    def run_chunk(self, state: Dict, r0: int, length: int, with_history: bool):
+        return self._chunk(state, self.draws, r0, length, with_history)
+
+    def eval_params(self, state: Dict):
+        return state["params"]
+
+    def evaluate(self, state: Dict) -> Dict:
+        """Held-out eval on the current global params."""
+        return self.task.eval_fn(self.eval_params(state))
+
+    def record(self, r: int, aux: Dict, ev: Dict) -> RoundRecord:
+        return RoundRecord(
+            round=r + 1,
+            train_loss=float(aux["loss"]),
+            eval_loss=float(ev["loss"]),
+            accuracy=float(ev["accuracy"]),
+            clock=float(aux["clock"]),
+            version=int(aux["version"]),
+            buffer_fill=int(aux["buffer_fill"]),
+        )
+
+    def progress_line(self, rec: RoundRecord, elapsed: float) -> str:
+        return (
+            f"  [{self.policy.name}/{self.profile.name}] "
+            f"step {rec.round:4d} t={rec.clock:9.2f}s v={rec.version:4d} "
+            f"acc={rec.accuracy:.4f} loss={rec.eval_loss:.4f} ({elapsed:.1f}s)"
+        )
+
+    def finalize(self, state, records, sel_hist, wall_time_s) -> RunResult:
+        st = {k: float(v) for k, v in state["stats"].items()}
+
+        def _mv(sx, sx2, cnt):
+            if cnt <= 0:
+                return float("nan"), float("nan")
+            mean = sx / cnt
+            return mean, max(sx2 / cnt - mean * mean, 0.0)
+
+        mean_w, var_w = _mv(st["wall_sx"], st["wall_sx2"], st["wall_cnt"])
+        mean_e, var_e = _mv(st["ep_sx"], st["ep_sx2"], st["ep_cnt"])
+        wall_stats = {
+            "mean_X_wall": mean_w, "var_X_wall": var_w,
+            "num_samples_wall": int(st["wall_cnt"]),
+            "mean_X_epoch": mean_e, "var_X_epoch": var_e,
+            "num_samples_epoch": int(st["ep_cnt"]),
+            "mean_staleness": st["stale_sum"] / max(st["stale_cnt"], 1.0),
+            "max_staleness": int(st["stale_max"]),
+            "updates_applied": int(st["updates"]),
+            "aggregations": int(st["aggs"]),
+            "sim_time": float(state["clock"]),
+        }
+        if sel_hist is not None:
+            load_stats = empirical_load_stats(sel_hist)
+        else:
+            load_stats = selection_stats_from_accum(state["load_acc"])
+        return RunResult(
+            config=self.cfg,
+            records=records,
+            selection=sel_hist,
+            load_stats=load_stats,
+            wall_stats=wall_stats,
+            params=state["params"],
+            wall_time_s=wall_time_s,
+        )
+
+
+def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
+                     agg: Aggregator, profile: lat_mod.LatencyProfile):
+    """Builds ``(init_state, step)`` with ``step(state, draws) -> (state,
+    aux)``, the function ``ChunkRunner`` loops over; ``draws`` is the
+    source of this step's draws."""
+    n = cfg.n_clients
+    B = cfg.resolved_buffer_size()
+    H = cfg.max_versions
+    dev = task.device
+    local_update = make_local_update(
+        task.loss_fn, cfg.local_epochs, cfg.batch_size, task.examples_per_client
+    )
+    lr_fn = exponential_decay(cfg.lr0, cfg.lr_decay)
+    neg_inf = torch.tensor(float("-inf"), device=dev)
+
+    def init_state(params, sched_state, draws):
+        return {
+            "params": params,
+            # ring buffer of the last H global models; slot v % H = version v
+            "hist": tree_map(
+                lambda p: p[None].expand((H,) + p.shape).clone(), params
+            ),
+            "sched": sched_state,
+            "ev": ev_mod.init_event_state(n, dev),
+            "speed": lat_mod.client_speed(draws, n, profile),
+            "clock": torch.zeros((), dtype=torch.float32, device=dev),
+            "version": torch.zeros((), dtype=torch.int32, device=dev),
+            "stats": _init_stats(dev),
+        }
+
+    def step(state, draws):
+        ev, sched, stats = state["ev"], state["sched"], state["stats"]
+        clock, version = state["clock"], state["version"]
+
+        # --- admission control: idle+available clients consult the policy
+        prev_ages = sched["ages"]
+        idle = torch.isinf(ev["t_done"])
+        available = ev["next_avail"] <= clock
+        want, sched = policy.step(sched, draws)
+        send = want & idle & available
+        # only actual dispatches reset the AoI clock; everyone else ages
+        sched = {**sched, "ages": age_update(prev_ages, send)}
+        ep_sx, ep_sx2, ep_cnt = peak_age_accumulate(
+            prev_ages, send, stats["ep_sx"], stats["ep_sx2"], stats["ep_cnt"]
+        )
+
+        # --- dispatch: sample wall-clock latencies, mark in flight
+        latency = lat_mod.sample_latency(draws, profile, state["speed"])
+        dropped = lat_mod.sample_dropout(draws, profile, n)
+        ev = ev_mod.schedule_completions(ev, send, clock, latency, version, dropped)
+
+        # --- pop the next B completions, advance the simulated clock
+        t_ev, idx, valid, ev = ev_mod.pop_events(ev, B, use_kernel=cfg.use_kernel)
+        new_clock = torch.maximum(
+            clock, torch.max(torch.where(valid, t_ev, neg_inf))
+        )
+        # an all-idle fleet inside availability gaps must not freeze the
+        # clock: with nothing in flight to pop, jump to the earliest
+        # window opening so availability can recover next step
+        new_clock = torch.where(
+            valid.any(), new_clock,
+            torch.maximum(new_clock, torch.min(ev["next_avail"])),
+        )
+
+        # --- local training from each client's dispatch-time model
+        disp_ver = ev["disp_ver"][idx]
+        # versions older than the ring are trained from the oldest retained
+        # model; staleness for weighting still uses the true dispatch version
+        read_ver = torch.clamp(
+            disp_ver, min=torch.clamp(version - (H - 1), min=0), max=version
+        )
+        slot = (read_ver % H).long()
+        disp_params = tree_map(lambda h: h[slot], state["hist"])
+        shards = {k: a[idx] for k, a in task.client_data.items()}
+        lr = lr_fn(torch.clamp(disp_ver, min=0))
+        updated, losses = local_update(disp_params, shards, draws, lr)
+
+        # --- buffered aggregation of deltas through the aggregator seam
+        succ = valid & ~ev["dropped"][idx]
+        staleness = torch.clamp(version - disp_ver, min=0)
+        w = agg.weigh(succ, staleness)
+        wsum = w.sum()
+        has = wsum > 0
+        denom = torch.clamp(wsum, min=1e-9)
+        acc = agg.accumulate(agg.init(state["params"]), updated, disp_params, w)
+        params = agg.finalize(state["params"], acc)
+        version = version + has.to(torch.int32)
+        wslot = (version % H).long().view(1)
+        hist = tree_map(lambda h, p: h.index_copy(0, wslot, p[None]),
+                        state["hist"], params)
+        # NaN, not a fake 0.0 datapoint, when nothing was aggregated
+        mean_loss = torch.where(has, torch.sum(losses * w) / denom,
+                                torch.full_like(denom, float("nan")))
+
+        # --- completed clients go idle; wall-clock AoI samples
+        # gaps are i.i.d. — draw only the B popped clients' worth
+        gaps = lat_mod.sample_avail_gap(draws, profile, B)
+        ev = {**ev, "next_avail": ev_mod.scatter_set(
+            ev["next_avail"], idx, valid, new_clock + gaps)}
+        last_done = ev["last_done"][idx]
+        x_wall = t_ev - last_done
+        wall_ok = succ & (last_done >= 0.0)
+        ev = {**ev, "last_done": ev_mod.scatter_set(
+            ev["last_done"], idx, succ, t_ev)}
+
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        succ_f = succ.to(torch.float32)
+        stats = {
+            "wall_sx": stats["wall_sx"] + torch.sum(torch.where(wall_ok, x_wall, zero)),
+            "wall_sx2": stats["wall_sx2"]
+            + torch.sum(torch.where(wall_ok, x_wall**2, zero)),
+            "wall_cnt": stats["wall_cnt"] + wall_ok.to(torch.float32).sum(),
+            "ep_sx": ep_sx, "ep_sx2": ep_sx2, "ep_cnt": ep_cnt,
+            "stale_sum": stats["stale_sum"]
+            + torch.sum(torch.where(succ, staleness, 0).to(torch.float32)),
+            "stale_cnt": stats["stale_cnt"] + succ_f.sum(),
+            "stale_max": torch.maximum(
+                stats["stale_max"], torch.max(torch.where(succ, staleness, 0))
+            ),
+            "updates": stats["updates"] + succ_f.sum(),
+            "aggs": stats["aggs"] + has.to(torch.float32),
+        }
+        new_state = {
+            **state,
+            "params": params, "hist": hist, "sched": sched, "ev": ev,
+            "clock": new_clock, "version": version, "stats": stats,
+        }
+        aux = {
+            "send": send,
+            "loss": mean_loss,
+            "buffer_fill": valid.to(torch.int32).sum(),
+            "clock": new_clock,
+            "version": version,
+        }
+        return new_state, aux
+
+    return init_state, step

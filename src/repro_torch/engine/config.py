@@ -1,0 +1,228 @@
+"""One run contract for federated training, copied from ``repro.engine.config``.
+
+``RunConfig`` keeps every field of the reference, so a config builds,
+validates and serializes the same way in both packages; ``RunResult`` /
+``RoundRecord`` are the typed output schema; ``chunk_plan`` splits a run
+into chunks that never straddle an eval step.
+
+The port so far runs the calm asynchronous path only (ROADMAP queue 1,
+slice A). A config that asks for anything else — the sync engine, a
+topology, faults, re-dispatch, defense, a device mesh or a JAX PRNG
+implementation — raises ``NotImplementedError`` naming the slice that
+brings it; no option is silently ignored.
+
+This module is dependency-free (dataclasses + numpy only).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+MODES = ("sync", "async")
+RNG_IMPLS = ("threefry2x32", "rbg", "unsafe_rbg")
+# largest scan chunk the auto heuristic will pick (bounds the stacked
+# per-chunk aux/history buffers at chunk_len * n cells)
+MAX_AUTO_CHUNK = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """Everything needed to reproduce one federated run (the reference's
+    fields; the options of later slices raise, see ``_slice_guard``)."""
+
+    # --- fleet + schedule (paper Sec. IV defaults) ---
+    n_clients: int = 100
+    k: int = 15  # paper: 15% participation
+    m: int = 10  # max permissible age (Markov policy)
+    policy: str = "markov"  # any name in repro_torch.engine.policy_names()
+    policy_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    rounds: int = 100  # sync rounds / async server steps
+    local_epochs: int = 5
+    batch_size: int = 50
+    lr0: float = 0.1
+    lr_decay: float = 0.998
+    seed: int = 0
+    # cohort padding for variable-size policies (markov): vmap width
+    max_cohort: Optional[int] = None
+    eval_every: int = 1
+
+    # --- hot loop ---
+    # steps advanced per host transfer. None -> auto: min(eval_every,
+    # MAX_AUTO_CHUNK); chunks never straddle an eval step.
+    steps_per_chunk: Optional[int] = None
+    # materialize the (rounds, n) selection matrix on the host. None ->
+    # below the history cell cap. False: load stats come from the
+    # device-resident accumulators alone.
+    collect_history: Optional[bool] = None
+    # the reference's JAX PRNG implementation; must stay None here
+    rng_impl: Optional[str] = None
+
+    # --- engine ---
+    mode: str = "sync"  # sync | async; only async is ported so far
+    # None -> per-mode default: fedavg (sync) / fedbuff (async)
+    aggregator: Optional[str] = None
+    aggregator_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    # --- async engine only ---
+    buffer_size: Optional[int] = None  # aggregation buffer; default k
+    max_versions: int = 8  # ring of retained global models
+    profile: Any = "lognormal"  # name or sim.latency.LatencyProfile
+    use_kernel: Optional[bool] = None  # None: kernel when fleet is large
+
+    # --- options of later slices (each raises NotImplementedError) ---
+    mesh_shards: Optional[int] = None  # slice F
+    topology: Any = None  # slice D
+    topology_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    faults: Any = ()  # slice C
+    fault_rate: float = 0.05
+    fault_kwargs: Dict[str, Dict[str, Any]] = dataclasses.field(
+        default_factory=dict
+    )
+    redispatch_timeout: Optional[float] = None  # slice C
+    redispatch_retries: int = 1
+    shard_cohort: bool = False  # slice F
+    defense: bool = False  # slice E
+    defense_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    fault_exposure: bool = False  # slice C
+
+    def __post_init__(self) -> None:
+        if self.mode not in MODES:
+            raise ValueError(f"mode must be one of {MODES}, got {self.mode!r}")
+        _slice_guard(self)
+        if not 0 < self.k <= self.n_clients:
+            raise ValueError(
+                f"k={self.k} must be in 1..n_clients={self.n_clients}"
+            )
+        if self.max_cohort is not None and self.max_cohort < self.k:
+            raise ValueError(
+                f"max_cohort={self.max_cohort} < k={self.k}: the cohort "
+                "buffer could not hold even an exact-k selection; raise "
+                "max_cohort (or leave it None for the binomial-tail default)"
+            )
+        if self.steps_per_chunk is not None and self.steps_per_chunk < 1:
+            raise ValueError(
+                f"steps_per_chunk must be >= 1, got {self.steps_per_chunk}"
+            )
+
+    def resolved_aggregator(self) -> str:
+        if self.aggregator is not None:
+            return self.aggregator
+        return "fedavg" if self.mode == "sync" else "fedbuff"
+
+    def resolved_buffer_size(self) -> int:
+        return self.buffer_size or self.k
+
+    def resolved_steps_per_chunk(self) -> int:
+        if self.steps_per_chunk is not None:
+            return self.steps_per_chunk
+        return max(1, min(self.eval_every, MAX_AUTO_CHUNK))
+
+    def profile_name(self) -> str:
+        return self.profile if isinstance(self.profile, str) else self.profile.name
+
+
+def _slice_guard(cfg: "RunConfig") -> None:
+    """Reject every option of the reference that the port does not run yet,
+    naming the ROADMAP queue-1 slice that brings it."""
+    later = (
+        ("mode='sync' (SyncEngine)", cfg.mode == "sync", "slice B (the sync path)"),
+        ("faults", bool(cfg.faults) or bool(cfg.fault_kwargs)
+         or cfg.fault_exposure, "slice C (robustness tier)"),
+        ("redispatch_timeout", cfg.redispatch_timeout is not None,
+         "slice C (robustness tier)"),
+        ("topology", cfg.topology is not None or bool(cfg.topology_kwargs),
+         "slice D (topology)"),
+        ("defense", cfg.defense or bool(cfg.defense_kwargs), "slice E (defense)"),
+        ("mesh_shards", cfg.mesh_shards is not None, "slice F (multi-GPU)"),
+        ("shard_cohort", cfg.shard_cohort, "slice F (multi-GPU)"),
+    )
+    for name, asked, where in later:
+        if asked:
+            raise NotImplementedError(
+                f"{name} is not ported to repro_torch yet: it arrives with "
+                f"ROADMAP queue 1, {where}"
+            )
+    if cfg.rng_impl is not None:
+        raise NotImplementedError(
+            f"rng_impl={cfg.rng_impl!r} names a JAX PRNG implementation; "
+            "repro_torch draws from a torch.Generator (leave rng_impl None)"
+        )
+
+
+def chunk_plan(rounds: int, eval_every: int, steps_per_chunk: int):
+    """Split ``rounds`` steps into scan chunks of at most ``steps_per_chunk``
+    that never straddle an eval step, as ``(start, length, do_eval)``.
+
+    Eval steps are exactly the pre-chunking cadence — every step ``r`` with
+    ``(r + 1) % eval_every == 0`` plus the final step — so a chunked run
+    evaluates (and records) at identical rounds to a per-step run.
+    """
+    plan = []
+    r = 0
+    while r < rounds:
+        next_eval = min((r // eval_every + 1) * eval_every, rounds)
+        end = min(r + steps_per_chunk, next_eval)
+        plan.append((r, end - r, end == next_eval))
+        r = end
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# Result schema
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RoundRecord:
+    """One evaluated round / server step, identical for both engines.
+
+    ``clock``/``version``/``buffer_fill`` are simulator quantities and stay
+    None under the sync engine.
+    """
+
+    round: int
+    train_loss: float
+    eval_loss: float
+    accuracy: float
+    clock: Optional[float] = None
+    version: Optional[int] = None
+    buffer_fill: Optional[int] = None
+
+
+@dataclasses.dataclass
+class RunResult:
+    """Typed output of ``repro_torch.engine.run_engine``."""
+
+    config: RunConfig
+    records: List[RoundRecord]
+    selection: Optional[np.ndarray]  # (rounds, n) bool, None above cell cap
+    load_stats: Dict[str, float]  # empirical Var[X] etc. from selection
+    wall_stats: Optional[Dict[str, float]]  # async-only simulator stats
+    params: Any
+    wall_time_s: float
+    # per-fault (n,) exposure counts, only when cfg.fault_exposure
+    fault_exposure: Optional[Dict[str, np.ndarray]] = None
+    # per-client defense arrays ({"reputation", "status"}), only when armed
+    defense: Optional[Dict[str, np.ndarray]] = None
+
+    def history(self) -> Dict[str, list]:
+        """Legacy column-oriented history view of the records."""
+        cols = ["round", "accuracy", "eval_loss", "train_loss"]
+        if self.config.mode == "async":
+            cols = ["round", "clock", "version", "accuracy", "eval_loss",
+                    "train_loss", "buffer_fill"]
+        return {c: [getattr(r, c) for r in self.records] for c in cols}
+
+    def to_jsonable(self) -> Dict[str, Any]:
+        """JSON-safe payload (excludes params and the raw selection matrix)."""
+        from repro_torch.engine.serialize import to_jsonable
+
+        return to_jsonable({
+            "config": dataclasses.asdict(self.config),
+            "history": self.history(),
+            "load_stats": self.load_stats,
+            "wall_stats": self.wall_stats,
+            "wall_time_s": self.wall_time_s,
+        })

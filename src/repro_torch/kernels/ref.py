@@ -1,0 +1,5 @@
+"""Oracles for the port's kernels (ground truth for tests), as
+``repro.kernels.ref`` is for the Pallas kernels."""
+from __future__ import annotations
+
+from repro_torch.kernels.event_topk import next_k_plain as event_next_k_ref  # noqa: F401

@@ -1,0 +1,136 @@
+"""CLI plumbing for the port's federated training driver.
+
+The flags are those of ``repro.launch._fl_cli`` (plus ``--device``), so a
+command line moves between the packages unchanged. Flags of options the
+port does not run yet reach ``RunConfig``, which raises
+``NotImplementedError`` naming the ROADMAP slice that brings them.
+"""
+from __future__ import annotations
+
+import argparse
+from typing import Any, Dict, Optional
+
+from repro_torch.engine import RunConfig, dump_json, policy_names
+from repro_torch.fl.task import FLTask
+
+
+def add_common_args(ap: argparse.ArgumentParser, defaults: Dict[str, Any]) -> None:
+    """Flags shared with the reference drivers; ``defaults`` carries the
+    per-driver defaults."""
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; pass cpu to run on "
+                         "the CPU)")
+    ap.add_argument("--dataset", default="mnist",
+                    choices=["mnist", "cifar10", "cifar100"])
+    ap.add_argument("--arch", default=None,
+                    help="reduced LLM arch as the FL workload (not ported "
+                         "yet: ROADMAP queue 1, slice G)")
+    ap.add_argument("--policy", default="markov", choices=sorted(policy_names()))
+    ap.add_argument("--rounds", type=int, default=defaults["rounds"],
+                    help=defaults.get("rounds_help", "training rounds"))
+    ap.add_argument("--clients", type=int, default=defaults["clients"])
+    ap.add_argument("--k", type=int, default=15)
+    ap.add_argument("--m", type=int, default=10)
+    ap.add_argument("--aggregator", default=None,
+                    help="aggregation rule (default: fedbuff async)")
+    ap.add_argument("--local-epochs", type=int, default=defaults["local_epochs"])
+    ap.add_argument("--batch-size", type=int, default=50)
+    ap.add_argument("--lr", type=float, default=defaults["lr"])
+    ap.add_argument("--noniid", action="store_true", help="Dirichlet(0.6) label skew")
+    ap.add_argument("--data-scale", type=float, default=0.25)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--steps-per-chunk", type=int, default=None,
+                    help="steps advanced per host transfer; default: auto, "
+                         "min(eval cadence, 64)")
+    ap.add_argument("--no-history", action="store_true",
+                    help="skip materializing the (rounds, n) selection "
+                         "matrix; load stats come from the device-resident "
+                         "accumulators")
+    # options of later slices: accepted, then rejected by RunConfig
+    ap.add_argument("--rng-impl", default=None)
+    ap.add_argument("--mesh-shards", type=int, default=None, metavar="D")
+    ap.add_argument("--shard-cohort", action="store_true")
+    ap.add_argument("--topology", default=None, metavar="NAME")
+    ap.add_argument("--tiers", default=None, metavar="E0[,E1,...]")
+    ap.add_argument("--heartbeat-timeout", type=float, default=None)
+    ap.add_argument("--faults", default=None, metavar="NAME[,NAME...]")
+    ap.add_argument("--fault-rate", type=float, default=0.05)
+    ap.add_argument("--robust-agg", default=None, metavar="NAME")
+    ap.add_argument("--redispatch-timeout", type=float, default=None)
+    ap.add_argument("--redispatch-retries", type=int, default=1)
+    ap.add_argument("--defense", action="store_true")
+    ap.add_argument("--quarantine-threshold", type=float, default=None)
+    ap.add_argument("--mtd-window", type=int, default=None)
+    ap.add_argument("--detector", default=None)
+    ap.add_argument("--collusion", action="store_true")
+
+
+def build_task(args: argparse.Namespace) -> FLTask:
+    """The federated workload: the paper's CNN on ``args.device``."""
+    if args.arch:
+        raise NotImplementedError(
+            "--arch (LM workloads) is not ported to repro_torch yet: it "
+            "arrives with ROADMAP queue 1, slice G"
+        )
+    from repro_torch.configs.paper_cnn import CNN_CONFIGS
+    from repro_torch.data.synthetic import load_dataset
+    from repro_torch.fl import make_cnn_task
+
+    train, test = load_dataset(args.dataset, seed=args.seed, scale=args.data_scale)
+    cnn = CNN_CONFIGS[f"paper-cnn-{args.dataset}"]
+    return make_cnn_task(
+        cnn, train, test, args.clients,
+        noniid_alpha=0.6 if args.noniid else None, seed=args.seed,
+        device=args.device,
+    )
+
+
+def _later_slice_args(args: argparse.Namespace) -> Dict[str, Any]:
+    """RunConfig fields of the flags of later slices, so that RunConfig
+    rejects them by name."""
+    if args.robust_agg is not None:
+        raise NotImplementedError(
+            "--robust-agg (robust aggregators) is not ported to repro_torch "
+            "yet: it arrives with ROADMAP queue 1, slice C (robustness tier)"
+        )
+    kw: Dict[str, Any] = {}
+    if args.topology is not None or args.tiers or args.heartbeat_timeout:
+        kw["topology"] = args.topology or "star"
+    if args.faults:
+        kw["faults"] = args.faults
+    if args.redispatch_timeout is not None:
+        kw["redispatch_timeout"] = args.redispatch_timeout
+    if (args.defense or args.quarantine_threshold is not None
+            or args.mtd_window is not None or args.detector or args.collusion):
+        kw["defense"] = True
+    return kw
+
+
+def build_run_config(args: argparse.Namespace, mode: str, eval_div: int,
+                     **extra) -> RunConfig:
+    return RunConfig(
+        mode=mode,
+        n_clients=args.clients, k=args.k, m=args.m, policy=args.policy,
+        aggregator=args.aggregator,
+        rounds=args.rounds, local_epochs=args.local_epochs,
+        batch_size=args.batch_size, lr0=args.lr, seed=args.seed,
+        eval_every=max(args.rounds // eval_div, 1),
+        steps_per_chunk=args.steps_per_chunk,
+        collect_history=False if args.no_history else None,
+        rng_impl=args.rng_impl,
+        mesh_shards=args.mesh_shards,
+        shard_cohort=args.shard_cohort,
+        **_later_slice_args(args),
+        **extra,
+    )
+
+
+def write_result(path: Optional[str], result, args: argparse.Namespace) -> None:
+    """One strict-JSON results dump (NaN-safe)."""
+    if not path:
+        return
+    payload = result.to_jsonable()
+    payload["cli_args"] = vars(args)
+    dump_json(path, payload)
+    print("wrote", path)

@@ -1,0 +1,18 @@
+"""Event-driven asynchronous fleet simulator (torch): latency profiles and
+the event engine the async training loop runs over."""
+from repro_torch.sim.latency import (  # noqa: F401
+    PROFILES,
+    LatencyProfile,
+    client_speed,
+    get_profile,
+    sample_avail_gap,
+    sample_dropout,
+    sample_latency,
+)
+from repro_torch.sim.events import (  # noqa: F401
+    KERNEL_THRESHOLD,
+    init_event_state,
+    next_k_events,
+    pop_events,
+    schedule_completions,
+)

@@ -19,6 +19,16 @@ Sites used by the calm async path:
   ``dropout`` (uniform), ``local_perm`` (permutations), ``avail_gap``
   (exponential).
 
+Sites used by the calm sync path (``engine/sync.py``):
+
+  init: ``params/<layer>``, ``policy_init``; per round: ``select``, then
+  ``local_perm`` with one ``(epochs, examples)`` block per cohort slot
+  over all ``width`` slots, padding included. The reference draws these
+  from ``split(key, 3)`` at init and ``split(fold_in(k_run, r))`` per
+  round, then ``split(k_local, width)``; it has no latency draws.
+  ``sim.latency.simulate_sync_duration`` draws ``speed`` at init and
+  ``latency_compute``/``latency_comm`` per round.
+
 ``step(r)`` gives the source for step ``r``: a generator source returns
 itself (its stream simply advances), a replay source its table for ``r``.
 """

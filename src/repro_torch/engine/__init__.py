@@ -3,8 +3,9 @@
 The same contract as ``repro.engine``: name-based registries
 (``register_policy`` / ``register_aggregator``), the ``Policy`` /
 ``Aggregator`` / ``Engine`` protocols, and ``RunConfig`` in, ``RunResult``
-out, with one JSON-safe serializer. So far the calm asynchronous engine is
-ported (``AsyncEngine``); ``RunConfig`` rejects every other option.
+out, with one JSON-safe serializer. The calm synchronous and asynchronous
+engines are ported (``SyncEngine``, ``AsyncEngine``); ``RunConfig``
+rejects every option of a later slice.
 """
 from repro_torch.engine.registry import (  # noqa: F401
     aggregator_names,
@@ -28,4 +29,5 @@ from repro_torch.engine.api import (  # noqa: F401
     run_engine,
 )
 from repro_torch.engine.async_engine import AsyncEngine  # noqa: F401
+from repro_torch.engine.sync import SyncEngine  # noqa: F401
 from repro_torch.core.selection import Policy  # noqa: F401  (registers built-ins)

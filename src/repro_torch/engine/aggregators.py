@@ -16,6 +16,7 @@ weight vector (an empty buffer leaves the global params untouched).
 
 Built-ins, as in the reference:
   * ``fedavg``  — weighted mean of the updated params; ignores staleness.
+                  Its cohort sum is the ``fedavg_reduce`` kernel (K1).
   * ``fedbuff`` — staleness-discounted mean of *deltas* added to the
                   global params (FedBuff/FedAsync style, ``(1+s)^-a``).
   * ``fedprox`` — fedbuff with the mean delta scaled by ``1/(1+mu)``.
@@ -29,6 +30,7 @@ import torch
 
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.engine.registry import register_aggregator
+from repro_torch.kernels import ops as kops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,10 +74,13 @@ def make_fedavg() -> Aggregator:
                                     device=tree_leaves(g)[0].device)}
 
     def accumulate(acc, updates, bases, w):
-        usum = tree_map(
-            lambda s, u: s + torch.sum(u * _wview(w, u).to(u.dtype), dim=0),
-            acc["usum"], updates,
-        )
+        # each leaf's weighted cohort sum is K1 (the CUDA kernel on the GPU,
+        # its plain version on the CPU)
+        def wsum_leaf(s, u):
+            flat = u.reshape(u.shape[0], -1).to(torch.float32).contiguous()
+            return s + kops.fedavg_reduce(flat, w).view(s.shape).to(s.dtype)
+
+        usum = tree_map(wsum_leaf, acc["usum"], updates)
         return {"usum": usum, "wsum": acc["wsum"] + w.sum()}
 
     def finalize(g, acc):

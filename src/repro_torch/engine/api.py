@@ -12,7 +12,7 @@ The loop makes **one host transfer per chunk**: the per-step aux scalars
 together. Load statistics never need the history — the engine folds
 device-resident sufficient statistics (``core.load_metric``) every step.
 
-    cfg = RunConfig(mode="async", policy="markov", aggregator="fedbuff")
+    cfg = RunConfig(mode="sync", policy="markov")  # or mode="async"
     result = run_engine(make_engine(task, cfg), progress=True)
 """
 from __future__ import annotations
@@ -56,13 +56,15 @@ class Engine(Protocol):
 
 def make_engine(task, cfg: RunConfig, policy=None, aggregator=None,
                 draws=None) -> Engine:
-    """Instantiate the engine matching ``cfg`` on the task's device. Only
-    the calm async engine is ported; ``RunConfig`` already rejected every
-    other option."""
-    from repro_torch.engine.async_engine import AsyncEngine
-
-    return AsyncEngine(task, cfg, policy=policy, aggregator=aggregator,
-                       draws=draws)
+    """Instantiate the engine matching ``cfg`` on the task's device: the
+    calm ``SyncEngine`` or ``AsyncEngine``; ``RunConfig`` already rejected
+    every option of a later slice."""
+    if cfg.mode == "sync":
+        from repro_torch.engine.sync import SyncEngine as engine_cls
+    else:
+        from repro_torch.engine.async_engine import AsyncEngine as engine_cls
+    return engine_cls(task, cfg, policy=policy, aggregator=aggregator,
+                      draws=draws)
 
 
 def keep_history(cfg: RunConfig) -> bool:

@@ -5,17 +5,18 @@ validates and serializes the same way in both packages; ``RunResult`` /
 ``RoundRecord`` are the typed output schema; ``chunk_plan`` splits a run
 into chunks that never straddle an eval step.
 
-The port so far runs the calm asynchronous path only (ROADMAP queue 1,
-slice A). A config that asks for anything else — the sync engine, a
+The port runs the calm synchronous and asynchronous paths (ROADMAP
+queue 1, slices A and B). A config that asks for anything else — a
 topology, faults, re-dispatch, defense, a device mesh or a JAX PRNG
 implementation — raises ``NotImplementedError`` naming the slice that
-brings it; no option is silently ignored.
+brings it, in either mode; no option is silently ignored.
 
 This module is dependency-free (dataclasses + numpy only).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -60,7 +61,7 @@ class RunConfig:
     rng_impl: Optional[str] = None
 
     # --- engine ---
-    mode: str = "sync"  # sync | async; only async is ported so far
+    mode: str = "sync"  # sync | async
     # None -> per-mode default: fedavg (sync) / fedbuff (async)
     aggregator: Optional[str] = None
     aggregator_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
@@ -106,6 +107,12 @@ class RunConfig:
                 f"steps_per_chunk must be >= 1, got {self.steps_per_chunk}"
             )
 
+    def cohort_width(self) -> int:
+        """Padded cohort buffer width for variable-size policies."""
+        if self.max_cohort is not None:
+            return self.max_cohort
+        return default_cohort_width(self.n_clients, self.k)
+
     def resolved_aggregator(self) -> str:
         if self.aggregator is not None:
             return self.aggregator
@@ -127,7 +134,6 @@ def _slice_guard(cfg: "RunConfig") -> None:
     """Reject every option of the reference that the port does not run yet,
     naming the ROADMAP queue-1 slice that brings it."""
     later = (
-        ("mode='sync' (SyncEngine)", cfg.mode == "sync", "slice B (the sync path)"),
         ("faults", bool(cfg.faults) or bool(cfg.fault_kwargs)
          or cfg.fault_exposure, "slice C (robustness tier)"),
         ("redispatch_timeout", cfg.redispatch_timeout is not None,
@@ -167,6 +173,41 @@ def chunk_plan(rounds: int, eval_every: int, steps_per_chunk: int):
         plan.append((r, end - r, end == next_eval))
         r = end
     return plan
+
+
+def default_cohort_width(n_clients: int, k: int) -> int:
+    """Markov cohort is ~Binomial(n, k/n): pad to k + 4*sigma (overflow
+    beyond the buffer is dropped, so the tail allowance matters)."""
+    q = k / n_clients
+    sigma = math.sqrt(n_clients * q * (1 - q))
+    return min(n_clients, int(k + 4 * sigma) + 1)
+
+
+def run_config_from_legacy(fl, acfg=None, **overrides) -> RunConfig:
+    """Build a RunConfig from the legacy ``FLConfig`` (+ ``AsyncConfig``)
+    pair. ``acfg`` switches the mode to async and maps its staleness
+    knobs onto the fedbuff aggregator's kwargs."""
+    kw: Dict[str, Any] = dict(
+        n_clients=fl.n_clients, k=fl.k, m=fl.m, policy=fl.policy,
+        rounds=fl.rounds, local_epochs=fl.local_epochs,
+        batch_size=fl.batch_size, lr0=fl.lr0, lr_decay=fl.lr_decay,
+        seed=fl.seed, max_cohort=fl.max_cohort, eval_every=fl.eval_every,
+    )
+    if acfg is not None:
+        kw.update(
+            mode="async",
+            aggregator="fedbuff",
+            aggregator_kwargs={
+                "staleness_mode": acfg.staleness_mode,
+                "staleness_exp": acfg.staleness_exp,
+            },
+            buffer_size=acfg.buffer_size,
+            max_versions=acfg.max_versions,
+            profile=acfg.profile,
+            use_kernel=acfg.use_kernel,
+        )
+    kw.update(overrides)
+    return RunConfig(**kw)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,167 @@
+"""The synchronous FedAvg engine — the paper's round loop.
+
+One round = policy step (which also ages the clients) ->
+``cohort_indices`` -> gather the cohort's shards -> local training of
+every slot from the current global params -> aggregator
+``weigh/init/accumulate/finalize`` with staleness 0. With the default
+``fedavg`` aggregator the cohort sum is the ``fedavg_reduce`` kernel
+(K1).
+
+This is the calm path of ``repro.engine.sync`` (no topology, faults,
+defense or cohort sharding; ``RunConfig`` rejects those). The global
+params are not materialized ``width`` times per round: the cohort sees
+them as stride-0 views (``fl.server.broadcast_to_cohort``), the first SGD
+step writes the per-slot copies, and aggregators receive the unstacked
+global tree as ``bases``. Every tensor of the state lives on the task's
+device, and no round syncs with the host: the learning rate comes from
+the policy state's round counter on the device.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.core.draws import GeneratorDraws
+from repro_torch.core.load_metric import (
+    empirical_load_stats,
+    init_selection_accum,
+    selection_stats_from_accum,
+)
+from repro_torch.core.selection import Policy
+from repro_torch.engine.aggregators import Aggregator
+from repro_torch.engine.chunk import ChunkRunner, step_once
+from repro_torch.engine.config import RoundRecord, RunConfig, RunResult
+from repro_torch.engine.registry import make_aggregator, make_policy
+from repro_torch.fl.client import make_local_update
+from repro_torch.fl.server import broadcast_to_cohort, cohort_indices
+from repro_torch.fl.task import FLTask
+from repro_torch.optim.schedules import exponential_decay
+
+
+class SyncEngine:
+    """Synchronous rounds: every selected client trains from the current
+    global params and the buffer is flushed once per round.
+
+    ``draws`` is the run's random source (``core.draws``); by default a
+    ``torch.Generator`` on the task's device seeded with ``cfg.seed``.
+    """
+
+    def __init__(
+        self,
+        task: FLTask,
+        cfg: RunConfig,
+        policy: Optional[Policy] = None,
+        aggregator: Optional[Aggregator] = None,
+        draws=None,
+    ):
+        if cfg.mode != "sync":
+            raise ValueError(f"SyncEngine needs mode='sync', got {cfg.mode!r}")
+        self.task = task
+        self.cfg = cfg
+        self.policy = policy or make_policy(
+            cfg.policy, cfg.n_clients, cfg.k, cfg.m, **dict(cfg.policy_kwargs)
+        )
+        self.aggregator = aggregator or make_aggregator(
+            cfg.resolved_aggregator(), **dict(cfg.aggregator_kwargs)
+        )
+        self.draws = draws if draws is not None else GeneratorDraws(cfg.seed,
+                                                                    task.device)
+        core = _make_round_core(task, cfg, self.policy, self.aggregator)
+
+        def step(state, draws):
+            params, sched, selected, loss = core(state["params"], state["sched"],
+                                                 draws)
+            return {"params": params, "sched": sched}, {"send": selected,
+                                                        "loss": loss}
+
+        self._chunk = ChunkRunner(step, aux_keys=("loss",))
+
+    def init(self) -> Dict:
+        cfg, d = self.cfg, self.draws
+        return {
+            "params": self.task.init(d),
+            "sched": self.policy.init(d, cfg.n_clients),
+            "load_acc": init_selection_accum(cfg.n_clients, cfg.k,
+                                             self.task.device),
+        }
+
+    def step(self, state: Dict, r: int):
+        return step_once(self._chunk, state, self.draws, r)
+
+    def run_chunk(self, state: Dict, r0: int, length: int, with_history: bool):
+        return self._chunk(state, self.draws, r0, length, with_history)
+
+    def eval_params(self, state: Dict):
+        return state["params"]
+
+    def evaluate(self, state: Dict) -> Dict:
+        return self.task.eval_fn(self.eval_params(state))
+
+    def record(self, r: int, aux: Dict, ev: Dict) -> RoundRecord:
+        return RoundRecord(
+            round=r + 1,
+            train_loss=float(aux["loss"]),
+            eval_loss=float(ev["loss"]),
+            accuracy=float(ev["accuracy"]),
+        )
+
+    def progress_line(self, rec: RoundRecord, elapsed: float) -> str:
+        return (
+            f"  [{self.policy.name}] round {rec.round:4d} "
+            f"acc={rec.accuracy:.4f} loss={rec.eval_loss:.4f} ({elapsed:.1f}s)"
+        )
+
+    def finalize(self, state, records, sel_hist, wall_time_s) -> RunResult:
+        if sel_hist is not None:
+            load_stats = empirical_load_stats(sel_hist)
+        else:
+            load_stats = selection_stats_from_accum(state["load_acc"])
+        return RunResult(
+            config=self.cfg,
+            records=records,
+            selection=sel_hist,
+            load_stats=load_stats,
+            wall_stats=None,
+            params=state["params"],
+            wall_time_s=wall_time_s,
+        )
+
+
+def _make_round_core(task: FLTask, cfg: RunConfig, policy: Policy,
+                     agg: Aggregator):
+    """The per-round function ``round_fn(params, sched_state, draws) ->
+    (params, sched_state, selected, mean_loss)``, shared by the engine's
+    chunk loop and the legacy ``fl.rounds.make_round_fn``.
+
+    ``draws`` is the round's source: the policy draws at ``select``, the
+    local update one ``local_perm`` stream per cohort slot over all
+    ``width`` slots, padding included (the reference's
+    ``split(k_local, width)``).
+    """
+    width = cfg.cohort_width() if not policy.exact_k else cfg.k
+    local_update = make_local_update(
+        task.loss_fn, cfg.local_epochs, cfg.batch_size, task.examples_per_client
+    )
+    lr_fn = exponential_decay(cfg.lr0, cfg.lr_decay)
+
+    def round_fn(params, sched_state, draws):
+        selected, sched_state = policy.step(sched_state, draws)
+        idx, mask = cohort_indices(selected, width)
+        shards = {k: a[idx] for k, a in task.client_data.items()}
+        lr = lr_fn(sched_state["round"] - 1).expand(width)
+        updated, losses = local_update(
+            broadcast_to_cohort(params, width), shards, draws, lr
+        )
+        # sync cohorts are never stale: staleness is identically zero
+        w = agg.weigh(mask > 0, torch.zeros_like(idx))
+        acc = agg.accumulate(agg.init(params), updated, params, w)
+        params = agg.finalize(params, acc)
+        wsum = w.sum()
+        # NaN, not a fake near-0 datapoint, when nobody was selected
+        mean_loss = torch.where(wsum > 0,
+                                torch.sum(losses * w) / torch.clamp(wsum, min=1.0),
+                                torch.full_like(wsum, float("nan")))
+        return params, sched_state, selected, mean_loss
+
+    return round_fn

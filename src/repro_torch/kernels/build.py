@@ -23,7 +23,8 @@ from typing import Dict, Iterable
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = {"event_topk": CSRC / "event_topk.cu"}
+SOURCES = {"event_topk": CSRC / "event_topk.cu",
+           "fedavg_reduce": CSRC / "fedavg_reduce.cu"}
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -3,3 +3,6 @@
 from __future__ import annotations
 
 from repro_torch.kernels.event_topk import next_k_plain as event_next_k_ref  # noqa: F401
+from repro_torch.kernels.fedavg_reduce import (  # noqa: F401
+    fedavg_reduce_plain as fedavg_reduce_ref,
+)

@@ -32,7 +32,8 @@ def add_common_args(ap: argparse.ArgumentParser, defaults: Dict[str, Any]) -> No
     ap.add_argument("--k", type=int, default=15)
     ap.add_argument("--m", type=int, default=10)
     ap.add_argument("--aggregator", default=None,
-                    help="aggregation rule (default: fedbuff async)")
+                    help="aggregation rule (default: fedavg sync, fedbuff "
+                         "async)")
     ap.add_argument("--local-epochs", type=int, default=defaults["local_epochs"])
     ap.add_argument("--batch-size", type=int, default=50)
     ap.add_argument("--lr", type=float, default=defaults["lr"])

@@ -16,3 +16,7 @@ from repro_torch.sim.events import (  # noqa: F401
     pop_events,
     schedule_completions,
 )
+from repro_torch.sim.async_rounds import (  # noqa: F401
+    AsyncConfig,
+    run_async_training,
+)

@@ -140,3 +140,19 @@ def sample_dropout(draws, profile: LatencyProfile, n: int) -> torch.Tensor:
     if profile.dropout <= 0:
         return torch.zeros((n,), dtype=torch.bool, device=draws.device)
     return draws.uniform("dropout", (n,)) < profile.dropout
+
+
+def simulate_sync_duration(selection, profile: LatencyProfile, draws) -> float:
+    """Simulated wall time of a *synchronous* run with realized selection
+    history (rounds, n): each round waits for its slowest selected client
+    under this profile. The baseline the async loop is compared against.
+    Speeds come from ``draws``, round ``r``'s latencies from
+    ``draws.step(r)``. A host-side helper: one host pull per round."""
+    selection = torch.as_tensor(selection, device=draws.device)
+    n = selection.shape[1]
+    speed = client_speed(draws, n, profile)
+    total = 0.0
+    for r, sel in enumerate(selection):
+        lat = sample_latency(draws.step(r), profile, speed)
+        total += float(torch.max(torch.where(sel, lat, 0.0)))
+    return total

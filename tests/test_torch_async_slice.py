@@ -232,7 +232,8 @@ def test_run_result_matches(runs):
 
 
 @pytest.mark.parametrize("option", [
-    dict(mode="sync"), dict(topology="hierarchical"), dict(faults="dropout"),
+    dict(mode="sync", topology="hierarchical"), dict(topology="hierarchical"),
+    dict(faults="dropout"),
     dict(redispatch_timeout=30.0), dict(defense=True), dict(mesh_shards=0),
     dict(shard_cohort=True), dict(rng_impl="rbg"),
 ])

@@ -43,12 +43,42 @@ prints one JSON line for each:
           the card and plain on the CPU, TF32 off, each card round started
           from the CPU's params of the round before: discrete outputs
           equal, params close, K1 launched every round.
+  kernel_k4    K4 (``flash_attention``) against its plain version on the
+          card at the serving prefill shape (B, Hk, G, S, D) =
+          (4, 4, 8, 2048, 64) in bf16 and at the reference's test shapes
+          (sliding, chunked, D = 128, uneven blocks; f32 to 2e-5, bf16 to
+          2e-2); two launches bitwise equal; its time (CUDA events and
+          device-only), the plain version's, the bound, and
+          ``scaled_dot_product_attention`` (kv heads expanded) as yardstick.
+  kernel_k5    the same for K5 (``flash_decode``) at the serving decode
+          shape (8, 4, 8, 640, 64) in bf16, cache full, read in the model's
+          (B, L, Hk, D) layout, and at the reference's test shapes (per-batch
+          valid_len, a partial cache, L not a multiple of any tile);
+          ``scaled_dot_product_attention`` with a boolean prefix mask as
+          yardstick.
+  serve_main   tinyllama-1.1b at full width (22 layers, bf16, weights from
+          seed 0): ``model.prefill`` at (B, S) = (4, 2048) must launch K4 22
+          times; then ``repro_torch.launch.serve.serve`` at batch 8, prompt
+          512, gen 128, temperature 0.8, whose every decode step (the prompt
+          goes through ``prefill_tokens``, one decode step a token) launches
+          K5 22 times, and no plain version or kernel-off route runs.
+          Prefill and decode rates, decode ms per step beside the weight-read
+          bound, the device-busy share of 10 decode steps, K4's and K5's
+          share of device time, peak memory, and no host sync inside
+          ``decode_step``. The reference's contract that ``model.prefill``'s
+          last logits equal those of ``prefill_tokens`` over the same prompt
+          is checked in f32 (TF32 off) and reported in bf16.
+  serve_parity the reduced tinyllama in f32, TF32 off, from the same numpy
+          weights on the card and on the CPU: ``model.prefill`` logits and
+          ``serve``'s greedy tokens and logits equal within 1e-4, with K4
+          and K5 launched on the card.
 
 The main and sync_main phases run before the parity phases, which turn
-TF32 off. Then the ``{"kernels": [...]}`` line (K2, then K1), the card's name and power limit as
-``nvidia-smi`` reports them, and, last, the device line. Any failure exits
-non-zero; without a GPU, or outside a checkout of the repository, the
-script fails before printing a result. It imports nothing of JAX.
+TF32 off. Then the ``{"kernels": [...]}`` line (K2, K1, K4, K5), the card's
+name and power limit as ``nvidia-smi`` reports them, and, last, the device
+line. Any failure exits non-zero; without a GPU, or outside a checkout of
+the repository, the script fails before printing a result. It imports
+nothing of JAX.
 """
 from __future__ import annotations
 
@@ -65,6 +95,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 MAIN_ARGV = ["--dataset", "mnist", "--data-scale", "5", "--clients", "16384",
              "--k", "256", "--policy", "markov", "--latency-profile", "lognormal",
              "--rounds", "20"]
@@ -74,6 +105,15 @@ SYNC_ARGV = ["--dataset", "mnist", "--data-scale", "5", "--clients", "100",
              "--batch-size", "50", "--lr", "0.02", "--rounds", "60"]
 FLEET = (16384, 256)  # (n, k) of the async main path, for K1's fleet width
 K1_RTOL, K1_ATOL = 1e-5, 1e-6  # relative to sum_c |w_c P_cn|: f32 sums in two orders
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # the reference's kernel-test tolerances
+LM_ARCH = "tinyllama-1.1b"
+PREFILL_SHAPE = (4, 2048)  # (B, S) of model.prefill in serve_main
+SERVE_ARGS = dict(batch=8, prompt_len=512, gen=128, temperature=0.8, seed=0)
+# f32 prefill vs prefill_tokens at full width: the reference holds its own
+# consistency to 3e-4 at 2 layers of width 256; 22 layers of width 2048
+# sum f32 products over 8x longer rows in other orders (one S-token GEMM
+# against S one-token GEMMs, K4 against K5), so the bound is widened 3.3x
+CONSISTENCY_TOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -702,6 +742,397 @@ def phase_sync_parity(torch, fedavg_reduce):
           "tf32": False})
 
 
+def _attn_inputs(torch, gen, shape, dtype, decode=False):
+    """q, k, v on the card from ``gen``; for decode, k/v are views of a
+    (B, L, Hk, D) cache, the model's layout."""
+    if decode:
+        B, Hk, G, L, D = shape
+        q = torch.randn((B, Hk, G, D), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((B, L, Hk, D), generator=gen, device="cuda").to(dtype)
+                .permute(0, 2, 1, 3) for _ in range(2))
+        return q, k, v
+    B, Hk, G, S, D = shape
+    q = torch.randn((B, Hk, G, S, D), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((B, Hk, S, D), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    return q, k, v
+
+
+def _check_against_plain(torch, name, fn, plain, dtype):
+    """Kernel vs plain on the same inputs at the reference's tolerance; two
+    launches bitwise equal. Returns the max abs error."""
+    out, again, ref = fn(), fn(), plain()
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name}: launches differ bitwise")
+    tol = ATTN_TOL[str(dtype).replace("torch.", "")]
+    if not torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol):
+        raise AssertionError(f"{name}: kernel disagrees with its plain version "
+                             f"(max abs err {float((out.float() - ref.float()).abs().max())})")
+    return float((out.float() - ref.float()).abs().max())
+
+
+def phase_kernel_k4(torch, k4):
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, S = PREFILL_SHAPE
+    main = (B, 4, 8, S, 64)  # tinyllama-1.1b: 4 kv heads, 8 query heads each, D 64
+    cases = [(main, "full", 0, bf16)] + [
+        (shape, kind, w, dt) for dt in (f32, bf16) for shape, kind, w in [
+            ((1, 2, 2, 256, 64), "full", 0), ((2, 1, 4, 512, 32), "full", 0),
+            ((1, 2, 1, 512, 128), "sliding", 128), ((1, 1, 2, 512, 64), "chunked", 128),
+            ((1, 4, 8, 256, 64), "full", 0), ((1, 2, 2, 384, 64), "full", 0)]]
+    errs = {}
+    for shape, kind, w, dt in cases:
+        q, k, v = _attn_inputs(torch, gen, shape, dt)
+        scale = shape[-1] ** -0.5
+        name = f"{tuple(shape)}_{kind}_{str(dt)[6:]}"
+        block_k = 384 if shape[3] == 384 else 128  # the reference's uneven-blocks case
+        errs[name] = _check_against_plain(
+            torch, f"K4 {name}",
+            lambda: k4.flash_attention(q, k, v, scale=scale, kind=kind, window=w,
+                                       block_q=128, block_k=block_k),
+            lambda: k4.flash_attention_plain(q, k, v, scale=scale, kind=kind,
+                                             window=w), dt)
+    q, k, v = _attn_inputs(torch, gen, main, bf16)
+    _, Hk, G, _, D = main
+    qh = q.reshape(B, Hk * G, S, D)  # the same work as one MHA call
+    kh, vh = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    run = lambda: k4.flash_attention(q, k, v, scale=0.125)  # noqa: E731
+    pairs = S * (S + 1) // 2  # causal (query, key) pairs
+    ops = 4 * B * Hk * G * D * pairs
+    nbytes = (q.numel() * 2 + k.numel() + v.numel()) * 2  # q, k, v in; o out
+    entry = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:92",
+        "max_abs_err": errs[f"{main}_full_bfloat16"],
+        "ms": cuda_ms(torch, run, calls=20),
+        "plain_ms": cuda_ms(torch, lambda: k4.flash_attention_plain(q, k, v, scale=0.125),
+                            calls=3, trials=3),
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3,
+        "bound_by": "operations" if ops / BF16_OPS_PER_S > nbytes / HBM_BYTES_PER_S
+        else "bytes",
+        "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True), calls=20),
+    }
+    emit({"phase": "kernel_k4", "ok": True, "cases": len(cases), "shape": list(main),
+          "dtype": "bfloat16", **entry, "device_ms": device_ms(torch, run),
+          "library_device_ms": device_ms(torch, lambda: F.scaled_dot_product_attention(
+              qh, kh, vh, is_causal=True)),
+          "tflops": ops / (entry["ms"] * 1e-3) / 1e12, "max_abs_err_by_case": errs})
+    return entry
+
+
+def phase_kernel_k5(torch, k5):
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, P, G_ = SERVE_ARGS["batch"], SERVE_ARGS["prompt_len"], SERVE_ARGS["gen"]
+    main = (B, 4, 8, P + G_, 64)  # the serving decode: cache of prompt + gen slots
+    cases = [(main, P + G_, bf16), (main, P + 1, bf16)] + [
+        (shape, vlen, dt) for dt in (f32, bf16) for shape, vlen in [
+            ((2, 2, 4, 512, 64), 512), ((1, 4, 1, 1024, 128), 700),
+            ((1, 1, 8, 384, 64), 384), ((3, 2, 2, 256, 64), (64, 128, 256)),
+            ((2, 2, 3, 100, 32), 0)]]
+    errs = {}
+    for shape, vlen, dt in cases:
+        q, k, v = _attn_inputs(torch, gen, shape, dt, decode=True)
+        vl = torch.tensor(vlen, dtype=torch.int32, device="cuda")
+        scale = shape[-1] ** -0.5
+        name = f"{tuple(shape)}_v{vlen}_{str(dt)[6:]}"
+        errs[name] = _check_against_plain(
+            torch, f"K5 {name}", lambda: k5.flash_decode(q, k, v, vl, scale=scale),
+            lambda: k5.flash_decode_plain(q, k, v, vl, scale=scale), dt)
+    q, k, v = _attn_inputs(torch, gen, main, bf16, decode=True)
+    Bm, Hk, G, L, D = main
+    vl = torch.tensor(L, dtype=torch.int32, device="cuda")
+    run = lambda: k5.flash_decode(q, k, v, vl, scale=0.125)  # noqa: E731
+    qh = q.reshape(Bm, Hk * G, 1, D)
+    kh, vh = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    mask = (torch.arange(L, device="cuda") < vl)[None, None, None].expand(Bm, 1, 1, L)
+    lib = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)  # noqa: E731
+    nbytes = (2 * Bm * Hk * L * D + 2 * q.numel()) * 2  # the valid K, V; q in, o out
+    ops = 4 * Bm * Hk * G * L * D
+    entry = {
+        "name": "flash_decode", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:82",
+        "max_abs_err": errs[f"{main}_v{L}_bfloat16"],
+        "ms": cuda_ms(torch, run),
+        "plain_ms": cuda_ms(torch, lambda: k5.flash_decode_plain(q, k, v, vl, scale=0.125)),
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S
+        else "operations",
+        "library_ms": cuda_ms(torch, lib),
+    }
+    emit({"phase": "kernel_k5", "ok": True, "cases": len(cases), "shape": list(main),
+          "dtype": "bfloat16", "ctas": Bm * Hk, "sms": torch.cuda.get_device_properties(
+              0).multi_processor_count, **entry, "device_ms": device_ms(torch, run),
+          "library_device_ms": device_ms(torch, lib), "max_abs_err_by_case": errs})
+    return entry
+
+
+def _count_calls(module, names, counts):
+    """Wrap ``module.<name>`` for each name so ``counts[name]`` counts its
+    calls; returns a function that restores the originals."""
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def counted(*args, **kw):
+            counts[name] = counts.get(name, 0) + 1
+            return fn(*args, **kw)
+        return counted
+
+    for n, fn in saved.items():
+        setattr(module, n, wrap(n, fn))
+    return lambda: [setattr(module, n, fn) for n, fn in saved.items()]
+
+
+def _syncs_in(torch, fn):
+    """Messages of the synchronizing CUDA operations ``fn`` makes, under
+    ``torch.cuda.set_sync_debug_mode``; a known sync (``.item()``) right
+    after is the control: the mode must report it."""
+    def is_sync(w):
+        msg = str(w.message)
+        return "synchroniz" in msg and "prototype feature" not in msg
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+            n_in = len(caught)
+            torch.zeros((), device="cuda").item()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    if not any(map(is_sync, caught[n_in:])):
+        raise AssertionError("sync debug mode missed a known sync (.item())")
+    return [str(w.message) for w in caught[:n_in] if is_sync(w)]
+
+
+def _profile(torch, fn, calls):
+    """Device time of ``fn`` over ``calls`` calls (``torch.profiler``): the
+    union of kernel intervals, the host-clock window, summed kernel time by
+    name, and the number of kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + ev.self_device_time_total / 1e3
+    kernels = [(ev.time_range.start, ev.time_range.end) for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA]
+    return _union_ms(kernels), window_ms, by_name, len(kernels)
+
+
+def _share(by_name, match):
+    total = sum(by_name.values())
+    return sum(ms for name, ms in by_name.items() if match in name) / total if total else 0.0
+
+
+def phase_serve_main(torch, k4, k5):
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import factory
+    from repro_torch.serve.batching import prefill_tokens
+
+    cfg = get_arch(LM_ARCH)
+    model = factory.build(cfg)
+    n_layers = cfg.num_layers
+    t0 = time.time()
+    params = model.init(torch.Generator(device="cuda").manual_seed(SERVE_ARGS["seed"]))
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    B, S = PREFILL_SHAPE
+    toks = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", dtype=torch.int32,
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    plain_calls = {}
+    restore = [_count_calls(k4, ["flash_attention_plain"], plain_calls),
+               _count_calls(k5, ["flash_decode_plain"], plain_calls),
+               _count_calls(attn_mod, ["_attend_direct", "_attend_flash_jnp"], plain_calls)]
+    try:
+        with torch.no_grad():
+            prefill = lambda: model.prefill(params, {"tokens": toks})  # noqa: E731
+            prefill()  # warm-up (cuBLAS handles, kernel library load)
+            torch.cuda.synchronize()
+            k4.launches = k5.launches = 0
+            t0 = time.perf_counter()
+            logits, caches = prefill()
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            k4_launches, k5_prefill = k4.launches, k5.launches
+            if not bool(torch.isfinite(logits).all()) or logits.shape != (B, 1, cfg.vocab_size):
+                raise AssertionError("serve_main: prefill logits not finite / of shape")
+            if k4_launches != n_layers or k5_prefill:
+                raise AssertionError(f"serve_main: model.prefill launched K4 {k4_launches} "
+                                     f"and K5 {k5_prefill} times ({n_layers} layers)")
+            del caches
+            p_union, p_window, p_by, _ = _profile(torch, prefill, 2)
+            torch.cuda.reset_peak_memory_stats()
+            k4.launches = k5.launches = 0
+            res = serve_mod.serve(cfg, device="cuda", params=params, **SERVE_ARGS)
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            k5_launches, k4_serve = k5.launches, k4.launches
+        steps = SERVE_ARGS["prompt_len"] + SERVE_ARGS["gen"]
+        if k5_launches != n_layers * steps or k4_serve:
+            raise AssertionError(f"serve_main: serve launched K5 {k5_launches} times in "
+                                 f"{steps} decode steps of {n_layers} layers, K4 {k4_serve}")
+        if plain_calls:
+            raise AssertionError(f"serve_main: plain versions ran on the card: {plain_calls}")
+    finally:
+        for fn in restore:
+            fn()
+    if res.tokens.shape != (SERVE_ARGS["batch"], SERVE_ARGS["gen"]) or not (
+            (res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
+        raise AssertionError("serve_main: generated tokens out of range")
+
+    # decode steps on their own: host syncs, device-busy share, K5's share
+    Bd, P = SERVE_ARGS["batch"], SERVE_ARGS["prompt_len"]
+    caches = model.init_decode_caches(Bd, P + SERVE_ARGS["gen"], "cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (Bd, P), device="cuda", dtype=torch.int32,
+                           generator=torch.Generator(device="cuda").manual_seed(2))
+    with torch.no_grad():
+        logits, caches = prefill_tokens(model.decode_step, params, caches, prompt)
+        tok = logits[:, -1:].argmax(-1).to(torch.int32)
+        state = {"caches": caches}
+
+        def step():
+            _, state["caches"] = model.decode_step(params, state["caches"], tok)
+
+        syncs = _syncs_in(torch, lambda: [step() for _ in range(2)])
+        if syncs:
+            raise AssertionError(f"serve_main: decode_step synchronized: {syncs[:3]}")
+        d_union, d_window, d_by, d_kernels = _profile(torch, step, 10)
+    kv_bytes = 2 * n_layers * Bd * (P + SERVE_ARGS["gen"]) * 4 * 64 * 2
+
+    # prefill/decode consistency (the reference's test_models_smoke.py:89)
+    consistency = _prefill_consistency(torch, model, params, tree_map, prefill_tokens)
+    decode_ms = res.decode_s * 1e3 / res.gen
+    emit({"phase": "serve_main", "ok": True, "arch": cfg.name, "layers": n_layers,
+          "params": sum(t.numel() for t in tree_leaves(params)),
+          "param_gb": param_bytes / 1e9, "init_s": init_s,
+          "prefill": {"batch": B, "seq": S, "k4_launches": k4_launches,
+                      "ms": prefill_s * 1e3, "tokens_per_s": B * S / prefill_s,
+                      "device_union_ms": p_union / 2, "window_ms": p_window / 2,
+                      "k4_share_of_device_time": _share(p_by, "mma_kernel")},
+          "serve": {**SERVE_ARGS, "k5_launches": k5_launches,
+                    "k5_launches_per_step": k5_launches / steps,
+                    "prefill_by_decode_s": res.prefill_s,
+                    "prefill_by_decode_tokens_per_s": Bd * P / res.prefill_s,
+                    "decode_s": res.decode_s, "decode_ms_per_step": decode_ms,
+                    "decode_tokens_per_s": Bd * res.gen / res.decode_s,
+                    "weight_read_bound_ms_per_step": param_bytes / HBM_BYTES_PER_S * 1e3,
+                    "weight_and_kv_bound_ms_per_step":
+                        (param_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3,
+                    "peak_mem_gib": peak_gib, "first_tokens": res.tokens[0, :8].tolist()},
+          "decode_profile_10_steps": {
+              "device_union_ms_per_step": d_union / 10, "window_ms_per_step": d_window / 10,
+              "device_busy_share": d_union / d_window,
+              "k5_share_of_device_time": _share(d_by, "decode_kernel"),
+              "kernels_per_step": d_kernels / 10,
+              "top": sorted(((round(ms / 10, 5), name[:80]) for name, ms in d_by.items()),
+                            reverse=True)[:8]},
+          "host_syncs_in_2_decode_steps": 0, "plain_calls": 0,
+          "consistency": consistency})
+    return k4_launches, k5_launches
+
+
+def _prefill_consistency(torch, model, params, tree_map, prefill_tokens):
+    """Last logits of ``model.prefill`` vs ``prefill_tokens`` over the same
+    prompt (2 x 256 tokens): f32 with TF32 off, held to CONSISTENCY_TOL;
+    the bf16 gap and top-1 agreement reported beside it."""
+    prompt = torch.randint(0, model.cfg.vocab_size, (2, 256), device="cuda",
+                           dtype=torch.int32,
+                           generator=torch.Generator(device="cuda").manual_seed(3))
+    out = {}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, p in (("float32", tree_map(lambda t: t.float(), params)),
+                        ("bfloat16", params)):
+            with torch.no_grad():
+                lp, _ = model.prefill(p, {"tokens": prompt})
+                caches = model.init_decode_caches(2, 256, "cuda")
+                if name == "float32":
+                    caches = tree_map(lambda t: t.float() if t.is_floating_point() else t,
+                                      caches)
+                ld, _ = prefill_tokens(model.decode_step, p, caches, prompt)
+            lp, ld = lp.float(), ld.float()
+            gap = float((lp - ld).abs().max())
+            out[name] = {"max_abs_gap": gap, "max_abs_logit": float(lp.abs().max()),
+                         "top1_agree": float((lp.argmax(-1) == ld.argmax(-1)).float().mean())}
+            if name == "float32":
+                if not torch.allclose(lp, ld, atol=CONSISTENCY_TOL, rtol=CONSISTENCY_TOL):
+                    raise AssertionError(f"serve_main: f32 prefill vs prefill_tokens gap "
+                                         f"{gap} above {CONSISTENCY_TOL}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    out["tolerance_f32"] = CONSISTENCY_TOL
+    return out
+
+
+def phase_serve_parity(torch, k4, k5):
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import factory
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(LM_ARCH).reduced()
+    model = factory.build(cfg)
+    rng = np.random.default_rng(0)
+    like = model.init(torch.Generator().manual_seed(0))
+    # numpy weights at each leaf's init scale; the norms' ones stay ones
+    weights = tree_map(lambda t: t.numpy() if float(t.std()) == 0 else (
+        rng.standard_normal(t.shape) * float(t.std())).astype(np.float32), like)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 128)).astype(np.int32)
+    runs = {}
+    before = (k4.launches, k5.launches)
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev),
+                          weights)
+        with torch.no_grad():
+            lp, _ = model.prefill(params, {"tokens": torch.from_numpy(prompts).to(dev)})
+        res = serve_mod.serve(cfg, 4, 128, 16, temperature=0.0, device=dev, params=params,
+                              prompts=torch.from_numpy(prompts).to(dev))
+        runs[dev] = (lp.cpu(), res.prefill_logits.cpu(), res.tokens)
+    launched = (k4.launches - before[0], k5.launches - before[1])
+    (lp_c, pl_c, tok_c), (lp_g, pl_g, tok_g) = runs["cpu"], runs["cuda"]
+    if not np.array_equal(tok_c, tok_g):
+        raise AssertionError("serve_parity: greedy tokens differ between card and CPU")
+    for name, a, b in (("prefill", lp_g, lp_c), ("prefill_tokens", pl_g, pl_c)):
+        if not torch.allclose(a, b, atol=1e-4, rtol=1e-4):
+            raise AssertionError(f"serve_parity: {name} logits differ: "
+                                 f"{float((a - b).abs().max())}")
+    if launched[0] < cfg.num_layers or launched[1] < cfg.num_layers * (128 + 16):
+        raise AssertionError(f"serve_parity: K4/K5 launched {launched} times")
+    emit({"phase": "serve_parity", "ok": True, "arch": cfg.name, "batch": 4,
+          "prompt_len": 128, "gen": 16, "k4_launches": launched[0],
+          "k5_launches": launched[1], "tokens_equal": True,
+          "max_abs_logit_diff": max(float((lp_g - lp_c).abs().max()),
+                                    float((pl_g - pl_c).abs().max())),
+          "tf32": False})
+
+
 def main() -> int:
     import torch
 
@@ -710,6 +1141,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import build, event_topk, fedavg_reduce
+    from repro_torch.kernels import flash_attention, flash_decode
 
     t0 = time.time()
     build.build_all()
@@ -722,9 +1154,15 @@ def main() -> int:
     k1_entry["launches"] = phase_sync_main(torch, fedavg_reduce)
     phase_parity(torch)
     phase_sync_parity(torch, fedavg_reduce)
+    k4_entry = phase_kernel_k4(torch, flash_attention)
+    k5_entry = phase_kernel_k5(torch, flash_decode)
+    k4_entry["launches"], k5_entry["launches"] = phase_serve_main(
+        torch, flash_attention, flash_decode)
+    phase_serve_parity(torch, flash_attention, flash_decode)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{key: e[key] for key in keys} for e in (entry, k1_entry)]})
+    emit({"kernels": [{key: e[key] for key in keys}
+                      for e in (entry, k1_entry, k4_entry, k5_entry)]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True)

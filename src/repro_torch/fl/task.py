@@ -1,7 +1,8 @@
 """FL task abstraction: client-sharded data on a device plus a loss.
 
 Only the paper's CNN classification task is ported so far; the causal-LM
-task (``repro.fl.task.make_lm_task``) arrives with ROADMAP queue 1, slice G.
+task (``repro.fl.task.make_lm_task``) arrives with LM training, ROADMAP queue 1,
+slice G2.
 """
 from __future__ import annotations
 

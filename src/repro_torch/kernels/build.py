@@ -24,7 +24,9 @@ PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = {"event_topk": CSRC / "event_topk.cu",
-           "fedavg_reduce": CSRC / "fedavg_reduce.cu"}
+           "fedavg_reduce": CSRC / "fedavg_reduce.cu",
+           "flash_attention": CSRC / "flash_attention.cu",
+           "flash_decode": CSRC / "flash_decode.cu"}
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

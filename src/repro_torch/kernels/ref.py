@@ -6,3 +6,9 @@ from repro_torch.kernels.event_topk import next_k_plain as event_next_k_ref  # n
 from repro_torch.kernels.fedavg_reduce import (  # noqa: F401
     fedavg_reduce_plain as fedavg_reduce_ref,
 )
+from repro_torch.kernels.flash_attention import (  # noqa: F401
+    flash_attention_plain as flash_attention_ref,
+)
+from repro_torch.kernels.flash_decode import (  # noqa: F401
+    flash_decode_plain as flash_decode_ref,
+)

@@ -24,7 +24,7 @@ def add_common_args(ap: argparse.ArgumentParser, defaults: Dict[str, Any]) -> No
                     choices=["mnist", "cifar10", "cifar100"])
     ap.add_argument("--arch", default=None,
                     help="reduced LLM arch as the FL workload (not ported "
-                         "yet: ROADMAP queue 1, slice G)")
+                         "yet: ROADMAP queue 1, slice G2, LM training)")
     ap.add_argument("--policy", default="markov", choices=sorted(policy_names()))
     ap.add_argument("--rounds", type=int, default=defaults["rounds"],
                     help=defaults.get("rounds_help", "training rounds"))
@@ -72,7 +72,7 @@ def build_task(args: argparse.Namespace) -> FLTask:
     if args.arch:
         raise NotImplementedError(
             "--arch (LM workloads) is not ported to repro_torch yet: it "
-            "arrives with ROADMAP queue 1, slice G"
+            "arrives with ROADMAP queue 1, slice G2 (LM training)"
         )
     from repro_torch.configs.paper_cnn import CNN_CONFIGS
     from repro_torch.data.synthetic import load_dataset

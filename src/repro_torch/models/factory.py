@@ -1,0 +1,112 @@
+"""Uniform model API over the decoder architectures the port runs.
+
+    model = build(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    loss, metrics = model.loss(params, batch)          # forward only
+    logits, caches = model.prefill(params, batch)
+    logits, caches = model.decode_step(params, caches, token)
+
+Port of ``repro.models.factory`` for dense decoders (slice G, inference).
+``build`` raises for what this slice cannot run, naming the slice that
+brings it; ``sgd_train_step`` raises until LM training is ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.flash_attention import HEAD_DIMS
+from repro_torch.models import transformer
+
+MOE_AUX_WEIGHT = 0.01
+_LATER = "ROADMAP queue 1, slice G3 (MoE, MLA, SSM, windowed and multimodal models)"
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ArchConfig
+    init: Callable  # (generator) -> params on the generator's device
+    loss: Callable  # (params, batch) -> (scalar, metrics)
+    sgd_train_step: Callable  # (params, batch, lr) -> (params, metrics)
+    prefill: Callable  # (params, batch) -> (logits, caches)
+    decode_step: Callable  # (params, caches, token) -> (logits, caches)
+    init_decode_caches: Callable  # (batch, seq_len, device) -> caches
+
+
+def _vocab_chunk(cfg: ArchConfig, seq_len: int) -> int:
+    return 512 if cfg.vocab_size * seq_len > 2**27 else 0
+
+
+def _unsupported(cfg: ArchConfig) -> str:
+    """Why this slice cannot run ``cfg`` ('' if it can)."""
+    if cfg.encoder is not None:
+        return f"encoder-decoder models arrive with {_LATER}"
+    if cfg.frontend != "none":
+        return f"frontend stubs arrive with {_LATER}"
+    for spec in cfg.all_layers():
+        a = spec.attn
+        if spec.kind != "attn":
+            return f"{spec.kind} (SSM) layers arrive with {_LATER}"
+        if spec.mlp.kind == "moe":
+            return f"MoE layers arrive with {_LATER}"
+        if a.is_mla:
+            return f"MLA attention arrives with {_LATER}"
+        if a.kind != "full":
+            return f"{a.kind} attention arrives with {_LATER}"
+        if a.qk_norm:
+            return f"qk_norm arrives with {_LATER}"
+        if not a.causal:
+            return f"bidirectional attention arrives with {_LATER}"
+        if a.head_dim not in HEAD_DIMS:
+            return f"head_dim {a.head_dim} is not one the K4/K5 kernels take {HEAD_DIMS}"
+    return ""
+
+
+def build(cfg: ArchConfig) -> Model:
+    why = _unsupported(cfg)
+    if why:
+        raise NotImplementedError(f"{cfg.name}: not ported to repro_torch yet: {why}")
+
+    def init(gen: torch.Generator):
+        return transformer.init_params(gen, cfg)
+
+    def loss(params, batch):
+        x, aux, _ = transformer.forward(params, cfg, batch["tokens"], mode="train")
+        ce = transformer.lm_loss(params, cfg, x, batch["labels"],
+                                 vocab_chunk=_vocab_chunk(cfg, x.shape[1]))
+        total = ce + MOE_AUX_WEIGHT * aux
+        return total, {"loss": ce, "moe_aux": aux}
+
+    def sgd_train_step(params, batch, lr):
+        raise NotImplementedError(
+            "LM training is not ported to repro_torch yet: it arrives with "
+            "ROADMAP queue 1, slice G2 (LM training)")
+
+    def prefill(params, batch):
+        x, _, caches = transformer.forward(params, cfg, batch["tokens"], mode="prefill")
+        return transformer.unembed(params, cfg, x[:, -1:]), caches
+
+    def decode_step(params, caches, token):
+        return transformer.decode_step(params, cfg, caches, token)
+
+    def init_decode_caches(batch, seq_len, device=None):
+        return transformer.init_decode_caches(cfg, batch, seq_len, device)
+
+    return Model(cfg, init, loss, sgd_train_step, prefill, decode_step,
+                 init_decode_caches)
+
+
+def synth_batch(gen: torch.Generator, cfg: ArchConfig, batch: int,
+                seq_len: int) -> Dict:
+    """Random tokens and labels (on the generator's device), as the
+    reference's ``synth_batch`` for a decoder without a frontend."""
+    dev = gen.device
+    return {
+        "tokens": torch.randint(0, cfg.vocab_size, (batch, seq_len), generator=gen,
+                                device=dev, dtype=torch.int32),
+        "labels": torch.randint(0, cfg.vocab_size, (batch, seq_len), generator=gen,
+                                device=dev, dtype=torch.int32),
+    }

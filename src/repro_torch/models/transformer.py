@@ -1,0 +1,325 @@
+"""Pattern-repeat decoder transformer.
+
+Port of ``repro.models.transformer`` for dense attention layers. An
+``ArchConfig`` describes layers as ``prefix + pattern * repeats +
+remainder``; the pattern's parameters (and decode caches) are stacked on
+a leading ``repeats`` axis as in the reference, so a reference tree
+converts key for key. Where the reference runs ``lax.scan`` over the
+stacked leaves, the port loops over ``repeats`` and indexes them as views.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, LayerSpec
+from repro_torch.core.tree import tree_map
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.attention import RopeTable
+from repro_torch.models.common import (
+    apply_norm,
+    apply_rope,
+    dense_init,
+    dtype_of,
+    embed_init,
+    init_norm,
+    rope_frequencies,
+)
+
+
+# ---------------------------------------------------------------------------
+# Rope tables
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def build_ropes(cfg: ArchConfig, device=None) -> Dict[str, RopeTable]:
+    """The inverse-frequency tables of ``cfg``'s attention layers on
+    ``device`` (built once per config and device)."""
+    tables = {}
+    specs = [s.attn for s in cfg.all_layers() if s.attn is not None]
+    if not specs:
+        return tables
+    a = specs[0]
+    inv, rot = rope_frequencies(a.head_dim, cfg.rope_theta, a.rope_frac, device)
+    tables["global"] = RopeTable(inv, rot)
+    if cfg.rope_theta_local:
+        inv_l, rot_l = rope_frequencies(a.head_dim, cfg.rope_theta_local,
+                                        a.rope_frac, device)
+        tables["local"] = RopeTable(inv_l, rot_l)
+    return tables
+
+
+def _rope_for(cfg: ArchConfig, spec: LayerSpec, ropes) -> Optional[RopeTable]:
+    a = spec.attn
+    if a is None or not a.rope:
+        return None
+    if a.kind == "sliding" and "local" in ropes:
+        return ropes["local"]
+    return ropes.get("global")
+
+
+# ---------------------------------------------------------------------------
+# Per-layer init / apply (attention + dense MLP)
+# ---------------------------------------------------------------------------
+
+
+def init_layer(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec) -> Dict:
+    dtype = dtype_of(cfg.param_dtype)
+    dev = gen.device
+    p: Dict = {"ln1": init_norm(cfg.d_model, cfg.norm, dtype, dev),
+               "attn": attn_mod.init_attention(gen, cfg.d_model, spec.attn, dtype)}
+    if spec.mlp.kind != "none":
+        p["ln2"] = init_norm(cfg.d_model, cfg.norm, dtype, dev)
+        p["mlp"] = mlp_mod.init_mlp(gen, cfg.d_model, spec.mlp, dtype)
+    return p
+
+
+def apply_layer(
+    p: Dict,
+    x: torch.Tensor,
+    cfg: ArchConfig,
+    spec: LayerSpec,
+    ropes,
+    positions,
+    mode: str,
+    cache: Optional[Dict] = None,
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Returns (x, new_cache). In ``decode`` mode the cache is updated in
+    place (``attention.attention_decode``)."""
+    h = apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
+    rope = _rope_for(cfg, spec, ropes)
+    new_cache = cache
+    if mode == "decode":
+        y, new_cache = attn_mod.attention_decode(p["attn"], h, spec.attn, rope, cache)
+    else:
+        y = attn_mod.attention_fwd(p["attn"], h, spec.attn, rope, positions)
+        if mode == "prefill":
+            new_cache = _write_prefill_cache(p["attn"], h, spec, rope, positions)
+    x = x + y
+    if spec.mlp.kind != "none":
+        h = apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
+        x = x + mlp_mod.mlp_fwd(p["mlp"], h, spec.mlp)
+    return x, new_cache
+
+
+# --- prefill-cache writer ---------------------------------------------------
+
+
+def _write_prefill_cache(p, h, spec: LayerSpec, rope, positions):
+    """K/V for the whole prompt, laid out in ring order so decode can
+    continue."""
+    a = spec.attn
+    S = h.shape[1]
+    L = a.cache_len(S)
+    k = torch.einsum("bsd,dhe->bshe", h, p["w_k"])
+    v = torch.einsum("bsd,dhe->bshe", h, p["w_v"])
+    if a.qk_norm:
+        k = attn_mod.rms_norm_headwise(p["k_norm"], k)
+    if a.rope and rope is not None:
+        k = apply_rope(k, positions[None], rope.inv_freq, rope.rot)
+    k, v = _ring_layout(k, L), _ring_layout(v, L)
+    return {"k": k, "v": v,
+            "index": torch.full((), S, dtype=torch.int32, device=h.device)}
+
+
+def _ring_layout(t: torch.Tensor, L: int) -> torch.Tensor:
+    """Keep the last L positions of (B, S, ...) laid out so that position p
+    sits in slot p % L (matching the decode ring buffer)."""
+    S = t.shape[1]
+    if L >= S:
+        if L == S:
+            return t
+        pad = torch.zeros((t.shape[0], L - S) + t.shape[2:], dtype=t.dtype,
+                          device=t.device)
+        return torch.cat([t, pad], dim=1)
+    tail = t[:, S - L:]
+    return torch.roll(tail, shifts=(S - L) % L, dims=1)
+
+
+# ---------------------------------------------------------------------------
+# Whole-model params
+# ---------------------------------------------------------------------------
+
+
+def _stack(trees):
+    return tree_map(lambda *leaves: torch.stack(leaves), trees[0], *trees[1:])
+
+
+def init_params(gen: torch.Generator, cfg: ArchConfig) -> Dict:
+    """Params drawn from ``gen`` (they land on its device), in the
+    reference's tree: ``blocks`` is a tuple with one entry per pattern
+    layer, each leaf stacked on a leading ``repeats`` axis."""
+    dtype = dtype_of(cfg.param_dtype)
+    params: Dict = {
+        "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype),
+        "final_norm": init_norm(cfg.d_model, cfg.norm, dtype, gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), 0, dtype)
+    if cfg.prefix:
+        params["prefix"] = tuple(init_layer(gen, cfg, s) for s in cfg.prefix)
+    params["blocks"] = tuple(
+        _stack([init_layer(gen, cfg, spec) for _ in range(cfg.repeats)])
+        for spec in cfg.pattern)
+    if cfg.remainder:
+        params["remainder"] = tuple(init_layer(gen, cfg, s) for s in cfg.remainder)
+    return params
+
+
+def _layers(tree, cfg: ArchConfig):
+    """(params-or-cache, spec) for every layer in order; the stacked
+    ``blocks`` leaves are indexed as views."""
+    for i, spec in enumerate(cfg.prefix):
+        yield tree["prefix"][i], spec
+    for r in range(cfg.repeats):
+        for pi, spec in enumerate(cfg.pattern):
+            yield tree_map(lambda t: t[r], tree["blocks"][pi]), spec
+    for i, spec in enumerate(cfg.remainder):
+        yield tree["remainder"][i], spec
+
+
+# ---------------------------------------------------------------------------
+# Forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+
+def _embed_tokens(params, cfg: ArchConfig, tokens):
+    x = params["embed"][tokens]
+    if cfg.embed_scale:
+        # the scale rounded to the activation dtype first, as in the reference
+        x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype).item()
+    return x
+
+
+def forward(
+    params: Dict,
+    cfg: ArchConfig,
+    tokens: torch.Tensor,  # (B, S)
+    mode: str = "train",
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
+    """Returns (final_hidden (B,S,d), total_moe_aux (0 for dense layers),
+    caches|None). ``mode`` is ``train`` or ``prefill``; the frontend
+    embeddings of the reference's multimodal archs come with slice G3."""
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"forward runs mode train or prefill, got {mode!r}")
+    x = _embed_tokens(params, cfg, tokens)
+    S = x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    ropes = build_ropes(cfg, x.device)
+    caches = []
+    for p, spec in _layers(params, cfg):
+        x, c = apply_layer(p, x, cfg, spec, ropes, positions, mode)
+        caches.append(c)
+    x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if mode != "prefill":
+        return x, aux, None
+    return x, aux, _regroup(caches, cfg)
+
+
+def _regroup(per_layer: list, cfg: ArchConfig) -> Dict:
+    """Per-layer caches (in ``_layers`` order) into the reference's tree:
+    ``blocks`` stacked on the repeats axis, ``prefix``/``remainder`` lists."""
+    n_pre, n_pat = len(cfg.prefix), len(cfg.pattern)
+    out: Dict = {}
+    if cfg.prefix:
+        out["prefix"] = per_layer[:n_pre]
+    body = per_layer[n_pre:n_pre + n_pat * cfg.repeats]
+    out["blocks"] = tuple(_stack(body[pi::n_pat]) for pi in range(n_pat))
+    if cfg.remainder:
+        out["remainder"] = per_layer[n_pre + n_pat * cfg.repeats:]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Logits / loss
+# ---------------------------------------------------------------------------
+
+
+def _head(params, cfg: ArchConfig) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def unembed(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    logits = x @ _head(params, cfg)
+    if cfg.logits_softcap:
+        c = cfg.logits_softcap
+        logits = torch.tanh(logits / c) * c
+    return logits
+
+
+def lm_loss(
+    params: Dict,
+    cfg: ArchConfig,
+    x_final: torch.Tensor,  # (B, S, d)
+    labels: torch.Tensor,  # (B, S) int; -1 = ignore
+    vocab_chunk: int = 0,
+) -> torch.Tensor:
+    """Mean causal-LM cross entropy. ``vocab_chunk`` > 0 walks sequence
+    chunks so only (B, chunk, V) logits are ever live."""
+    w = _head(params, cfg)
+    valid = (labels >= 0).float()
+    safe_labels = torch.clamp(labels, min=0).long()
+
+    def chunk_loss(xc, lc, vc):
+        logits = (xc @ w).float()
+        if cfg.logits_softcap:
+            logits = torch.tanh(logits / cfg.logits_softcap) * cfg.logits_softcap
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+        return ((lse - gold) * vc).sum()
+
+    S = x_final.shape[1]
+    if vocab_chunk and S > vocab_chunk and S % vocab_chunk == 0:
+        total = torch.zeros((), dtype=torch.float32, device=x_final.device)
+        for c in range(0, S, vocab_chunk):
+            sl = slice(c, c + vocab_chunk)
+            total = total + chunk_loss(x_final[:, sl], safe_labels[:, sl], valid[:, sl])
+    else:
+        total = chunk_loss(x_final, safe_labels, valid)
+    return total / torch.clamp(valid.sum(), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+
+def init_decode_caches(cfg: ArchConfig, batch: int, seq_len: int,
+                       device=None) -> Dict:
+    """Caches for every layer at context length ``seq_len``."""
+    dtype = dtype_of(cfg.compute_dtype)
+
+    def one(spec: LayerSpec):
+        return attn_mod.init_cache(spec.attn, batch, seq_len, dtype, device)
+
+    caches: Dict = {}
+    if cfg.prefix:
+        caches["prefix"] = [one(s) for s in cfg.prefix]
+    caches["blocks"] = tuple(_stack([one(spec)] * cfg.repeats) for spec in cfg.pattern)
+    if cfg.remainder:
+        caches["remainder"] = [one(s) for s in cfg.remainder]
+    return caches
+
+
+def decode_step(
+    params: Dict,
+    cfg: ArchConfig,
+    caches: Dict,
+    token: torch.Tensor,  # (B, 1) int
+) -> Tuple[torch.Tensor, Dict]:
+    """One-token decode. Returns (logits (B,1,V), caches).
+
+    The caches are updated IN PLACE (each layer's K/V row written at its
+    ring slot, each index incremented) and returned; the caller must not
+    reuse the tree it passed in as the old state. No host sync."""
+    x = _embed_tokens(params, cfg, token)
+    ropes = build_ropes(cfg, x.device)
+    for (p, spec), (cache, _) in zip(_layers(params, cfg), _layers(caches, cfg)):
+        x, _ = apply_layer(p, x, cfg, spec, ropes, None, "decode", cache)
+    x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    return unembed(params, cfg, x), caches

@@ -1,0 +1,170 @@
+"""K4 (``flash_attention``): the port's wrapper and plain version against the
+reference's oracle ``flash_attention_ref`` for every case of
+``tests/test_kernels.py::test_flash_attention_allclose`` and
+``test_flash_attention_uneven_blocks``, and against the Pallas kernel in
+interpret mode for one f32 and one bf16 case.
+
+Tolerances are the reference's own: 2e-5 in f32, 2e-2 in bf16 (bf16
+rounds the scores and the output at other places in the two frameworks).
+On a card, the CUDA kernel is held against the plain version at the same
+tolerances (the reference is imported inside the tests that use it, so the
+file also runs where JAX is absent):
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_flash_attention.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import flash_attention as k4  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+CASES = [
+    (1, 2, 2, 256, 64, "full", 0),
+    (2, 1, 4, 512, 32, "full", 0),
+    (1, 2, 1, 512, 128, "sliding", 128),
+    (1, 1, 2, 512, 64, "chunked", 128),
+    (1, 4, 8, 256, 64, "full", 0),  # llama-like GQA block
+]
+DTYPES = ["float32", "bfloat16"]
+
+
+def _tol(dtype):
+    return 2e-2 if dtype == "bfloat16" else 2e-5
+
+
+def _reference():
+    """(jax.numpy, repro.kernels.ops, repro.kernels.ref)."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels import ops as ref_ops
+    from repro.kernels import ref as ref_ref
+
+    return jnp, ref_ops, ref_ref
+
+
+def _qkv(B, Hk, G, S, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Hk, G, S, D)).astype(np.float32),
+            rng.standard_normal((B, Hk, S, D)).astype(np.float32),
+            rng.standard_normal((B, Hk, S, D)).astype(np.float32))
+
+
+def _torch(arrs, dtype, device="cpu"):
+    return [torch.from_numpy(a).to(device=device, dtype=getattr(torch, dtype))
+            for a in arrs]
+
+
+def _np(t):
+    return t.float().cpu().numpy()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Hk,G,S,D,kind,window", CASES)
+def test_plain_k4_matches_oracle(B, Hk, G, S, D, kind, window, dtype):
+    jnp, _, ref_ref = _reference()
+    arrs = _qkv(B, Hk, G, S, D)
+    scale = D**-0.5
+    got = ops.flash_attention(*_torch(arrs, dtype), scale=scale, kind=kind,
+                              window=window, block_q=128, block_k=128)
+    exp = ref_ref.flash_attention_ref(*(jnp.asarray(a, dtype) for a in arrs),
+                                      scale=scale, kind=kind, window=window)
+    assert got.shape == (B, Hk, G, S, D) and got.dtype == getattr(torch, dtype)
+    tol = _tol(dtype)
+    np.testing.assert_allclose(_np(got), np.asarray(exp, np.float32), atol=tol, rtol=tol)
+    np.testing.assert_allclose(
+        _np(ref.flash_attention_ref(*_torch(arrs, dtype), scale=scale, kind=kind,
+                                    window=window)),
+        np.asarray(exp, np.float32), atol=tol, rtol=tol)
+
+
+def test_plain_k4_uneven_blocks():
+    jnp, _, ref_ref = _reference()
+    arrs = _qkv(1, 2, 2, 384, 64, seed=1)
+    got = ops.flash_attention(*_torch(arrs, "float32"), scale=0.125, block_q=128,
+                              block_k=384)
+    exp = ref_ref.flash_attention_ref(*map(jnp.asarray, arrs), scale=0.125)
+    np.testing.assert_allclose(_np(got), np.asarray(exp), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_plain_k4_matches_pallas_interpret(dtype):
+    """The Pallas kernel itself, as the reference's tests run it on the CPU."""
+    jnp, ref_ops, _ = _reference()
+    B, Hk, G, S, D, kind, window = CASES[0]
+    arrs = _qkv(B, Hk, G, S, D, seed=2)
+    got = ops.flash_attention(*_torch(arrs, dtype), scale=D**-0.5, block_q=128,
+                              block_k=128)
+    exp = ref_ops.flash_attention(*(jnp.asarray(a, dtype) for a in arrs),
+                                  scale=D**-0.5, block_q=128, block_k=128)
+    tol = _tol(dtype)
+    np.testing.assert_allclose(_np(got), np.asarray(exp, np.float32), atol=tol, rtol=tol)
+
+
+def test_plain_k4_is_differentiable_on_cpu():
+    """The kernel-off route trains: the plain version carries a gradient
+    (the CUDA kernel raises under autograd, as the Pallas kernel has no VJP)."""
+    q, k, v = (t.requires_grad_() for t in _torch(_qkv(1, 1, 2, 128, 32), "float32"))
+    out = k4.flash_attention(q, k, v, scale=0.2)
+    out.sum().backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+@pytest.mark.parametrize("shapes,kw,match", [
+    (((1, 2, 2, 256, 64), (1, 2, 256, 64), (1, 2, 128, 64)), {}, "k/v must be"),
+    (((1, 2, 256, 64), (1, 2, 256, 64), (1, 2, 256, 64)), {}, "expected q"),
+    (((1, 1, 1, 384, 32), (1, 1, 384, 32), (1, 1, 384, 32)), {"block_k": 256},
+     "divide"),
+    (((1, 1, 1, 128, 32), (1, 1, 128, 32), (1, 1, 128, 32)), {"kind": "local"},
+     "kind"),
+], ids=["kv_len", "q_rank", "blocks", "kind"])
+def test_wrapper_rejects_bad_input(shapes, kw, match):
+    before = k4.launches
+    with pytest.raises(ValueError, match=match):
+        k4.flash_attention(*(torch.zeros(s) for s in shapes), scale=1.0, **kw)
+    assert k4.launches == before
+
+
+def test_cpu_tensor_takes_the_plain_version_without_counting():
+    q, k, v = _torch(_qkv(1, 2, 4, 128, 64, seed=3), "float32")
+    before = k4.launches
+    out = k4.flash_attention(q, k, v, scale=0.125, kind="sliding", window=32)
+    assert torch.equal(out, k4.flash_attention_plain(q, k, v, scale=0.125,
+                                                     kind="sliding", window=32))
+    assert k4.launches == before
+
+
+def _gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Hk,G,S,D,kind,window", CASES + [
+    (1, 2, 2, 384, 64, "full", 0), (1, 1, 5, 200, 64, "full", 0),
+    (4, 4, 8, 2048, 64, "full", 0),  # tinyllama-1.1b's serving prefill
+])
+def test_kernel_matches_plain_on_gpu(B, Hk, G, S, D, kind, window, dtype):
+    _gpu()
+    q, k, v = _torch(_qkv(B, Hk, G, S, D), dtype, "cuda")
+    before = k4.launches
+    out = k4.flash_attention(q, k, v, scale=D**-0.5, kind=kind, window=window,
+                             block_q=S, block_k=S)
+    again = k4.flash_attention(q, k, v, scale=D**-0.5, kind=kind, window=window,
+                               block_q=S, block_k=S)
+    plain = k4.flash_attention_plain(q, k, v, scale=D**-0.5, kind=kind, window=window)
+    torch.cuda.synchronize()
+    assert k4.launches == before + 2
+    assert torch.equal(out, again)
+    tol = _tol(dtype)
+    torch.testing.assert_close(out.float(), plain.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_kernel_raises_under_autograd_on_gpu():
+    _gpu()
+    q, k, v = _torch(_qkv(1, 1, 2, 128, 64), "float32", "cuda")
+    q.requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        k4.flash_attention(q, k, v, scale=0.125)

@@ -10,7 +10,7 @@ prints one JSON line for each:
   kernel  K2 (``event_topk``) against its plain version on the card, at
           fleet sizes 16384 .. 2^20 and the edge cases (all ties, all idle,
           fewer pending events than k); its time (CUDA events, launch
-          overhead included, and device-only from the profiler), the plain
+          overhead included, and device-only: ``device_ms``), the plain
           version's, the ``torch.topk`` yardstick's, and its bound.
   main    the driver's own path, ``repro_torch.launch.fl_async`` at the
           paper CNN's full widths on MNIST at its real size (60 000 images)
@@ -72,9 +72,41 @@ prints one JSON line for each:
           weights on the card and on the CPU: ``model.prefill`` logits and
           ``serve``'s greedy tokens and logits equal within 1e-4, with K4
           and K5 launched on the card.
+  kernel_k3    K3 (``aoi_topk``) against its plain version (a stable
+          descending sort), values and indices exactly equal: at the
+          policy's shape (16384 scores, k = 256) on integer ages with and
+          without the policy's [0, 0.5) noise, at the example's 1M clients
+          with k = 128, on all-equal ages (lower indices first), k = 1,
+          k = 1024 and a ragged last tile; times as for K2, with
+          ``torch.topk`` as the yardstick.
+  async_oldest ``repro_torch.launch.fl_async`` in ``main``'s configuration
+          under ``--policy oldest_age``, 10 steps: K3 launched once a step
+          (its ``_topk_idx`` at fleet scale), every policy mask exactly k,
+          no host sync in two steps; steps/s, device-busy share, peak memory.
+  kernel_k6    K6 (``ssd_scan``) against its plain version (the port's
+          ``ssd_chunked``) at mamba2-370m's prefill shape (B, S, nh, hd, ds)
+          = (4, 2048, 32, 64, 128), chunk 256, bf16 x/B/C sliced from a
+          conv-output-shaped buffer, and at smaller f32 and bf16 shapes (a
+          chunk that is not a multiple of 64 rows, contiguous inputs), each
+          from a zero state and from a random h0: y and ``h_final`` within
+          K6_TOL, two launches bitwise equal; its time, the plain version's
+          and the bound (no single PyTorch call computes the scan).
+  ssm_serve_main  mamba2-370m at full width and depth (48 layers, bf16,
+          weights from seed 0): ``model.prefill`` at (4, 2048) must launch K6
+          48 times (prefill tokens/s, K6's share of device time); then
+          ``serve`` at batch 8, prompt 256, gen 128 (its prompt goes through
+          ``prefill_tokens``, so it launches no K6): decode ms per step,
+          kernel launches per step, device-busy share, peak memory, no host
+          sync in a decode step.
+  ssm_parity   the reference's prefill/decode contract on mamba2: the
+          reduced model in f32 (TF32 off), ``model.prefill`` (K6) against
+          ``prefill_tokens`` for logits, state and conv window, and against
+          the CPU's plain route; then mamba2-370m at full width, f32 held to
+          CONSISTENCY_TOL and the bf16 gap and top-1 agreement reported.
 
-The main and sync_main phases run before the parity phases, which turn
-TF32 off. Then the ``{"kernels": [...]}`` line (K2, K1, K4, K5), the card's
+The main, async_oldest and sync_main phases run before the parity phases,
+which turn TF32 off. Then the ``{"kernels": [...]}`` line (K2, K1, K4, K5,
+K3, K6), the card's
 name and power limit as ``nvidia-smi`` reports them, and, last, the device
 line. Any failure exits non-zero; without a GPU, or outside a checkout of
 the repository, the script fails before printing a result. It imports
@@ -95,6 +127,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+SPIN_CYCLES = 4_000_000  # ~2 ms of SM clock: the lead device_ms gives the host
 BF16_OPS_PER_S = 989e12
 MAIN_ARGV = ["--dataset", "mnist", "--data-scale", "5", "--clients", "16384",
              "--k", "256", "--policy", "markov", "--latency-profile", "lognormal",
@@ -114,6 +147,14 @@ SERVE_ARGS = dict(batch=8, prompt_len=512, gen=128, temperature=0.8, seed=0)
 # sum f32 products over 8x longer rows in other orders (one S-token GEMM
 # against S one-token GEMMs, K4 against K5), so the bound is widened 3.3x
 CONSISTENCY_TOL = 1e-3
+OLDEST_ARGV = ["--dataset", "mnist", "--data-scale", "5", "--clients", "16384",
+               "--k", "256", "--policy", "oldest_age", "--latency-profile", "lognormal",
+               "--rounds", "10"]  # main's configuration under the oldest-age policy
+# K6 vs its plain version: both sum the same f32 products in other orders
+# (and the plain version's cumsum is a parallel scan on the card)
+K6_TOL = 1e-4
+SSM_ARCH = "mamba2-370m"
+SSM_SERVE_ARGS = dict(batch=8, prompt_len=256, gen=128, temperature=0.8, seed=0)
 
 
 def emit(obj) -> None:
@@ -140,20 +181,24 @@ def cuda_ms(torch, fn, calls: int = 100, trials: int = 7) -> float:
 
 
 def device_ms(torch, fn, calls: int = 20) -> float:
-    """Per-call device time of ``fn``: the summed time of the CUDA kernels
-    it launches (``torch.profiler``), without the host's launch overhead."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """Per-call device time of ``fn``, without the host's launch overhead:
+    CUDA events around each call, enqueued behind a ~2 ms spin kernel
+    (``torch.cuda._sleep``) so that the host has queued the whole call
+    before the device reaches it. The profiler is not used here: late in a
+    long process it kept only 7 to 13 of 20 kernel records of a call."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(ev.self_device_time_total for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA)
-    return total_us / 1e3 / calls
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(calls):
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / calls
 
 
 def phase_kernel(torch, event_topk):
@@ -1079,8 +1124,8 @@ def _prefill_consistency(torch, model, params, tree_map, prefill_tokens):
                          "top1_agree": float((lp.argmax(-1) == ld.argmax(-1)).float().mean())}
             if name == "float32":
                 if not torch.allclose(lp, ld, atol=CONSISTENCY_TOL, rtol=CONSISTENCY_TOL):
-                    raise AssertionError(f"serve_main: f32 prefill vs prefill_tokens gap "
-                                         f"{gap} above {CONSISTENCY_TOL}")
+                    raise AssertionError(f"{model.cfg.name}: f32 prefill vs prefill_tokens "
+                                         f"gap {gap} above {CONSISTENCY_TOL}")
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     out["tolerance_f32"] = CONSISTENCY_TOL
@@ -1133,6 +1178,349 @@ def phase_serve_parity(torch, k4, k5):
           "tf32": False})
 
 
+def phase_kernel_k3(torch, k3):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n, k = FLEET  # the policy's score: 16 384 integer ages plus [0, 0.5) noise
+
+    def ages(size, high, noise):
+        a = torch.randint(0, high, (size,), generator=gen, device="cuda").float()
+        return a + torch.rand(size, generator=gen, device="cuda") * 0.5 if noise else a
+
+    cases = [("policy", ages(n, 64, True), k), ("policy_int", ages(n, 64, False), k),
+             ("example_1M", ages(1_000_000, 50, False), 128),
+             ("all_equal", torch.full((n,), 7.0, device="cuda"), k),
+             ("k1", ages(50_000, 1000, True), 1), ("k1024", ages(70_001, 50, False), 1024),
+             ("n_ragged", ages(2 * 2048 + 3, 10, False), 7)]
+    for name, a, kk in cases:
+        v, i = k3.aoi_topk(a, kk)
+        pv, pi = k3.topk_plain(a, kk)
+        torch.cuda.synchronize()
+        if not (torch.equal(v, pv) and torch.equal(i, pi)):
+            raise AssertionError(f"K3 disagrees with its plain version: {name}")
+        if name == "all_equal" and not torch.equal(i.cpu(), torch.arange(kk)):
+            raise AssertionError("K3 tie order is not lower-index-first")
+    a = cases[0][1]
+    run = lambda: k3.aoi_topk(a, k)  # noqa: E731
+    bytes_moved = n * 4 + k * (4 + 8)  # values in; f32 values + i64 indices out
+    entry = {
+        "name": "aoi_topk", "route": "cuda", "source": "src/repro_torch/csrc/aoi_topk.cu",
+        "replaces": "src/repro/kernels/aoi_topk.py:42", "max_abs_err": 0.0,
+        "ms": cuda_ms(torch, run), "plain_ms": cuda_ms(torch, lambda: k3.topk_plain(a, k)),
+        "bound_ms": max(bytes_moved / HBM_BYTES_PER_S, n / FP32_OPS_PER_S) * 1e3,
+        "bound_by": "bytes", "library_ms": cuda_ms(torch, lambda: torch.topk(a, k)),
+    }
+    emit({"phase": "kernel_k3", "ok": True, "cases": [c[0] for c in cases], "n": n, "k": k,
+          "exact": True, **entry, "device_ms": device_ms(torch, run),
+          "plain_device_ms": device_ms(torch, lambda: k3.topk_plain(a, k)),
+          "library_device_ms": device_ms(torch, lambda: torch.topk(a, k))})
+    return entry
+
+
+def phase_async_oldest(torch, k3):
+    from repro_torch.core import selection
+    from repro_torch.engine import run_engine
+    from repro_torch.launch import fl_async
+
+    args = fl_async.parse_args(OLDEST_ARGV)
+    t0 = time.time()
+    task, engine = fl_async.build(args)
+    setup_s = time.time() - t0
+    captured, masks = {}, []
+    finalize, mask = engine.finalize, selection._mask
+
+    def capture(state, *rest):
+        captured["state"] = state
+        return finalize(state, *rest)
+
+    def recording(n, idx):
+        sel = mask(n, idx)
+        masks.append(sel.sum())  # on the device: no sync inside the run
+        return sel
+
+    engine.finalize = capture
+    selection._mask = recording
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k3.launches = 0
+        res = run_engine(engine, progress=True)
+        launches = k3.launches
+    finally:
+        selection._mask = mask
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    fl_async.report(res, args)
+    cfg = res.config
+    off = [p for p, t in _state_tensors(captured["state"])
+           if not (isinstance(t, torch.Tensor) and t.is_cuda)]
+    if off:
+        raise AssertionError(f"async_oldest: engine state off the GPU: {off}")
+    if launches != cfg.rounds:
+        raise AssertionError(f"async_oldest: K3 launched {launches} times in "
+                             f"{cfg.rounds} steps")
+    sizes = [int(s) for s in masks]
+    if len(sizes) != cfg.rounds or any(s != cfg.k for s in sizes):
+        raise AssertionError(f"async_oldest: selection masks of sizes {sizes}, not {cfg.k}")
+    evals = [r.eval_loss for r in res.records]
+    trains = [r.train_loss for r in res.records if r.buffer_fill > 0]
+    if not all(map(math.isfinite, evals + trains)) or len(res.records) != cfg.rounds:
+        raise AssertionError(f"async_oldest: non-finite losses: {evals} {trains}")
+    out = {"phase": "async_oldest", "ok": True, "argv": OLDEST_ARGV,
+           "kernel_launches": launches, "steps": cfg.rounds, "mask_sizes": sizes,
+           "steps_per_s": cfg.rounds / res.wall_time_s, "wall_time_s": res.wall_time_s,
+           "setup_s": setup_s, "eval_loss": evals[-1], "accuracy": res.records[-1].accuracy,
+           "mean_cohort": res.load_stats["mean_cohort"], "peak_mem_gib": peak_gib,
+           "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
+                    "matmul": torch.backends.cuda.matmul.allow_tf32}}
+    state, syncs = sync_free_steps(torch, engine, captured["state"], cfg.rounds)
+    if syncs:
+        raise AssertionError(f"async_oldest: a step synchronized with the host: {syncs}")
+    out["host_syncs_in_2_steps"] = 0
+    out.update(steady_and_profile(torch, engine, state, cfg.rounds + 2, res.wall_time_s,
+                                  match="tile_topk<true"))  # K3 is the descending one
+    emit(out)
+    return launches
+
+
+def _ssd_inputs(torch, gen, shape, dtype, strided=True):
+    """x, dt, A, B_, C_ on the card at the model's scales: x, B_, C_ sliced
+    from one conv-output-shaped (B, S, nh*hd + 2 ds) buffer, as ``ssm_fwd``
+    hands them over (or contiguous copies); dt = softplus(N(0, 1) +
+    dt_bias); A = -linspace(1, 16), the model's init."""
+    import numpy as np
+
+    B, S, nh, hd, ds = shape
+    di = nh * hd
+    buf = (torch.randn((B, S, di + 2 * ds), generator=gen, device="cuda") * 0.5).to(dtype)
+    x = buf[..., :di].reshape(B, S, nh, hd)
+    B_, C_ = buf[..., di:di + ds], buf[..., di + ds:]
+    if not strided:
+        x, B_, C_ = x.contiguous(), B_.contiguous(), C_.contiguous()
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, nh), generator=gen, device="cuda") + float(np.log(np.expm1(0.01))))
+    return x, dt, -torch.linspace(1.0, 16.0, nh, device="cuda"), B_, C_
+
+
+def phase_kernel_k6(torch, k6):
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, S = PREFILL_SHAPE
+    main = (B, S, 32, 64, 128)  # mamba2-370m: 32 heads of 64, d_state 128
+    cases = [(main, 256, bf16, True), ((1, 512, 4, 64, 128), 256, f32, False),
+             ((2, 1024, 8, 64, 128), 256, f32, True), ((2, 64, 8, 32, 16), 16, f32, True),
+             ((1, 200, 2, 64, 64), 100, f32, False), ((2, 128, 3, 32, 16), 32, bf16, True)]
+    errs = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's einsums in f32
+    try:
+        for shape, chunk, dt_, strided in cases:
+            x, dt, A, B_, C_ = _ssd_inputs(torch, gen, shape, dt_, strided)
+            h0 = torch.randn(shape[:1] + shape[2:], generator=gen, device="cuda")
+            for init in (None, h0):
+                y, h = k6.ssd_scan(x, dt, A, B_, C_, chunk, init)
+                again = k6.ssd_scan(x, dt, A, B_, C_, chunk, init)
+                y_p, h_p = k6.ssd_chunked_plain(x, dt, A, B_, C_, chunk, init)
+                torch.cuda.synchronize()
+                name = f"{shape}_L{chunk}_{str(dt_)[6:]}{'_h0' if init is not None else ''}"
+                if not (torch.equal(y, again[0]) and torch.equal(h, again[1])):
+                    raise AssertionError(f"K6 launches differ bitwise: {name}")
+                for what, got, exp in (("y", y, y_p), ("h_final", h, h_p)):
+                    if not torch.allclose(got, exp, atol=K6_TOL, rtol=K6_TOL):
+                        raise AssertionError(
+                            f"K6 {what} disagrees with its plain version: {name} "
+                            f"(max abs err {float((got - exp).abs().max())})")
+                errs[name] = {"y": float((y - y_p).abs().max()),
+                              "h_final": float((h - h_p).abs().max())}
+        x, dt, A, B_, C_ = _ssd_inputs(torch, gen, main, bf16)
+        run = lambda: k6.ssd_scan(x, dt, A, B_, C_, 256)  # noqa: E731
+        plain = lambda: k6.ssd_chunked_plain(x, dt, A, B_, C_, 256)  # noqa: E731
+        Bm, Sm, nh, hd, ds = main
+        L = 256
+        pairs = L * (L + 1) // 2  # causal (i, j) pairs of a chunk
+        ops = Bm * nh * (Sm // L) * (2 * pairs * (ds + hd) + 4 * L * hd * ds)
+        nbytes = (x.numel() + B_.numel() + C_.numel()) * 2 + (dt.numel() + nh) * 4 \
+            + (x.numel() + Bm * nh * hd * ds) * 4  # y and h_final out in f32
+        entry = {
+            "name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:75",
+            "max_abs_err": max(max(e.values()) for e in errs.values()),
+            "ms": cuda_ms(torch, run, calls=20), "plain_ms": cuda_ms(torch, plain, calls=3,
+                                                                     trials=3),
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3,
+            "bound_by": "operations" if ops / FP32_OPS_PER_S > nbytes / HBM_BYTES_PER_S
+            else "bytes",
+            "library_ms": None,  # no single PyTorch call computes the scan
+        }
+        dev_ms = device_ms(torch, run)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    emit({"phase": "kernel_k6", "ok": True, "cases": len(errs), "shape": list(main),
+          "chunk": 256, "dtype": "bfloat16", "inputs": "strided slices of (B, S, 2304)",
+          "tolerance": K6_TOL, **entry, "device_ms": dev_ms, "gflop": ops / 1e9,
+          "mbytes": nbytes / 1e6, "tflops": ops / (entry["ms"] * 1e-3) / 1e12,
+          "ctas": Bm * nh, "sms": torch.cuda.get_device_properties(0).multi_processor_count,
+          "max_abs_err_by_case": errs})
+    return entry
+
+
+def phase_ssm_serve_main(torch, k6):
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import factory
+    from repro_torch.serve.batching import prefill_tokens
+
+    cfg = get_arch(SSM_ARCH)
+    model = factory.build(cfg)
+    n_layers = cfg.num_layers
+    t0 = time.time()
+    params = model.init(torch.Generator(device="cuda").manual_seed(SSM_SERVE_ARGS["seed"]))
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    B, S = PREFILL_SHAPE
+    toks = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", dtype=torch.int32,
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    plain_calls = {}
+    restore = _count_calls(k6, ["ssd_chunked_plain"], plain_calls)
+    try:
+        with torch.no_grad():
+            prefill = lambda: model.prefill(params, {"tokens": toks})  # noqa: E731
+            prefill()  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            k6.launches = 0
+            t0 = time.perf_counter()
+            logits, caches = prefill()
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            k6_launches = k6.launches
+            prefill_peak = torch.cuda.max_memory_allocated() / 2**30
+            if not bool(torch.isfinite(logits).all()) or logits.shape != (B, 1, cfg.vocab_size):
+                raise AssertionError("ssm_serve_main: prefill logits not finite / of shape")
+            h = caches["blocks"][0]["h"]
+            if h.shape != (n_layers, B, 32, 64, 128) or not bool(torch.isfinite(h).all()):
+                raise AssertionError(f"ssm_serve_main: prefill state {tuple(h.shape)}")
+            if k6_launches != n_layers:
+                raise AssertionError(f"ssm_serve_main: model.prefill launched K6 "
+                                     f"{k6_launches} times ({n_layers} layers)")
+            del caches
+            p_union, p_window, p_by, p_kernels = _profile(torch, prefill, 2)
+            torch.cuda.reset_peak_memory_stats()
+            k6.launches = 0
+            res = serve_mod.serve(cfg, device="cuda", params=params, **SSM_SERVE_ARGS)
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            k6_serve = k6.launches
+        if k6_serve:
+            raise AssertionError(f"ssm_serve_main: serve launched K6 {k6_serve} times "
+                                 f"(its prompt goes through prefill_tokens)")
+        if plain_calls:
+            raise AssertionError(f"ssm_serve_main: the plain scan ran on the card: "
+                                 f"{plain_calls}")
+    finally:
+        restore()
+    if res.tokens.shape != (SSM_SERVE_ARGS["batch"], SSM_SERVE_ARGS["gen"]) or not (
+            (res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
+        raise AssertionError("ssm_serve_main: generated tokens out of range")
+
+    # decode steps on their own: host syncs, device-busy share, launches a step
+    Bd, P = SSM_SERVE_ARGS["batch"], SSM_SERVE_ARGS["prompt_len"]
+    caches = model.init_decode_caches(Bd, P + SSM_SERVE_ARGS["gen"], "cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (Bd, 8), device="cuda", dtype=torch.int32,
+                           generator=torch.Generator(device="cuda").manual_seed(2))
+    with torch.no_grad():
+        logits, caches = prefill_tokens(model.decode_step, params, caches, prompt)
+        tok = logits[:, -1:].argmax(-1).to(torch.int32)
+        state = {"caches": caches}
+
+        def step():
+            _, state["caches"] = model.decode_step(params, state["caches"], tok)
+
+        syncs = _syncs_in(torch, lambda: [step() for _ in range(2)])
+        if syncs:
+            raise AssertionError(f"ssm_serve_main: decode_step synchronized: {syncs[:3]}")
+        d_union, d_window, d_by, d_kernels = _profile(torch, step, 10)
+    state_bytes = n_layers * Bd * (32 * 64 * 128 * 4 * 2 + 3 * 2304 * 2 * 2)  # h, conv r+w
+    decode_ms = res.decode_s * 1e3 / res.gen
+    emit({"phase": "ssm_serve_main", "ok": True, "arch": cfg.name, "layers": n_layers,
+          "params": sum(t.numel() for t in tree_leaves(params)),
+          "param_gb": param_bytes / 1e9, "init_s": init_s,
+          "prefill": {"batch": B, "seq": S, "k6_launches": k6_launches,
+                      "ms": prefill_s * 1e3, "tokens_per_s": B * S / prefill_s,
+                      "peak_mem_gib": prefill_peak,
+                      "device_union_ms": p_union / 2, "window_ms": p_window / 2,
+                      "kernels_per_call": p_kernels / 2,
+                      "k6_share_of_device_time": _share(p_by, "ssd_kernel"),
+                      "top": sorted(((round(ms / 2, 4), name[:80]) for name, ms in
+                                     p_by.items()), reverse=True)[:8]},
+          "serve": {**SSM_SERVE_ARGS, "k6_launches": k6_serve,
+                    "prefill_by_decode_s": res.prefill_s,
+                    "prefill_by_decode_tokens_per_s": Bd * P / res.prefill_s,
+                    "decode_s": res.decode_s, "decode_ms_per_step": decode_ms,
+                    "decode_tokens_per_s": Bd * res.gen / res.decode_s,
+                    "weight_read_bound_ms_per_step": param_bytes / HBM_BYTES_PER_S * 1e3,
+                    "weight_and_state_bound_ms_per_step":
+                        (param_bytes + state_bytes) / HBM_BYTES_PER_S * 1e3,
+                    "peak_mem_gib": peak_gib, "first_tokens": res.tokens[0, :8].tolist()},
+          "decode_profile_10_steps": {
+              "device_union_ms_per_step": d_union / 10, "window_ms_per_step": d_window / 10,
+              "device_busy_share": d_union / d_window, "kernels_per_step": d_kernels / 10,
+              "top": sorted(((round(ms / 10, 5), name[:80]) for name, ms in d_by.items()),
+                            reverse=True)[:8]},
+          "host_syncs_in_2_decode_steps": 0, "plain_calls": 0})
+    return k6_launches, model, params
+
+
+def phase_ssm_parity(torch, k6, model, params):
+    """The reference's prefill/decode contract on mamba2: the reduced model
+    in f32 (TF32 off) on the card, ``model.prefill`` (K6) against
+    ``prefill_tokens`` (the decode recurrence) for logits and the SSM
+    state, and against the CPU's plain route; then mamba2-370m at full
+    width, f32 held to CONSISTENCY_TOL and bf16's top-1 agreement."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.models import factory
+    from repro_torch.serve.batching import prefill_tokens
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(SSM_ARCH).reduced()
+    small = factory.build(cfg)
+    weights = small.init(torch.Generator().manual_seed(0))  # on the CPU, then copied
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 128))
+    out, before = {}, k6.launches
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), weights)
+        toks = torch.from_numpy(prompts.astype(np.int32)).to(dev)
+        with torch.no_grad():
+            lp, cp = small.prefill(p, {"tokens": toks})
+            ld, cd = prefill_tokens(small.decode_step, p, small.init_decode_caches(4, 128, dev),
+                                    toks)
+        out[dev] = {"prefill": lp.cpu(), "h": cp["blocks"][0]["h"].cpu(),
+                    "conv": cp["blocks"][0]["conv"].cpu(), "decode": ld.cpu(),
+                    "h_decode": cd["blocks"][0]["h"].cpu(),
+                    "conv_decode": cd["blocks"][0]["conv"].cpu()}
+    launched = k6.launches - before
+    if launched != cfg.num_layers:
+        raise AssertionError(f"ssm_parity: K6 launched {launched} times on the card")
+    gaps = {}
+    g = out["cuda"]
+    for name, a, b, tol in (("prefill_vs_prefill_tokens", g["prefill"], g["decode"], 3e-4),
+                            ("h_vs_decode", g["h"], g["h_decode"], 1e-4),
+                            ("conv_vs_decode", g["conv"], g["conv_decode"], 1e-4),
+                            ("prefill_card_vs_cpu", g["prefill"], out["cpu"]["prefill"], 1e-4),
+                            ("h_card_vs_cpu", g["h"], out["cpu"]["h"], 1e-4)):
+        gaps[name] = float((a - b).abs().max())
+        if not torch.allclose(a, b, atol=tol, rtol=tol):
+            raise AssertionError(f"ssm_parity: {name} gap {gaps[name]} above {tol}")
+    consistency = _prefill_consistency(torch, model, params, tree_map, prefill_tokens)
+    emit({"phase": "ssm_parity", "ok": True, "arch": cfg.name, "batch": 4,
+          "prompt_len": 128, "k6_launches": launched, "max_abs_gap": gaps,
+          "full_width": {"arch": model.cfg.name, **consistency},
+          "params_reduced": sum(t.numel() for t in tree_leaves(weights)), "tf32": False})
+
+
 def main() -> int:
     import torch
 
@@ -1140,8 +1528,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.kernels import build, event_topk, fedavg_reduce
-    from repro_torch.kernels import flash_attention, flash_decode
+    from repro_torch.kernels import aoi_topk, build, event_topk, fedavg_reduce
+    from repro_torch.kernels import flash_attention, flash_decode, ssd_scan
 
     t0 = time.time()
     build.build_all()
@@ -1150,7 +1538,9 @@ def main() -> int:
                     for k, v in build.ptxas_log.items()}})
     entry = phase_kernel(torch, event_topk)
     k1_entry = phase_kernel_k1(torch, fedavg_reduce)
+    k3_entry = phase_kernel_k3(torch, aoi_topk)
     entry["launches"] = phase_main(torch, event_topk)
+    k3_entry["launches"] = phase_async_oldest(torch, aoi_topk)
     k1_entry["launches"] = phase_sync_main(torch, fedavg_reduce)
     phase_parity(torch)
     phase_sync_parity(torch, fedavg_reduce)
@@ -1159,10 +1549,13 @@ def main() -> int:
     k4_entry["launches"], k5_entry["launches"] = phase_serve_main(
         torch, flash_attention, flash_decode)
     phase_serve_parity(torch, flash_attention, flash_decode)
+    k6_entry = phase_kernel_k6(torch, ssd_scan)
+    k6_entry["launches"], model, params = phase_ssm_serve_main(torch, ssd_scan)
+    phase_ssm_parity(torch, ssd_scan, model, params)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{key: e[key] for key in keys}
-                      for e in (entry, k1_entry, k4_entry, k5_entry)]})
+                      for e in (entry, k1_entry, k4_entry, k5_entry, k3_entry, k6_entry)]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True)

@@ -26,8 +26,9 @@ names as the reference:
   * ``gumbel_age``   — age-weighted sampling without replacement (Gumbel
                        top-k on beta*age).
 
-``oldest_age`` and ``gumbel_age`` take a plain top-k with lower-index-first
-ties, as the reference's ``lax.top_k`` does.
+``oldest_age`` and ``gumbel_age`` take a top-k with lower-index-first ties,
+as the reference's ``lax.top_k`` does: the K3 kernel at fleet scale on the
+GPU, a stable sort otherwise (``_topk_idx``).
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ import torch
 
 from repro_torch.core import load_metric
 from repro_torch.core.aoi import age_update
+from repro_torch.kernels import aoi_topk, ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,9 +73,20 @@ def _on_device(arr: np.ndarray) -> Callable:
 
 
 def _topk_idx(score: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the k largest scores, ties to the lower index (the stable
-    descending sort keeps equal scores in index order)."""
-    return torch.sort(score, descending=True, stable=True)[1][:k]
+    """Indices of the k largest scores, ties to the lower index, as the
+    reference's ``lax.top_k``.
+
+    A score on CUDA with n >= ``sim.events.KERNEL_THRESHOLD`` (the
+    reference's fleet scale) and k <= ``aoi_topk.MAX_K`` goes through the
+    K3 kernel (``ops.oldest_age_topk``); any other shape or device takes
+    the stable descending sort, which keeps equal scores in index order.
+    This is a rule on the shape, not a fallback: a kernel that fails
+    raises."""
+    from repro_torch.sim.events import KERNEL_THRESHOLD  # sim imports this module
+
+    if score.is_cuda and score.shape[0] >= KERNEL_THRESHOLD and k <= aoi_topk.MAX_K:
+        return ops.oldest_age_topk(score, k)[1]
+    return aoi_topk.topk_plain(score, k)[1]
 
 
 def _mask(n: int, idx: torch.Tensor) -> torch.Tensor:

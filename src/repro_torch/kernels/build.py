@@ -3,8 +3,8 @@
 Each source compiles with ``nvcc`` into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), loaded with
 ``ctypes``. Libraries are cached under ``src/repro_torch/_build`` (listed
-in ``.gitignore``) by a hash of the source and the flags, so a rebuilt
-source never loads a stale library. ``build_all`` starts one ``nvcc`` per
+in ``.gitignore``) by a hash of the source, the shared headers and the
+flags, so a rebuilt source never loads a stale library. ``build_all`` starts one ``nvcc`` per
 source at once and waits for all of them.
 
 Nothing here runs at import: this module imports on machines without
@@ -26,7 +26,9 @@ BUILD_DIR = PKG / "_build"
 SOURCES = {"event_topk": CSRC / "event_topk.cu",
            "fedavg_reduce": CSRC / "fedavg_reduce.cu",
            "flash_attention": CSRC / "flash_attention.cu",
-           "flash_decode": CSRC / "flash_decode.cu"}
+           "flash_decode": CSRC / "flash_decode.cu",
+           "aoi_topk": CSRC / "aoi_topk.cu",
+           "ssd_scan": CSRC / "ssd_scan.cu"}
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -53,8 +55,12 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode())
+    """The library's path, named by a hash of the source, the shared
+    headers of ``csrc`` and the flags."""
+    digest = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

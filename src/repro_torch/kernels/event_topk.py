@@ -2,7 +2,8 @@
 
 Replaces the TPU kernel ``src/repro/kernels/event_topk.py::tile_next_k``
 (``_next_k_kernel``) and its phase 2 in ``src/repro/kernels/ops.py::
-event_next_k``. The CUDA source is ``src/repro_torch/csrc/event_topk.cu``:
+event_next_k``. The CUDA source is ``src/repro_torch/csrc/event_topk.cu``
+(the kernel is ``csrc/tile_topk.cuh``, shared with K3 in descending order):
 each time is packed with its index into one 64-bit key (time bits high,
 index low, so ties order by index for free), one CTA bitonic-sorts a tile
 of ``TILE`` keys in shared memory and keeps its first k, and the same
@@ -52,14 +53,16 @@ def num_passes(n: int, k: int) -> int:
 
 
 @functools.cache
-def _launcher():
-    """The built library's ``event_topk_launch``, typed (built at first use)."""
+def launcher(name: str):
+    """The built library ``name``'s ``<name>_launch`` (a ``tile_topk.cuh``
+    launcher: K2's ``event_topk`` or K3's ``aoi_topk``), typed (built at
+    first use)."""
     from repro_torch.kernels.build import library
 
-    lib = library("event_topk")
-    if lib.event_topk_tile() != TILE:
-        raise RuntimeError("csrc/event_topk.cu TILE differs from event_topk.TILE")
-    fn = lib.event_topk_launch
+    lib = library(name)
+    if getattr(lib, f"{name}_tile")() != TILE:
+        raise RuntimeError(f"csrc/{name}.cu TILE differs from event_topk.TILE")
+    fn = getattr(lib, f"{name}_launch")
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p]
@@ -67,47 +70,52 @@ def _launcher():
     return fn
 
 
-def _check(times: torch.Tensor, k: int) -> None:
-    if times.dim() != 1 or times.dtype != torch.float32:
+def check(values: torch.Tensor, k: int) -> None:
+    """What both tile top-k wrappers take: a 1-D f32 vector, 1 <= k <= n."""
+    if values.dim() != 1 or values.dtype != torch.float32:
         raise ValueError(
-            f"times must be a 1-D float32 tensor, got {tuple(times.shape)} "
-            f"{times.dtype}"
+            f"values must be a 1-D float32 tensor, got {tuple(values.shape)} "
+            f"{values.dtype}"
         )
-    n = times.shape[0]
+    n = values.shape[0]
     if not 1 <= k <= n:
         raise ValueError(f"need 1 <= k <= n, got k={k}, n={n}")
     if n >= 2**31:
         raise ValueError(f"n={n} exceeds the kernel's 31-bit index range")
 
 
+def launch(name: str, values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run kernel ``name``'s tile passes on a CUDA vector; (values (k,) f32,
+    idx (k,) i64). Raises on what the kernel does not take."""
+    if values.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, got {values.device}")
+    if k > MAX_K:
+        raise ValueError(f"{name} keeps k <= {MAX_K} per {TILE}-key tile, got k={k}")
+    if not values.is_contiguous():
+        raise ValueError("values must be contiguous")
+    fn = launcher(name)
+    n = values.shape[0]
+    dev = values.device
+    cand = -(-n // TILE) * k
+    scratch = torch.empty((2, cand), dtype=torch.int64, device=dev)
+    out_v = torch.empty((k,), dtype=torch.float32, device=dev)
+    out_i = torch.empty((k,), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(values.data_ptr(), n, k, scratch[0].data_ptr(),
+                 scratch[1].data_ptr(), out_v.data_ptr(), out_i.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    return out_v, out_i
+
+
 def event_topk(times: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(times (k,) f32, idx (k,) i64) of the k earliest entries of
     ``times``; entries with no event carry ``+inf`` (mask by finiteness)."""
     global launches
-    _check(times, k)
+    check(times, k)
     if times.device.type == "cpu":
         return next_k_plain(times, k)
-    if times.device.type != "cuda":
-        raise ValueError(f"event_topk runs on cpu or cuda, got {times.device}")
-    if k > MAX_K:
-        raise ValueError(
-            f"event_topk keeps k <= {MAX_K} per {TILE}-key tile, got k={k}"
-        )
-    if not times.is_contiguous():
-        raise ValueError("times must be contiguous")
-    fn = _launcher()
-    n = times.shape[0]
-    dev = times.device
-    cand = -(-n // TILE) * k
-    scratch = torch.empty((2, cand), dtype=torch.int64, device=dev)
-    out_t = torch.empty((k,), dtype=torch.float32, device=dev)
-    out_i = torch.empty((k,), dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(times.data_ptr(), n, k, scratch[0].data_ptr(),
-                 scratch[1].data_ptr(), out_t.data_ptr(), out_i.data_ptr(),
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"event_topk launch failed: CUDA error {err}")
+    out = launch("event_topk", times, k)
     launches += 1
-    return out_t, out_i
+    return out

@@ -6,10 +6,14 @@ tensor.
 """
 from __future__ import annotations
 
+import torch
+
+from repro_torch.kernels import aoi_topk as _topk
 from repro_torch.kernels import event_topk as _etopk
 from repro_torch.kernels import fedavg_reduce as _fedavg
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import flash_decode as _fdec
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def event_next_k(times, k):
@@ -36,3 +40,17 @@ def flash_decode(q, k, v, valid_len, *, scale, block_l=None):
     """K5: one token's queries (B, Hk, G, D) over a (B, Hk, L, D) cache, slots
     at or past ``valid_len`` (() or (B,)) masked."""
     return _fdec.flash_decode(q, k, v, valid_len, scale=scale, block_l=block_l)
+
+
+def ssd_scan(x, dt, A, B_, C_, *, chunk=256):
+    """K6: the Mamba2 SSD chunked scan from a zero state, y (B, S, nh, hd) in
+    x's dtype (``ssd_scan.ssd_scan`` also gives the f32 y and final state)."""
+    y, _ = _ssd.ssd_scan(x, dt, A, B_, C_, chunk)
+    return y.to(x.dtype)
+
+
+def oldest_age_topk(ages, k):
+    """K3: fleet-scale oldest-age selection. Returns (values (k,) f32,
+    indices (k,) i64) of the k highest ages (cast to f32), highest first,
+    ties to the lower index."""
+    return _topk.aoi_topk(ages.to(torch.float32), k)

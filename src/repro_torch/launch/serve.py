@@ -5,10 +5,14 @@ The same flags as ``repro.launch.serve`` plus ``--device``; like the
 reference, ``main`` serves the arch's ``reduced()`` variant with weights
 drawn from a seed (the published checkpoints are not in the repository).
 Every decode step's attention runs through the K5 CUDA kernel
-(``kernels.flash_decode``), one launch per layer.
+(``kernels.flash_decode``), one launch per layer; a Mamba2 layer's decode
+step is the O(1) recurrence, in plain torch. The prompt goes in through
+``prefill_tokens`` (one decode step a token), as in the reference, so
+``serve`` reaches neither K4 nor K6; ``model.prefill`` does.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
       --batch 4 --prompt-len 32 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu   # CPU run
 """
 from __future__ import annotations

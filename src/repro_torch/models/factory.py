@@ -6,9 +6,10 @@
     logits, caches = model.prefill(params, batch)
     logits, caches = model.decode_step(params, caches, token)
 
-Port of ``repro.models.factory`` for dense decoders (slice G, inference).
-``build`` raises for what this slice cannot run, naming the slice that
-brings it; ``sgd_train_step`` raises until LM training is ported.
+Port of ``repro.models.factory`` for dense attention decoders and pure
+Mamba2 (SSD) stacks, inference only. ``build`` raises for what the port
+cannot run yet, naming the slice that brings it; ``sgd_train_step`` raises
+until LM training is ported.
 """
 from __future__ import annotations
 
@@ -18,11 +19,13 @@ from typing import Callable, Dict
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ssd_scan
 from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.models import transformer
 
 MOE_AUX_WEIGHT = 0.01
-_LATER = "ROADMAP queue 1, slice G3 (MoE, MLA, SSM, windowed and multimodal models)"
+_LATER = ("ROADMAP queue 1, slice G3 (MoE, MLA, hybrid SSM, windowed and "
+          "multimodal models)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,12 +49,18 @@ def _unsupported(cfg: ArchConfig) -> str:
         return f"encoder-decoder models arrive with {_LATER}"
     if cfg.frontend != "none":
         return f"frontend stubs arrive with {_LATER}"
+    if len({spec.kind for spec in cfg.all_layers()}) > 1:
+        return f"hybrid attention and SSM stacks arrive with {_LATER}"
     for spec in cfg.all_layers():
         a = spec.attn
-        if spec.kind != "attn":
-            return f"{spec.kind} (SSM) layers arrive with {_LATER}"
         if spec.mlp.kind == "moe":
             return f"MoE layers arrive with {_LATER}"
+        if spec.kind == "mamba":
+            s = spec.ssm
+            if (s.head_dim, s.d_state) not in ssd_scan.SHAPES:
+                return (f"(head_dim, d_state) {(s.head_dim, s.d_state)} is not one "
+                        f"the K6 kernel takes {ssd_scan.SHAPES}")
+            continue
         if a.is_mla:
             return f"MLA attention arrives with {_LATER}"
         if a.kind != "full":

@@ -1,0 +1,164 @@
+"""Mamba2 (SSD, state-space duality) block. [arXiv:2405.21060]
+
+Port of ``repro.models.ssm``. Train and prefill use the chunked dual form:
+attention-like compute within chunks of ``chunk`` steps and a linear
+recurrence across chunks carrying the (heads, head_dim, d_state) f32
+state. ``ssm_fwd`` runs it through the K6 CUDA kernel
+(``kernels.ssd_scan``) where the reference calls ``ssd_chunked``: on a CPU
+tensor the wrapper takes the plain version, which is ``ssd_chunked`` here.
+Decode is the O(1) single-step recurrence, updating its cache in place.
+Parameter names and layouts are the reference's, so a reference tree
+converts key for key.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import SSMSpec
+from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.models.common import dense_init
+
+ssd_chunked = _ssd.ssd_chunked_plain
+
+
+def init_ssm(gen: torch.Generator, d_model: int, spec: SSMSpec, dtype) -> Dict:
+    """Params drawn from ``gen`` (on its device), the reference's leaves."""
+    di, ds, nh = spec.d_inner, spec.d_state, spec.num_heads
+    conv_ch = di + 2 * ds
+    dev = gen.device
+    w_in = dense_init(gen, (d_model, 2 * di + 2 * ds + nh), 0, dtype)
+    conv_w = (torch.randn((spec.conv_width, conv_ch), generator=gen, device=dev)
+              * 0.1).to(dtype)
+    w_out = dense_init(gen, (di, d_model), 0, dtype)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return {
+        # in_proj -> [z (di), x (di), B (ds), C (ds), dt (nh)]
+        "w_in": w_in,
+        "conv_w": conv_w,
+        "conv_b": torch.zeros((conv_ch,), dtype=dtype, device=dev),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, nh, **f32)),
+        "dt_bias": torch.full((nh,), float(np.log(np.expm1(0.01))), **f32),
+        "D": torch.ones((nh,), **f32),
+        "norm_scale": torch.ones((di,), dtype=dtype, device=dev),
+        "w_out": w_out,
+    }
+
+
+def _split_in(p, x, spec: SSMSpec):
+    di, ds = spec.d_inner, spec.d_state
+    proj = x @ p["w_in"]
+    z = proj[..., :di]
+    xbc = proj[..., di:di + di + 2 * ds]
+    dt_raw = proj[..., di + di + 2 * ds:]
+    return z, xbc, dt_raw
+
+
+def _causal_conv(p, xbc, spec: SSMSpec):
+    """Depthwise causal conv via shifted adds (width is tiny)."""
+    w = p["conv_w"]  # (W, ch)
+    W = w.shape[0]
+    out = xbc * w[W - 1]
+    for i in range(W - 1):
+        shift = W - 1 - i
+        shifted = F.pad(xbc, (0, 0, shift, 0))[:, :xbc.shape[1]]
+        out = out + shifted * w[i]
+    return F.silu(out + p["conv_b"])
+
+
+def _gated_norm(p, y, z, eps=1e-5):
+    g = y * F.silu(z)
+    gf = g.float()
+    var = (gf * gf).mean(-1, keepdim=True)
+    return (gf * torch.rsqrt(var + eps)).to(y.dtype) * p["norm_scale"]
+
+
+def ssd_reference(x, dt, A, B_, C_, h0=None):
+    """Naive step-by-step recurrence (oracle for tests). Returns
+    (y (B, S, nh, hd) f32, h_final)."""
+    Bb, S, nh, hd = x.shape
+    ds = B_.shape[-1]
+    h = (torch.zeros((Bb, nh, hd, ds), dtype=torch.float32, device=x.device)
+         if h0 is None else h0)
+    ys = []
+    for t in range(S):
+        dtt = dt[:, t].float()
+        a = torch.exp(dtt * A)  # (B, nh)
+        upd = torch.einsum("bh,bhp,bn->bhpn", dtt, x[:, t].float(), B_[:, t].float())
+        h = a[:, :, None, None] * h + upd
+        ys.append(torch.einsum("bn,bhpn->bhp", C_[:, t].float(), h))
+    return torch.stack(ys, dim=1), h
+
+
+def _ssm_fwd(p: Dict, x: torch.Tensor, spec: SSMSpec, h0=None):
+    """(out (B, S, d_model), h_final, xbc before the conv)."""
+    di, ds, nh, hd = spec.d_inner, spec.d_state, spec.num_heads, spec.head_dim
+    z, xbc_in, dt_raw = _split_in(p, x, spec)
+    xbc = _causal_conv(p, xbc_in, spec)
+    xin = xbc[..., :di]
+    B_ = xbc[..., di:di + ds]
+    C_ = xbc[..., di + ds:]
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    xh = xin.reshape(*xin.shape[:2], nh, hd)  # a view of xbc: strides, no copy
+    y, h = _ssd.ssd_scan(xh, dt, A, B_, C_, spec.chunk, h0)
+    y = y + p["D"][None, None, :, None] * xh.float()
+    y = y.reshape(*x.shape[:2], di).to(x.dtype)
+    out = _gated_norm(p, y, z) @ p["w_out"]
+    return out, h, xbc_in
+
+
+def ssm_fwd(p: Dict, x: torch.Tensor, spec: SSMSpec, h0=None,
+            return_state: bool = False):
+    """Full-sequence mamba2 block. x: (B, S, d_model). The scan is the K6
+    kernel on the GPU (``kernels.ssd_scan``), ``ssd_chunked`` on the CPU."""
+    out, h, _ = _ssm_fwd(p, x, spec, h0)
+    if return_state:
+        return out, h
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Decode (O(1) recurrence)
+# ---------------------------------------------------------------------------
+
+
+def init_ssm_cache(spec: SSMSpec, batch: int, dtype, device=None) -> Dict:
+    conv_ch = spec.d_inner + 2 * spec.d_state
+    return {
+        "h": torch.zeros((batch, spec.num_heads, spec.head_dim, spec.d_state),
+                         dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, spec.conv_width - 1, conv_ch), dtype=dtype,
+                            device=device),
+    }
+
+
+def ssm_decode(p: Dict, x: torch.Tensor, spec: SSMSpec, cache: Dict):
+    """x: (B, 1, d_model) -> (y, cache). The cache's ``h`` and ``conv`` are
+    updated IN PLACE (no host sync) and returned."""
+    di, ds, nh, hd = spec.d_inner, spec.d_state, spec.num_heads, spec.head_dim
+    z, xbc, dt_raw = _split_in(p, x, spec)  # (B, 1, .)
+    # conv over [cache, current]; hist is a new tensor, so its shifted tail
+    # can be copied into the cache without overlapping it
+    hist = torch.cat([cache["conv"], xbc], dim=1)  # (B, W, ch)
+    conv_out = torch.einsum("bwc,wc->bc", hist, p["conv_w"]) + p["conv_b"]
+    xbc1 = F.silu(conv_out)[:, None]  # (B, 1, ch)
+    xin = xbc1[..., :di]
+    B_ = xbc1[:, 0, di:di + ds].float()
+    C_ = xbc1[:, 0, di + ds:].float()
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])[:, 0]  # (B, nh)
+    A = -torch.exp(p["A_log"])
+    xh = xin.reshape(x.shape[0], nh, hd)
+    a = torch.exp(dt * A)
+    upd = torch.einsum("bh,bhp,bn->bhpn", dt, xh.float(), B_)
+    h = cache["h"]
+    h.mul_(a[:, :, None, None]).add_(upd)
+    y = torch.einsum("bn,bhpn->bhp", C_, h)
+    y = y + p["D"][None, :, None] * xh.float()
+    y = y.reshape(x.shape[0], 1, di).to(x.dtype)
+    out = _gated_norm(p, y, z) @ p["w_out"]
+    cache["conv"].copy_(hist[:, 1:])
+    return out, cache

@@ -1,10 +1,10 @@
 """Pattern-repeat decoder transformer.
 
-Port of ``repro.models.transformer`` for dense attention layers. An
-``ArchConfig`` describes layers as ``prefix + pattern * repeats +
-remainder``; the pattern's parameters (and decode caches) are stacked on
-a leading ``repeats`` axis as in the reference, so a reference tree
-converts key for key. Where the reference runs ``lax.scan`` over the
+Port of ``repro.models.transformer`` for dense attention layers and
+Mamba2 (SSD) layers. An ``ArchConfig`` describes layers as ``prefix +
+pattern * repeats + remainder``; the pattern's parameters (and decode
+caches) are stacked on a leading ``repeats`` axis as in the reference, so a
+reference tree converts key for key. Where the reference runs ``lax.scan`` over the
 stacked leaves, the port loops over ``repeats`` and indexes them as views.
 """
 from __future__ import annotations
@@ -18,6 +18,7 @@ from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.core.tree import tree_map
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import RopeTable
 from repro_torch.models.common import (
     apply_norm,
@@ -63,15 +64,18 @@ def _rope_for(cfg: ArchConfig, spec: LayerSpec, ropes) -> Optional[RopeTable]:
 
 
 # ---------------------------------------------------------------------------
-# Per-layer init / apply (attention + dense MLP)
+# Per-layer init / apply (attention or SSM, then a dense MLP if any)
 # ---------------------------------------------------------------------------
 
 
 def init_layer(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec) -> Dict:
     dtype = dtype_of(cfg.param_dtype)
     dev = gen.device
-    p: Dict = {"ln1": init_norm(cfg.d_model, cfg.norm, dtype, dev),
-               "attn": attn_mod.init_attention(gen, cfg.d_model, spec.attn, dtype)}
+    p: Dict = {"ln1": init_norm(cfg.d_model, cfg.norm, dtype, dev)}
+    if spec.kind == "attn":
+        p["attn"] = attn_mod.init_attention(gen, cfg.d_model, spec.attn, dtype)
+    else:
+        p["ssm"] = ssm_mod.init_ssm(gen, cfg.d_model, spec.ssm, dtype)
     if spec.mlp.kind != "none":
         p["ln2"] = init_norm(cfg.d_model, cfg.norm, dtype, dev)
         p["mlp"] = mlp_mod.init_mlp(gen, cfg.d_model, spec.mlp, dtype)
@@ -89,16 +93,25 @@ def apply_layer(
     cache: Optional[Dict] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (x, new_cache). In ``decode`` mode the cache is updated in
-    place (``attention.attention_decode``)."""
+    place (``attention.attention_decode``, ``ssm.ssm_decode``)."""
     h = apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
     rope = _rope_for(cfg, spec, ropes)
     new_cache = cache
-    if mode == "decode":
-        y, new_cache = attn_mod.attention_decode(p["attn"], h, spec.attn, rope, cache)
+    if spec.kind == "attn":
+        if mode == "decode":
+            y, new_cache = attn_mod.attention_decode(p["attn"], h, spec.attn, rope,
+                                                     cache)
+        else:
+            y = attn_mod.attention_fwd(p["attn"], h, spec.attn, rope, positions)
+            if mode == "prefill":
+                new_cache = _write_prefill_cache(p["attn"], h, spec, rope, positions)
+    elif mode == "decode":
+        y, new_cache = ssm_mod.ssm_decode(p["ssm"], h, spec.ssm, cache)
+    elif mode == "prefill":
+        y, hstate, conv_tail = _ssm_prefill(p["ssm"], h, spec)
+        new_cache = {"h": hstate, "conv": conv_tail}
     else:
-        y = attn_mod.attention_fwd(p["attn"], h, spec.attn, rope, positions)
-        if mode == "prefill":
-            new_cache = _write_prefill_cache(p["attn"], h, spec, rope, positions)
+        y = ssm_mod.ssm_fwd(p["ssm"], h, spec.ssm)
     x = x + y
     if spec.mlp.kind != "none":
         h = apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
@@ -106,7 +119,7 @@ def apply_layer(
     return x, new_cache
 
 
-# --- prefill-cache writer ---------------------------------------------------
+# --- prefill-cache writers --------------------------------------------------
 
 
 def _write_prefill_cache(p, h, spec: LayerSpec, rope, positions):
@@ -138,6 +151,15 @@ def _ring_layout(t: torch.Tensor, L: int) -> torch.Tensor:
         return torch.cat([t, pad], dim=1)
     tail = t[:, S - L:]
     return torch.roll(tail, shifts=(S - L) % L, dims=1)
+
+
+def _ssm_prefill(p, h, spec: LayerSpec):
+    """(out, final state, conv tail): the tail is the last W - 1 conv
+    inputs before the conv, from the block's own projection (the reference
+    projects the prompt a second time for it; the values are the same)."""
+    out, hstate, xbc = ssm_mod._ssm_fwd(p, h, spec.ssm)
+    tail = xbc[:, -(spec.ssm.conv_width - 1):].contiguous()
+    return out, hstate, tail
 
 
 # ---------------------------------------------------------------------------
@@ -201,7 +223,7 @@ def forward(
     tokens: torch.Tensor,  # (B, S)
     mode: str = "train",
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
-    """Returns (final_hidden (B,S,d), total_moe_aux (0 for dense layers),
+    """Returns (final_hidden (B,S,d), total_moe_aux (0 without MoE layers),
     caches|None). ``mode`` is ``train`` or ``prefill``; the frontend
     embeddings of the reference's multimodal archs come with slice G3."""
     if mode not in ("train", "prefill"):
@@ -295,7 +317,9 @@ def init_decode_caches(cfg: ArchConfig, batch: int, seq_len: int,
     dtype = dtype_of(cfg.compute_dtype)
 
     def one(spec: LayerSpec):
-        return attn_mod.init_cache(spec.attn, batch, seq_len, dtype, device)
+        if spec.kind == "attn":
+            return attn_mod.init_cache(spec.attn, batch, seq_len, dtype, device)
+        return ssm_mod.init_ssm_cache(spec.ssm, batch, dtype, device)
 
     caches: Dict = {}
     if cfg.prefix:
@@ -314,8 +338,9 @@ def decode_step(
 ) -> Tuple[torch.Tensor, Dict]:
     """One-token decode. Returns (logits (B,1,V), caches).
 
-    The caches are updated IN PLACE (each layer's K/V row written at its
-    ring slot, each index incremented) and returned; the caller must not
+    The caches are updated IN PLACE (each attention layer's K/V row written
+    at its ring slot and its index incremented, each SSM layer's state and
+    conv window advanced) and returned; the caller must not
     reuse the tree it passed in as the old state. No host sync."""
     x = _embed_tokens(params, cfg, token)
     ropes = build_ropes(cfg, x.device)

@@ -66,7 +66,9 @@ def test_configs_agree_with_the_reference():
 
 def test_builds_what_the_slice_runs_and_names_the_rest():
     assert factory.build(get_arch("llama3-8b")).cfg.name == "llama3-8b"
-    for name in ("gemma3-27b", "deepseek-v2-236b", "mamba2-370m", "whisper-tiny",
+    assert factory.build(get_arch("mamba2-370m")).cfg.name == "mamba2-370m"
+    assert factory.build(get_arch("mamba2-370m").reduced()).cfg.num_layers == 2
+    for name in ("gemma3-27b", "deepseek-v2-236b", "whisper-tiny",
                  "pixtral-12b", "jamba-v0.1-52b", "llama4-maverick-400b-a17b"):
         with pytest.raises(NotImplementedError, match="slice G3"):
             factory.build(get_arch(name))

@@ -28,28 +28,37 @@ prints one JSON line for each:
           at the sync main path's shapes (30 cohort slots, each of the paper
           CNN's eight leaves), the fleet width (320 x the fc1 leaf) and the
           edge cases (C = 1, N not a multiple of 4, all-zero weights, an
-          unaligned pointer, C above the staged-weight chunk); times as for
-          K2, with ``torch.mv`` as the yardstick.
+          unaligned pointer, C above the staged-weight chunk); one sync
+          round's eight leaves as one grouped launch (``fedavg_reduce_leaves``)
+          bitwise equal to single-leaf launches; the round's time as one
+          grouped launch against eight single-leaf launches and eight
+          ``torch.mv`` calls (the yardstick), per-leaf rows as for K2.
   sync_main    the sync driver's own path, ``repro_torch.launch.fl_train``
           at the paper's Sec. IV settings (100 clients, k = 15, m = 10,
           E = 5, B = 50) on MNIST at its real size, 60 rounds, with lr 0.02:
           on the synthetic MNIST stand-in the paper's lr 0.1 diverges in
           the first local steps, in the reference as in the port. K1
-          launched once per param leaf per round, device placement, finite
+          launched once a round (one grouped launch for the eight param
+          leaves), device placement, finite
           losses, accuracy rising, E[X] against n/k, Var[X] below random
           selection's; no host sync in two rounds; rounds/s, steady ms per
           round, device-busy share and peak memory.
   sync_parity  a small replayed sync run (48 clients, 6 rounds) with K1 on
           the card and plain on the CPU, TF32 off, each card round started
           from the CPU's params of the round before: discrete outputs
-          equal, params close, K1 launched every round.
+          equal, params close, K1 launched once a round.
   kernel_k4    K4 (``flash_attention``) against its plain version on the
           card at the serving prefill shape (B, Hk, G, S, D) =
-          (4, 4, 8, 2048, 64) in bf16 and at the reference's test shapes
+          (4, 4, 8, 2048, 64) in bf16, contiguous and in the model's layout
+          (q a view of (B, S, H, D)), at the reference's test shapes
           (sliding, chunked, D = 128, uneven blocks; f32 to 2e-5, bf16 to
-          2e-2); two launches bitwise equal; its time (CUDA events and
-          device-only), the plain version's, the bound, and
-          ``scaled_dot_product_attention`` (kv heads expanded) as yardstick.
+          2e-2) and at the bf16 kernel's shapes in the model's layout (G in
+          1, 2, 4, 5, 8, 16; D in 32, 64, 128; S in 200, 384, 2048; sliding
+          and chunked windows of 100 and 128); two launches bitwise equal;
+          its time in the model's layout and contiguous (CUDA events and
+          device-only), TFLOP/s and share of the bound, the plain version's
+          time, and ``scaled_dot_product_attention`` (kv heads expanded) as
+          yardstick.
   kernel_k5    the same for K5 (``flash_decode``) at the serving decode
           shape (8, 4, 8, 640, 64) in bf16, cache full, read in the model's
           (B, L, Hk, D) layout, and at the reference's test shapes (per-batch
@@ -583,6 +592,18 @@ def phase_kernel_k1(torch, fedavg_reduce):
         return float(err.max())
 
     main_cases = [(f"c{width}_n{N}", *stack(width, N, 15)) for N in leaves]
+    # one sync round: the eight leaves share one cohort's weights, one launch
+    round_w = main_cases[0][2]
+    round_stacks = [P for _, P, _ in main_cases]
+    before = fedavg_reduce.launches
+    grouped = fedavg_reduce.fedavg_reduce_leaves(round_stacks, round_w)
+    round_launches = fedavg_reduce.launches - before
+    singles = [fedavg_reduce.fedavg_reduce(P, round_w) for P in round_stacks]
+    torch.cuda.synchronize()
+    if round_launches != 1:
+        raise AssertionError(f"K1 took {round_launches} launches for one round's tree")
+    if not all(torch.equal(g, s1) for g, s1 in zip(grouped, singles)):
+        raise AssertionError("K1's grouped launch differs bitwise from single-leaf launches")
     fleet_case = (f"c{fleet_width}_n{max(leaves)}",
                   *stack(fleet_width, max(leaves), FLEET[1]))
     edge_cases = [
@@ -614,19 +635,31 @@ def phase_kernel_k1(torch, fedavg_reduce):
 
     rows = [timed(*case) for case in main_cases + [fleet_case]]
     per_round = rows[:len(main_cases)]
-    # one sync round launches K1 once per leaf: the entry sums those launches
+    # one sync round: one grouped launch for the eight leaves; the plain
+    # version and the yardstick (torch.mv) take one call per leaf
+    run = lambda: fedavg_reduce.fedavg_reduce_leaves(round_stacks, round_w)  # noqa: E731
+    singles_run = lambda: [fedavg_reduce.fedavg_reduce(P, round_w)  # noqa: E731
+                           for P in round_stacks]
+    mv_run = lambda: [torch.mv(P.t(), round_w) for P in round_stacks]  # noqa: E731
     entry = {
         "name": "fedavg_reduce", "route": "cuda",
         "source": "src/repro_torch/csrc/fedavg_reduce.cu",
         "replaces": "src/repro/kernels/fedavg_reduce.py:35",
         "max_abs_err": max_err,
-        **{key: sum(r[key] for r in per_round)
-           for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "ms": cuda_ms(torch, run),
+        "plain_ms": cuda_ms(torch, lambda: [fedavg_reduce.fedavg_reduce_plain(P, round_w)
+                                            for P in round_stacks]),
+        "bound_ms": sum(r["bound_ms"] for r in per_round),
         "bound_by": "bytes",
+        "library_ms": cuda_ms(torch, mv_run),
     }
     emit({"phase": "kernel_k1", "ok": True, "cases": len(cases), "width": width,
-          "leaves": leaves, "per_round": "sum over the sync round's leaf launches",
-          **entry, "device_ms": sum(r["device_ms"] for r in per_round),
+          "leaves": leaves, "per_round": "one grouped launch for the round's eight leaves",
+          "round_launches": round_launches, "grouped_bitwise_single_leaf": True,
+          **entry, "device_ms": device_ms(torch, run),
+          "single_leaf_launches_ms": cuda_ms(torch, singles_run),
+          "single_leaf_launches_device_ms": device_ms(torch, singles_run),
+          "library_device_ms": device_ms(torch, mv_run),
           "rows": rows, "max_abs_err_vs_f64": f64_err})
     return entry
 
@@ -664,7 +697,7 @@ def phase_sync_main(torch, fedavg_reduce):
     if off:
         raise AssertionError(f"engine state off the GPU: {off}")
     n_leaves = len(tree_leaves(state["params"]))
-    if launches != cfg.rounds * n_leaves:
+    if launches != cfg.rounds:  # one grouped launch for the round's leaves
         raise AssertionError(f"K1 launched {launches} times in {cfg.rounds} rounds "
                              f"of {n_leaves} leaves")
     evals = [r.eval_loss for r in res.records]
@@ -777,10 +810,9 @@ def phase_sync_parity(torch, fedavg_reduce):
                 raise AssertionError(f"sync parity: round {r} params differ")
             worst = max(worst, float((got - exp).abs().max()))
     launches = fedavg_reduce.launches - before
-    n_leaves = len(tree_leaves(states["cpu"]["params"]))
-    if launches != rounds * n_leaves:
+    if launches != rounds:  # one grouped launch a round
         raise AssertionError(f"sync parity: K1 launched {launches} times, "
-                             f"expected {rounds * n_leaves}")
+                             f"expected {rounds}")
     emit({"phase": "sync_parity", "ok": True, "rounds": rounds, "width": width,
           "selected": selected,
           "kernel_launches": launches, "max_param_abs_diff_vs_cpu": worst,
@@ -817,6 +849,17 @@ def _check_against_plain(torch, name, fn, plain, dtype):
     return float((out.float() - ref.float()).abs().max())
 
 
+def _model_layout(torch, gen, shape, dtype):
+    """q, k, v on the card as the model passes them to K4: q a view of
+    (B, S, H, D), k and v views of (B, S, Hk, D)."""
+    B, Hk, G, S, D = shape
+    q = torch.randn((B, S, Hk * G, D), generator=gen, device="cuda").to(dtype)
+    q = q.view(B, S, Hk, G, D).permute(0, 2, 3, 1, 4)
+    k, v = (torch.randn((B, S, Hk, D), generator=gen, device="cuda").to(dtype)
+            .permute(0, 2, 1, 3) for _ in range(2))
+    return q, k, v
+
+
 def phase_kernel_k4(torch, k4):
     import torch.nn.functional as F
 
@@ -824,50 +867,71 @@ def phase_kernel_k4(torch, k4):
     bf16, f32 = torch.bfloat16, torch.float32
     B, S = PREFILL_SHAPE
     main = (B, 4, 8, S, 64)  # tinyllama-1.1b: 4 kv heads, 8 query heads each, D 64
-    cases = [(main, "full", 0, bf16)] + [
-        (shape, kind, w, dt) for dt in (f32, bf16) for shape, kind, w in [
+    cases = [(main, "full", 0, bf16, "contiguous"), (main, "full", 0, bf16, "model")] + [
+        (shape, kind, w, dt, "contiguous") for dt in (f32, bf16) for shape, kind, w in [
             ((1, 2, 2, 256, 64), "full", 0), ((2, 1, 4, 512, 32), "full", 0),
             ((1, 2, 1, 512, 128), "sliding", 128), ((1, 1, 2, 512, 64), "chunked", 128),
             ((1, 4, 8, 256, 64), "full", 0), ((1, 2, 2, 384, 64), "full", 0)]]
+    # the bf16 kernel's shapes in the model's layout: every G up to 16, each
+    # head dim, ragged S, and windows that are not multiples of the key tile
+    cases += [((1, 2, G, 384, D), "full", 0, bf16, "model")
+              for D in (32, 64, 128) for G in (1, 2, 4, 5, 8, 16)]
+    cases += [((1, 2, 4, 200, 64), "full", 0, bf16, "model")]
+    cases += [((1, 2, G, Sx, D), kind, w, bf16, "model")
+              for kind in ("sliding", "chunked") for w in (100, 128)
+              for G, Sx, D in ((4, 384, 64), (5, 200, 32), (8, 2048, 128))]
     errs = {}
-    for shape, kind, w, dt in cases:
-        q, k, v = _attn_inputs(torch, gen, shape, dt)
+    for shape, kind, w, dt, layout in cases:
+        q, k, v = (_model_layout(torch, gen, shape, dt) if layout == "model"
+                   else _attn_inputs(torch, gen, shape, dt))
         scale = shape[-1] ** -0.5
-        name = f"{tuple(shape)}_{kind}_{str(dt)[6:]}"
-        block_k = 384 if shape[3] == 384 else 128  # the reference's uneven-blocks case
+        name = f"{tuple(shape)}_{kind}{w or ''}_{str(dt)[6:]}_{layout}"
+        Sx = shape[3]  # block sizes must divide S; 384 keeps the uneven-blocks case
+        block_q = 128 if Sx % 128 == 0 else Sx
+        block_k = 384 if Sx == 384 else block_q
         errs[name] = _check_against_plain(
             torch, f"K4 {name}",
             lambda: k4.flash_attention(q, k, v, scale=scale, kind=kind, window=w,
-                                       block_q=128, block_k=block_k),
+                                       block_q=block_q, block_k=block_k),
             lambda: k4.flash_attention_plain(q, k, v, scale=scale, kind=kind,
                                              window=w), dt)
-    q, k, v = _attn_inputs(torch, gen, main, bf16)
+    # the serving prefill shape in the model's layout, as serve_main passes it
+    q, k, v = _model_layout(torch, gen, main, bf16)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
     _, Hk, G, _, D = main
     qh = q.reshape(B, Hk * G, S, D)  # the same work as one MHA call
     kh, vh = (t.repeat_interleave(G, dim=1) for t in (k, v))
     run = lambda: k4.flash_attention(q, k, v, scale=0.125)  # noqa: E731
+    run_contig = lambda: k4.flash_attention(qc, kc, vc, scale=0.125)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)  # noqa: E731
     pairs = S * (S + 1) // 2  # causal (query, key) pairs
     ops = 4 * B * Hk * G * D * pairs
     nbytes = (q.numel() * 2 + k.numel() + v.numel()) * 2  # q, k, v in; o out
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
     entry = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:92",
-        "max_abs_err": errs[f"{main}_full_bfloat16"],
+        "max_abs_err": errs[f"{main}_full_bfloat16_model"],
         "ms": cuda_ms(torch, run, calls=20),
         "plain_ms": cuda_ms(torch, lambda: k4.flash_attention_plain(q, k, v, scale=0.125),
                             calls=3, trials=3),
-        "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3,
+        "bound_ms": bound_ms,
         "bound_by": "operations" if ops / BF16_OPS_PER_S > nbytes / HBM_BYTES_PER_S
         else "bytes",
-        "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True), calls=20),
+        "library_ms": cuda_ms(torch, sdpa, calls=20),
     }
+    dev_ms = device_ms(torch, run)
     emit({"phase": "kernel_k4", "ok": True, "cases": len(cases), "shape": list(main),
-          "dtype": "bfloat16", **entry, "device_ms": device_ms(torch, run),
-          "library_device_ms": device_ms(torch, lambda: F.scaled_dot_product_attention(
-              qh, kh, vh, is_causal=True)),
-          "tflops": ops / (entry["ms"] * 1e-3) / 1e12, "max_abs_err_by_case": errs})
+          "dtype": "bfloat16", "layout": "model", **entry, "device_ms": dev_ms,
+          "library_device_ms": device_ms(torch, sdpa),
+          "contiguous_ms": cuda_ms(torch, run_contig, calls=20),
+          "contiguous_device_ms": device_ms(torch, run_contig),
+          "tflops": ops / (entry["ms"] * 1e-3) / 1e12,
+          "device_tflops": ops / (dev_ms * 1e-3) / 1e12,
+          "share_of_bound": bound_ms / dev_ms,
+          "library_tflops": ops / (entry["library_ms"] * 1e-3) / 1e12,
+          "max_abs_err_by_case": errs})
     return entry
 
 
@@ -1075,7 +1139,7 @@ def phase_serve_main(torch, k4, k5):
           "prefill": {"batch": B, "seq": S, "k4_launches": k4_launches,
                       "ms": prefill_s * 1e3, "tokens_per_s": B * S / prefill_s,
                       "device_union_ms": p_union / 2, "window_ms": p_window / 2,
-                      "k4_share_of_device_time": _share(p_by, "mma_kernel")},
+                      "k4_share_of_device_time": _share(p_by, "attn_wgmma_kernel")},
           "serve": {**SERVE_ARGS, "k5_launches": k5_launches,
                     "k5_launches_per_step": k5_launches / steps,
                     "prefill_by_decode_s": res.prefill_s,

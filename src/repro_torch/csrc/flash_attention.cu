@@ -8,30 +8,58 @@
 // flash_attention (_flash_kernel). It computes what that kernel computes;
 // it is not carried over block by block.
 //
-// Design (simple and right first; wgmma/TMA and pipelined loads are later
-// work):
-//  - one CTA per (b, kv head, tile of 64 rows). The rows pack every query
-//    head of the kv head: row r is query position r / G of head r % G, so
-//    a tile covers 64 / G consecutive positions of all G heads, and each
-//    K/V tile is read once for all G heads (the GQA saving the Pallas
-//    kernel is built around). Any G works.
-//  - the CTA walks 64-key tiles in order, K and V staged in shared memory;
-//    tiles wholly above the diagonal, or wholly before the sliding window
-//    or the chunk of every row in the tile, are skipped: they would add
-//    exp(-1e30 - m) = 0, or be wiped by alpha = exp(-1e30 - m) once a
-//    valid key arrives, exactly as in the reference.
-//  - bf16: mma.sync m16n8k16 tensor-core tiles (f32 accumulate), four
-//    warps of 16 rows each; S = Q K^T stays in registers, and its
-//    accumulator fragments become P's A fragments for O += P V.
-//  - f32: plain FMA, 256 threads, each thread a 4 x 4 block of scores and
-//    a 4 x D/16 block of the output (the f32 tolerance of 2e-5 rules out
-//    TF32 tensor-core tiles).
+// Both routes pack every query head of a kv head into one CTA's rows: row
+// r is query position r / G of head r % G, so each K/V tile is read once
+// for all G heads (the GQA saving the Pallas kernel is built around).
+// Key tiles wholly above the diagonal, or wholly before the sliding window
+// or the chunk of every row, are skipped: they would add exp(-1e30 - m) =
+// 0, or be wiped by alpha = exp(-1e30 - m) once a valid key arrives,
+// exactly as in the reference.
+//
+// bf16 (attn_wgmma_kernel), built for sm_90a:
+//  - warp-specialised CTA of 384 threads: warpgroup 0 is the producer (one
+//    thread issues TMA loads, the group gives its registers away with
+//    setmaxnreg), warpgroups 1 and 2 are consumers of 64 rows each.
+//  - a CTA holds P = 128 / G whole positions (P x G rows; padded rows up
+//    to 128 are computed and never stored). Q arrives by a 5-D TMA box
+//    {D, G, P} straight from the model's strided (B, S, H, D) view; K and V
+//    arrive in tiles of 128 keys (64 at D = 128) through a ring of 4 to 6
+//    stages, each with a full and an empty mbarrier. TMA fills keys past S
+//    with zeros; the mask still drops them (kp < S).
+//  - S = Q K^T by wgmma m64nNk16 with Q and K in shared memory, both
+//    K-major; O += P V by wgmma m64nDk16 with P in registers (the S
+//    accumulator's layout is the A-register layout) and V in shared memory
+//    through the transpose bit (V is keys x D, D contiguous). f32
+//    accumulators.
+//  - each turn of a consumer issues S of key tile i and P V of tile i - 1
+//    together, so the softmax of tile i overlaps the P V product; the two
+//    consumers take turns (ping-pong on named barriers), so one's softmax
+//    runs while the other's products hold the tensor cores.
+//  - swizzle: 128 B rows at D = 64 and D = 128 (two 64-column blocks),
+//    64 B at D = 32; the tensor maps and the wgmma descriptors use the
+//    same mode, and every block is aligned to its swizzle atom.
+//  - softmax in log2 units: p = exp2(s * scale * log2 e - m) as one FMA and
+//    one ex2; the element mask (one key interval per row) runs only on
+//    tiles that the diagonal, the window's edge, the chunk boundary or S
+//    cut.
+//  - persistent: one CTA per SM walks output tiles, longest first, in
+//    rounds that alternate direction over the CTAs; one tile's epilogue
+//    overlaps the next one's loads. Each output tile is one CTA's
+//    fixed-order walk over its keys, so launches are bitwise repeatable
+//    (no split over keys, no atomics).
+// f32 (fma_kernel): plain FMA, 256 threads, 64-row tiles, each thread a
+// 4 x 4 block of scores and a 4 x D/16 block of the output (the f32
+// tolerance of 2e-5 rules out TF32 tensor-core tiles).
+//
 // Bound on the H100: 4 * B * Hk * G * D * (causal key-query pairs) flops
 // against reading q, k, v and writing o once; at the serving prefill
 // shape it is bound by operations.
 //
 // Plain C interface for ctypes: flash_attention_launch returns the CUDA
-// error of the launch (0 on success).
+// error of the launch (0 on success), or 1000 + the CUresult of a tensor
+// map that could not be encoded. cuTensorMapEncodeTiled (libcuda) is looked
+// up through the CUDA runtime at first use, so the library needs no -lcuda.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -39,8 +67,8 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kBM = 64;  // rows (query position x head) per CTA
-constexpr int kBN = 64;  // keys per tile
+constexpr int kBM = 64;  // rows (query position x head) per CTA of the FMA route
+constexpr int kBN = 64;  // keys per tile of the FMA route
 
 struct Geom {
   int Hk, G, S, kind, window;
@@ -66,13 +94,8 @@ __device__ __forceinline__ int first_key(int qmin, int kind, int window) {
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void from_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void from_f(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 __device__ __forceinline__ float round_to(float p, const float*) { return p; }
-__device__ __forceinline__ float round_to(float p, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(p));
-}
 
 // ---------------------------------------------------------------------------
 // FMA kernel: 16 x 16 threads; thread (ty, tx) owns rows 4ty..4ty+3, keys
@@ -195,21 +218,129 @@ fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// mma.sync kernel (bf16): four warps, warp w owns rows 16w..16w+15 of the
-// tile. Fragment layouts of mma.m16n8k16 (PTX ISA), lane = 4 * gid + tid:
-//   A (16 x 16): a0 (gid, 2tid..+1) a1 (gid+8, 2tid..) a2 (gid, 8+2tid..)
-//                a3 (gid+8, 8+2tid..)
-//   B (16 x 8):  b0 (k 2tid..+1, n gid) b1 (k 8+2tid..+1, n gid)
-//   C (16 x 8):  c0,c1 (gid, 2tid..+1) c2,c3 (gid+8, 2tid..+1)
+// wgmma kernel (bf16). Fragment layouts (PTX ISA, wgmma m64nNk16): warp w of
+// a warpgroup owns rows 16w..16w+15; lane = 4 * gid + tid.
+//   accumulator: d[4i + 0, 1] (row gid, cols 8i + 2tid, +1)
+//                d[4i + 2, 3] (row gid + 8, cols 8i + 2tid, +1)
+//   A registers: a0 (gid, k 2tid..+1) a1 (gid + 8, k 2tid..)
+//                a2 (gid, k 8 + 2tid..) a3 (gid + 8, k 8 + 2tid..)
+// so the S accumulator's n-tiles 2j, 2j + 1 are P's A registers of k-step j.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
+constexpr int kRows = 128;    // rows per CTA: two consumer warpgroups of 64
+constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int kConsumerWarps = 8;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // 128 * 40 + 256 * 232 <= 65536
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct WgGeom {
+  int S, G, P, Hk, n_qt, bhn, total, kind, window;
+  float c;  // scale * log2(e): scores in log2 units
+  long long o_b, o_h, o_g, o_s;
+};
+
+template <int D>
+struct WgCfg {
+  static constexpr int ATOM = D == 32 ? 32 : 64;  // bf16 columns of one swizzle row
+  static constexpr int ROWB = ATOM * 2;           // bytes of a swizzle row: 64 or 128
+  static constexpr int NSUB = D / ATOM;           // column blocks: 2 at D = 128
+  static constexpr int KSTEPS = ATOM / 16;        // wgmma k-steps per column block
+  // keys per K/V tile: 64 at D = 128, where S, O and P of 128 keys would not
+  // all fit in a consumer's registers while a product is in flight
+  static constexpr int TILE_N = D == 128 ? 64 : 128;
+  static constexpr int STAGES = D == 128 ? 4 : (D == 64 ? 5 : 6);
+  static constexpr int SUB_Q = kRows * ROWB;      // bytes of one column block of Q
+  static constexpr int SUB_KV = TILE_N * ROWB;    // ... of K or V
+  static constexpr int Q_BYTES = NSUB * SUB_Q;
+  static constexpr int KV_BYTES = NSUB * SUB_KV;  // K (or V) of one stage
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int BAR_OFF = Q_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int SMEM = BAR_OFF + 8 * (2 + 2 * STAGES) + 1024;  // + alignment slack
+  static constexpr uint64_t MODE = ROWB == 128 ? 1 : 2;  // descriptor: 128 B or 64 B swizzle
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed; a wait that never
+// completes (a broken pipeline) traps after 2^24 tries instead of hanging
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done, tries = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (++tries == (1u << 24)) asm volatile("trap;");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(c4)
+      : "memory");
+}
+
+// shared-memory matrix descriptor (PTX ISA "matrix descriptor format")
+__device__ __forceinline__ uint64_t sdesc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                          uint64_t mode) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (mode << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving register reads or writes across an
+// asynchronous wgmma and its wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -217,163 +348,387 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
+// D (64 x N, f32) (+)= A (64 x 16, shared, K-major) * B (16 x N, shared, K-major)
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b, int scale_d);
+// D (64 x N, f32) += A (64 x 16, registers) * B (16 x N, shared, N-major)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// named barriers 1 and 2, over the 256 consumer threads
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// the geometry of one output tile: P positions x G heads of one (b, kv head)
+struct Tile {
+  int b, h, p0, kt0, n_tiles;
+};
+
+template <int BN>
+__device__ __forceinline__ Tile tile_at(int t, const WgGeom& gm) {
+  Tile tl;
+  const int qt = gm.n_qt - 1 - t / gm.bhn;  // the q tiles with the most keys come first
+  const int bh = t % gm.bhn;
+  tl.b = bh / gm.Hk;
+  tl.h = bh % gm.Hk;
+  tl.p0 = qt * gm.P;
+  const int pmax = min(tl.p0 + gm.P - 1, gm.S - 1);
+  tl.kt0 = first_key(tl.p0, gm.kind, gm.window) / BN * BN;
+  tl.n_tiles = pmax / BN - tl.kt0 / BN + 1;
+  return tl;
+}
+
+// the output tile a persistent CTA takes in round r: rounds alternate
+// direction over the CTAs, so the long tiles of early rounds pair with
+// short ones (-1 when none is left)
+__device__ __forceinline__ int tile_of_round(int r, const WgGeom& gm) {
+  const int n = static_cast<int>(gridDim.x), c = static_cast<int>(blockIdx.x);
+  const long long t = static_cast<long long>(r) * n + ((r & 1) ? n - 1 - c : c);
+  return t < gm.total ? static_cast<int>(t) : -1;
+}
+
+// the keys row position qp may attend to form one interval [first, last]
+// under every mask kind (last = min(qp, S - 1))
+__device__ __forceinline__ int first_allowed(int qp, int kind, int w) {
+  if (kind == 1) return max(0, qp - w + 1);
+  if (kind == 2) return qp / w * w;
+  return 0;
+}
+
+// online softmax of one 64 x BN score tile held as the wgmma accumulator:
+// the scores become p = exp2(s * c - m) in place; m, l and the O rescale
+// factors of the thread's two rows are updated
+template <int BN>
+__device__ __forceinline__ void softmax_tile(float* sacc, float& m_lo, float& m_hi, float& l_lo,
+                                             float& l_hi, float& a_lo, float& a_hi, float c,
+                                             bool clean, int kt, int S, int qp_lo, int qp_hi,
+                                             int kind, int w, int tid) {
+  if (!clean) {
+    // column j = 8n + (e & 1) of this thread holds key kt + 2 tid + j
+    const int k0 = kt + 2 * tid;
+    const int lo_a = first_allowed(qp_lo, kind, w) - k0, lo_b = min(qp_lo, S - 1) - k0;
+    const int hi_a = first_allowed(qp_hi, kind, w) - k0, hi_b = min(qp_hi, S - 1) - k0;
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 8 * n + (e & 1);
+        const bool ok = e < 2 ? (j >= lo_a && j <= lo_b) : (j >= hi_a && j <= hi_b);
+        if (!ok) sacc[4 * n + e] = -INFINITY;
+      }
+  }
+  float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+  for (int n = 0; n < BN / 8; ++n) {
+    mx_lo = fmaxf(mx_lo, fmaxf(sacc[4 * n], sacc[4 * n + 1]));
+    mx_hi = fmaxf(mx_hi, fmaxf(sacc[4 * n + 2], sacc[4 * n + 3]));
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off *= 2) {
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+  }
+  // a row with no allowed key here keeps its m (mx = -inf); a row that has
+  // seen none yet keeps the sentinel and is wiped by alpha = 0 later
+  const float mn_lo = fmaxf(m_lo, mx_lo * c), mn_hi = fmaxf(m_hi, mx_hi * c);
+  a_lo = ex2(m_lo - mn_lo);
+  a_hi = ex2(m_hi - mn_hi);
+  m_lo = mn_lo;
+  m_hi = mn_hi;
+  float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+  for (int n = 0; n < BN / 8; ++n) {
+    sacc[4 * n] = ex2(fmaf(sacc[4 * n], c, -mn_lo));
+    sacc[4 * n + 1] = ex2(fmaf(sacc[4 * n + 1], c, -mn_lo));
+    sacc[4 * n + 2] = ex2(fmaf(sacc[4 * n + 2], c, -mn_hi));
+    sacc[4 * n + 3] = ex2(fmaf(sacc[4 * n + 3], c, -mn_hi));
+    sum_lo += sacc[4 * n] + sacc[4 * n + 1];
+    sum_hi += sacc[4 * n + 2] + sacc[4 * n + 3];
+  }
+  l_lo = l_lo * a_lo + sum_lo;  // this thread's columns; summed over the quad at the end
+  l_hi = l_hi * a_hi + sum_hi;
 }
 
 template <int D>
-__global__ void __launch_bounds__(128)
-mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-           const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-           Geom gm) {
-  constexpr int P = D + 8;   // padded row in bf16 (16 bytes): conflict-free fragments
-  constexpr int KS = D / 16;  // k-steps of Q K^T
-  constexpr int NT = kBN / 8;  // n-tiles of S
-  constexpr int DT = D / 8;    // n-tiles of O
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kBM][P]
-  __nv_bfloat16* Ks = Qs + kBM * P;                                // [kBN][P]
-  __nv_bfloat16* Vs = Ks + kBN * P;                                // [kBN][P]
+__global__ void __launch_bounds__(kThreads, 1)
+attn_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                  const WgGeom gm) {
+  using C = WgCfg<D>;
+  constexpr int BN = C::TILE_N;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // every block on a swizzle-atom boundary
+  unsigned char* gbase = smem_raw + (base - raw);
+  // barriers: q_full, q_empty, then full[STAGES], then empty[STAGES]
+  const uint32_t q_full = base + C::BAR_OFF, q_empty = q_full + 8;
+  const uint32_t full0 = q_full + 16, empty0 = full0 + 8 * C::STAGES;
+  const int S = gm.S, G = gm.G;
+  const int real_rows = G * gm.P;
 
-  const int G = gm.G, S = gm.S;
-  const int bh = blockIdx.y, b = bh / gm.Hk, h = bh % gm.Hk;
-  const int r0 = blockIdx.x * kBM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gid = lane / 4, tid = lane % 4;
-  const __nv_bfloat16* qb = q + b * gm.q_b + h * gm.q_h;
-  const __nv_bfloat16* kb = k + b * gm.k_b + h * gm.k_h;
-  const __nv_bfloat16* vb = v + b * gm.v_b + h * gm.v_h;
-
-  // stage Q (8 bf16 = 16 bytes a thread a step)
-  for (int i = threadIdx.x; i < kBM * D / 8; i += 128) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8, row = r0 + r, qp = row / G;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (qp < S) val = *reinterpret_cast<const uint4*>(qb + (row % G) * gm.q_g + qp * gm.q_s + c);
-    *reinterpret_cast<uint4*>(Qs + r * P + c) = val;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);                // the producer
+    mbar_init(q_empty, kConsumerWarps);  // each consumer warp
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // padded rows of Q (G does not divide 128): zero, computed, never stored
+  {
+    const int pad = kRows - real_rows, chunks = C::ROWB / 16;
+    for (int i = threadIdx.x; i < C::NSUB * pad * chunks; i += kThreads) {
+      const int sub = i / (pad * chunks), r = real_rows + (i / chunks) % pad, c = i % chunks;
+      *reinterpret_cast<uint4*>(gbase + sub * C::SUB_Q + r * C::ROWB + c * 16) =
+          make_uint4(0, 0, 0, 0);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
   __syncthreads();
-  const int wr = warp * 16;  // this warp's first row in the tile
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const __nv_bfloat16* base = Qs + ks * 16 + 2 * tid;
-    qa[ks][0] = *reinterpret_cast<const uint32_t*>(base + (wr + gid) * P);
-    qa[ks][1] = *reinterpret_cast<const uint32_t*>(base + (wr + gid + 8) * P);
-    qa[ks][2] = *reinterpret_cast<const uint32_t*>(base + (wr + gid) * P + 8);
-    qa[ks][3] = *reinterpret_cast<const uint32_t*>(base + (wr + gid + 8) * P + 8);
-  }
-  const int qp_lo = (r0 + wr + gid) / G, qp_hi = (r0 + wr + gid + 8) / G;
 
-  const int qmin = r0 / G;
-  const int qmax = min((r0 + kBM - 1) / G, S - 1);
-  const int kt0 = first_key(qmin, gm.kind, gm.window) / kBN * kBN;
-
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float oc[DT][4];
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread keeps the TMA loads in flight ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      int s = 0;
+      uint32_t ph = 0, qph = 0;
+      for (int r = 0;; ++r) {
+        const int t = tile_of_round(r, gm);
+        if (t < 0) break;
+        const Tile tl = tile_at<BN>(t, gm);
+        mbar_wait(q_empty, qph ^ 1);  // the previous tile's Q is no longer read
+        mbar_expect_tx(q_full, C::NSUB * C::ROWB * real_rows);
 #pragma unroll
-  for (int n = 0; n < DT; ++n) oc[n][0] = oc[n][1] = oc[n][2] = oc[n][3] = 0.f;
-
-  for (int kt = kt0; kt <= qmax; kt += kBN) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kBN * D / 8; i += 128) {
-      const int kk = i / (D / 8), c = (i % (D / 8)) * 8, kp = kt + kk;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (kp < S) {
-        kv = *reinterpret_cast<const uint4*>(kb + kp * gm.k_s + c);
-        vv = *reinterpret_cast<const uint4*>(vb + kp * gm.v_s + c);
-      }
-      *reinterpret_cast<uint4*>(Ks + kk * P + c) = kv;
-      *reinterpret_cast<uint4*>(Vs + kk * P + c) = vv;
-    }
-    __syncthreads();
-
-    // S = Q K^T for the warp's 16 rows x 64 keys
-    float sc[NT][4];
+        for (int sub = 0; sub < C::NSUB; ++sub)
+          tma_load_5d(base + sub * C::SUB_Q, &tq, q_full, sub * C::ATOM, 0, tl.p0, tl.h, tl.b);
+        qph ^= 1;
+        for (int i = 0; i < tl.n_tiles; ++i) {
+          const uint32_t ks = base + C::Q_BYTES + s * C::STAGE_BYTES;
+          const int kt = tl.kt0 + i * BN;
+          mbar_wait(empty0 + 8 * s, ph ^ 1);  // the first pass over the ring finds it free
+          mbar_expect_tx(full0 + 8 * s, C::STAGE_BYTES);
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        const __nv_bfloat16* kr = Ks + (n * 8 + gid) * P + ks * 16 + 2 * tid;
-        mma16816(sc[n], qa[ks], *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
+          for (int sub = 0; sub < C::NSUB; ++sub) {
+            tma_load_4d(ks + sub * C::SUB_KV, &tk, full0 + 8 * s, sub * C::ATOM, kt, tl.h, tl.b);
+            tma_load_4d(ks + C::KV_BYTES + sub * C::SUB_KV, &tv, full0 + 8 * s, sub * C::ATOM,
+                        kt, tl.h, tl.b);
+          }
+          if (++s == C::STAGES) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
       }
     }
-    // mask, scale, online softmax (row gid: c0, c1; row gid + 8: c2, c3)
-    float mx[2] = {kNegInf, kNegInf};
+  } else {
+    // ---- two consumer warpgroups of 64 rows ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int t128 = threadIdx.x - 128, cw = t128 / 128, warp = (t128 % 128) / 32;
+    const int lane = t128 % 32, tid = lane % 4;
+    const int r_lo = cw * 64 + warp * 16 + lane / 4, r_hi = r_lo + 8;
+    const int wr1 = min(cw * 64 + 63, real_rows - 1);  // this warpgroup's last real row
+    const int kind = gm.window > 0 ? gm.kind : 0, w = gm.window;
+    const float c = gm.c;
+    const uint32_t qa = base + cw * 64 * C::ROWB;
+    auto kaddr = [&](int st) { return base + C::Q_BYTES + st * C::STAGE_BYTES; };
+    auto release = [&](int st) {  // this warp no longer reads stage st
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * st);
+    };
+
+    // ping-pong: the two warpgroups take turns to issue their products, so
+    // one's softmax runs while the other's products hold the tensor cores
+    if (cw == 1) named_arrive(1);  // warpgroup 0 goes first
+
+    float sacc[BN / 2], oacc[D / 2];
+    uint32_t pa[BN / 16][4];
+    float m_lo, m_hi, l_lo, l_hi, a_lo = 1.f, a_hi = 1.f;  // m in log2 units
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
+    for (int i = 0; i < BN / 2; ++i) sacc[i] = 0.f;
+    int s = 0;
+    uint32_t ph = 0, qph = 0;
+    for (int r = 0;; ++r) {
+      const int t = tile_of_round(r, gm);
+      if (t < 0) break;
+      const Tile tl = tile_at<BN>(t, gm);
+      const int qp_lo = tl.p0 + r_lo / G, qp_hi = tl.p0 + r_hi / G;
+      // this warpgroup's first and last real position; both warpgroups walk
+      // every key tile of the CTA (rows masked out of a tile add exactly 0)
+      const int wp0 = tl.p0 + cw * 64 / G, wp1 = min(tl.p0 + wr1 / G, S - 1);
+      auto clean = [&](int kt) {  // every (row, key) pair of the tile allowed?
+        return kt + BN <= S && kt + BN - 1 <= wp0 && (kind != 1 || kt > wp1 - w) &&
+               (kind != 2 || kt / w == wp1 / w);
+      };
+      auto advance = [&]() {
+        if (++s == C::STAGES) {
+          s = 0;
+          ph ^= 1;
+        }
+      };
+      auto issue_s = [&](int st) {  // S = Q K^T from stage st
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kp = kt + n * 8 + 2 * tid + (e & 1);
-        const int qp = e < 2 ? qp_lo : qp_hi;
-        const bool ok = kp < S && allowed(qp, kp, gm.kind, gm.window);
-        sc[n][e] = ok ? sc[n][e] * gm.scale : kNegInf;
-        mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
+        for (int k = 0; k < D / 16; ++k) {
+          const uint32_t off = (k % C::KSTEPS) * 32;  // 16 bf16 along the swizzled row
+          wgmma_ss<BN>(
+              sacc, sdesc(qa + (k / C::KSTEPS) * C::SUB_Q + off, 16, 8 * C::ROWB, C::MODE),
+              sdesc(kaddr(st) + (k / C::KSTEPS) * C::SUB_KV + off, 16, 8 * C::ROWB, C::MODE),
+              k > 0);
+        }
+        wgmma_commit();
+      };
+      auto issue_pv = [&](int st) {  // O += P V from stage st
+        const uint32_t va = kaddr(st) + C::KV_BYTES;
+#pragma unroll
+        for (int k = 0; k < BN / 16; ++k)
+          wgmma_rs<D>(oacc, pa[k], sdesc(va + k * 16 * C::ROWB, C::SUB_KV, 8 * C::ROWB, C::MODE));
+        wgmma_commit();
+      };
+      auto pack_p = [&]() {
+#pragma unroll
+        for (int n = 0; n < BN / 8; ++n) {
+          pa[n / 2][(n & 1) * 2 + 0] = pack_bf16(sacc[4 * n], sacc[4 * n + 1]);
+          pa[n / 2][(n & 1) * 2 + 1] = pack_bf16(sacc[4 * n + 2], sacc[4 * n + 3]);
+        }
+      };
+      auto softmax = [&](int kt) {
+        softmax_tile<BN>(sacc, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, c, clean(kt),
+                       kt, S, qp_lo, qp_hi, kind, w, tid);
+      };
+
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+      m_lo = m_hi = kNegInf;
+      l_lo = l_hi = 0.f;
+      mbar_wait(q_full, qph);
+      qph ^= 1;
+      // turn 0: S of the first key tile
+      mbar_wait(full0 + 8 * s, ph);
+      named_sync(1 + cw);
+      wgmma_fence();
+      issue_s(s);
+      named_arrive(2 - cw);  // the other warpgroup's turn
+      wgmma_wait_all();
+      fence_regs<BN / 2>(sacc);
+      softmax(tl.kt0);
+      pack_p();
+      int prev = s;
+      advance();
+      // turn i: S of tile i and P V of tile i - 1 in flight together; the
+      // softmax of tile i overlaps the P V product
+      for (int i = 1; i < tl.n_tiles; ++i) {
+        const int kt = tl.kt0 + i * BN;
+        mbar_wait(full0 + 8 * s, ph);
+        named_sync(1 + cw);
+        wgmma_fence();
+        issue_s(s);
+        issue_pv(prev);
+        named_arrive(2 - cw);
+        wgmma_wait_one();  // S is done
+        fence_regs<BN / 2>(sacc);
+        softmax(kt);
+        wgmma_wait_all();  // P V is done
+        fence_regs<D / 2>(oacc);
+        release(prev);
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          oacc[4 * n] *= a_lo;
+          oacc[4 * n + 1] *= a_lo;
+          oacc[4 * n + 2] *= a_hi;
+          oacc[4 * n + 3] *= a_hi;
+        }
+        pack_p();
+        prev = s;
+        advance();
+      }
+      // last turn: P V of the last key tile
+      named_sync(1 + cw);
+      wgmma_fence();
+      issue_pv(prev);
+      named_arrive(2 - cw);
+      wgmma_wait_all();
+      fence_regs<D / 2>(oacc);
+      release(prev);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(q_empty);  // the producer may load the next Q
+
+#pragma unroll
+      for (int off = 1; off <= 2; off *= 2) {
+        l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+        l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = rr ? r_hi : r_lo, qp = rr ? qp_hi : qp_lo;
+        if (row >= real_rows || qp >= S) continue;
+        const float inv = 1.f / fmaxf(rr ? l_hi : l_lo, 1e-30f);
+        __nv_bfloat16* orow =
+            o + tl.b * gm.o_b + tl.h * gm.o_h + (row % G) * gm.o_g + qp * gm.o_s;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * tid) =
+              pack_bf16(oacc[4 * n + 2 * rr] * inv, oacc[4 * n + 2 * rr + 1] * inv);
       }
     }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float mn = fmaxf(m[r], mx[r]);
-      alpha[r] = __expf(m[r] - mn);
-      m[r] = mn;
-    }
-    float sum[2] = {0.f, 0.f};
-    uint32_t pa[NT / 2][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const float p0 = __expf(sc[n][0] - m[0]), p1 = __expf(sc[n][1] - m[0]);
-      const float p2 = __expf(sc[n][2] - m[1]), p3 = __expf(sc[n][3] - m[1]);
-      sum[0] += p0 + p1;
-      sum[1] += p2 + p3;
-      // A fragments of P for k-step n / 2: n even -> a0, a1; n odd -> a2, a3
-      pa[n / 2][(n & 1) * 2 + 0] = pack_bf16(p0, p1);
-      pa[n / 2][(n & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      l[r] = l[r] * alpha[r] + sum[r];
-    }
-#pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      oc[n][0] *= alpha[0];
-      oc[n][1] *= alpha[0];
-      oc[n][2] *= alpha[1];
-      oc[n][3] *= alpha[1];
-    }
-    // O += P V: B fragment b0 = V[keys 16ks + 2tid, +1][dim 8n + gid]
-#pragma unroll
-    for (int ks = 0; ks < kBN / 16; ++ks) {
-      const __nv_bfloat16* vr = Vs + (ks * 16 + 2 * tid) * P + gid;
-#pragma unroll
-      for (int n = 0; n < DT; ++n) {
-        const __nv_bfloat16* vc = vr + n * 8;
-        const uint32_t b0 = pack_raw(vc[0], vc[P]);
-        const uint32_t b1 = pack_raw(vc[8 * P], vc[9 * P]);
-        mma16816(oc[n], pa[ks], b0, b1);
-      }
-    }
-  }
-  __nv_bfloat16* ob = o + b * gm.o_b + h * gm.o_h;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + wr + gid + 8 * r, qp = row / G;
-    if (qp >= S) continue;
-    const float inv = 1.f / fmaxf(l[r], 1e-30f);
-    __nv_bfloat16* orow = ob + (row % G) * gm.o_g + qp * gm.o_s;
-#pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      const uint32_t packed = pack_bf16(oc[n][2 * r] * inv, oc[n][2 * r + 1] * inv);
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * tid) = packed;
-    }
+    if (cw == 0) named_sync(1);  // takes warpgroup 1's last turn
   }
 }
 
@@ -390,18 +745,93 @@ cudaError_t launch_fma(dim3 grid, cudaStream_t stream, const void* q, const void
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// a bf16 tensor map: dims innermost first, byte strides of dims 1..rank-1
+int encode_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+               const cuuint64_t* strides, const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encoder();
+  if (fn == nullptr) return 1000 + CUDA_ERROR_NOT_FOUND;
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
+                        strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 1000 + static_cast<int>(r);
+}
+
+// streaming multiprocessors of the current device
+int num_sms() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n < 1)
+    return 1;
+  return n;
+}
+
 template <int D>
-cudaError_t launch_mma(dim3 grid, cudaStream_t stream, const void* q, const void* k,
-                       const void* v, void* o, const Geom& gm) {
-  const size_t smem = (size_t)3 * 64 * (D + 8) * sizeof(__nv_bfloat16);
-  auto kern = mma_kernel<D>;
+int launch_wgmma(cudaStream_t stream, const void* q, const void* k, const void* v, void* o,
+                 int B, int G, const Geom& gm) {
+  using C = WgCfg<D>;
+  if (G < 1 || G > kRows) return cudaErrorInvalidValue;
+  const int S = gm.S, Hk = gm.Hk, P = kRows / G;
+  const long long n_qt = (S + P - 1) / P, ctas = n_qt * B * Hk;
+  if (ctas > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const CUtensorMapSwizzle sw =
+      C::ROWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  const cuuint64_t e = sizeof(__nv_bfloat16);
+  CUtensorMap tq, tk, tv;
+  {  // q (B, Hk, G, S, D) as dims {D, G, S, Hk, B}; box {ATOM, G, P}: P positions x G heads
+    const cuuint64_t dims[5] = {(cuuint64_t)D, (cuuint64_t)G, (cuuint64_t)S, (cuuint64_t)Hk,
+                                (cuuint64_t)B};
+    const cuuint64_t st[4] = {gm.q_g * e, gm.q_s * e, gm.q_h * e, gm.q_b * e};
+    const cuuint32_t box[5] = {(cuuint32_t)C::ATOM, (cuuint32_t)G, (cuuint32_t)P, 1, 1};
+    if (int r = encode_map(&tq, q, 5, dims, st, box, sw)) return r;
+  }
+  {  // k, v (B, Hk, S, D) as dims {D, S, Hk, B}; box {ATOM, TILE_N keys}
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)Hk, (cuuint64_t)B};
+    const cuuint32_t box[4] = {(cuuint32_t)C::ATOM, (cuuint32_t)C::TILE_N, 1, 1};
+    const cuuint64_t sk[3] = {gm.k_s * e, gm.k_h * e, gm.k_b * e};
+    const cuuint64_t sv[3] = {gm.v_s * e, gm.v_h * e, gm.v_b * e};
+    if (int r = encode_map(&tk, k, 4, dims, sk, box, sw)) return r;
+    if (int r = encode_map(&tv, v, 4, dims, sv, box, sw)) return r;
+  }
+  WgGeom wg;
+  wg.S = S; wg.G = G; wg.P = P; wg.Hk = Hk; wg.n_qt = (int)n_qt;
+  wg.bhn = B * Hk; wg.total = (int)ctas;
+  wg.kind = gm.kind; wg.window = gm.window; wg.c = gm.scale * kLog2e;
+  wg.o_b = gm.o_b; wg.o_h = gm.o_h; wg.o_g = gm.o_g; wg.o_s = gm.o_s;
+  auto kern = attn_wgmma_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+                                         C::SMEM);
   if (err != cudaSuccess) return err;
-  kern<<<grid, 128, smem, stream>>>(static_cast<const __nv_bfloat16*>(q),
-                                    static_cast<const __nv_bfloat16*>(k),
-                                    static_cast<const __nv_bfloat16*>(v),
-                                    static_cast<__nv_bfloat16*>(o), gm);
+  // persistent: one CTA per SM (the CTA fills an SM), each walking its
+  // tiles (tile_of_round), so one tile's epilogue overlaps the next one's
+  // loads
+  const long long grid = ctas < num_sms() ? ctas : num_sms();
+  kern<<<(unsigned)grid, kThreads, C::SMEM, stream>>>(tq, tk, tv,
+                                                      static_cast<__nv_bfloat16*>(o), wg);
   return cudaGetLastError();
 }
 
@@ -410,7 +840,9 @@ cudaError_t launch_mma(dim3 grid, cudaStream_t stream, const void* q, const void
 // q (B, Hk, G, S, D), k/v (B, Hk, S, D), o (B, Hk, G, S, D), all through
 // strides in elements (the last dim contiguous): st = {q_b, q_h, q_g, q_s,
 // k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_g, o_s}. kind: 0 full,
-// 1 sliding, 2 chunked. dtype: 0 f32 (FMA kernel), 1 bf16 (mma.sync kernel).
+// 1 sliding, 2 chunked. dtype: 0 f32 (FMA kernel), 1 bf16 (wgmma kernel:
+// 1 <= G <= 128, every stride but the last a multiple of 8 elements, the
+// base pointers 16-byte aligned).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* o, int B, int Hk, int G, int S, int D,
                                       const long long* st, float scale, int kind,
@@ -422,18 +854,18 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   gm.v_b = st[7]; gm.v_h = st[8]; gm.v_s = st[9];
   gm.o_b = st[10]; gm.o_h = st[11]; gm.o_g = st[12]; gm.o_s = st[13];
   gm.scale = scale;
-  const long long rows = (long long)G * S;
-  dim3 grid((unsigned)((rows + kBM - 1) / kBM), (unsigned)(B * Hk));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     switch (D) {
-      case 32: return launch_mma<32>(grid, s, q, k, v, o, gm);
-      case 64: return launch_mma<64>(grid, s, q, k, v, o, gm);
-      case 128: return launch_mma<128>(grid, s, q, k, v, o, gm);
+      case 32: return launch_wgmma<32>(s, q, k, v, o, B, G, gm);
+      case 64: return launch_wgmma<64>(s, q, k, v, o, B, G, gm);
+      case 128: return launch_wgmma<128>(s, q, k, v, o, B, G, gm);
       default: return cudaErrorInvalidValue;
     }
   }
   if (dtype == 0) {
+    const long long rows = (long long)G * S;
+    dim3 grid((unsigned)((rows + kBM - 1) / kBM), (unsigned)(B * Hk));
     switch (D) {
       case 32: return launch_fma<float, 32>(grid, s, q, k, v, o, gm);
       case 64: return launch_fma<float, 64>(grid, s, q, k, v, o, gm);

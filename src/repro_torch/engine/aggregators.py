@@ -16,7 +16,7 @@ weight vector (an empty buffer leaves the global params untouched).
 
 Built-ins, as in the reference:
   * ``fedavg``  — weighted mean of the updated params; ignores staleness.
-                  Its cohort sum is the ``fedavg_reduce`` kernel (K1).
+                  Its cohort sums are one ``fedavg_reduce_leaves`` call (K1).
   * ``fedbuff`` — staleness-discounted mean of *deltas* added to the
                   global params (FedBuff/FedAsync style, ``(1+s)^-a``).
   * ``fedprox`` — fedbuff with the mean delta scaled by ``1/(1+mu)``.
@@ -74,13 +74,15 @@ def make_fedavg() -> Aggregator:
                                     device=tree_leaves(g)[0].device)}
 
     def accumulate(acc, updates, bases, w):
-        # each leaf's weighted cohort sum is K1 (the CUDA kernel on the GPU,
-        # its plain version on the CPU)
-        def wsum_leaf(s, u):
-            flat = u.reshape(u.shape[0], -1).to(torch.float32).contiguous()
-            return s + kops.fedavg_reduce(flat, w).view(s.shape).to(s.dtype)
-
-        usum = tree_map(wsum_leaf, acc["usum"], updates)
+        # the weighted cohort sums of all leaves are one K1 call (one CUDA
+        # launch on the GPU, its plain version on the CPU), in tree_map's order
+        stacks = []
+        tree_map(lambda s, u: stacks.append(
+            u.reshape(u.shape[0], -1).to(torch.float32).contiguous()),
+            acc["usum"], updates)
+        sums = iter(kops.fedavg_reduce_leaves(stacks, w))
+        usum = tree_map(lambda s, u: s + next(sums).view(s.shape).to(s.dtype),
+                        acc["usum"], updates)
         return {"usum": usum, "wsum": acc["wsum"] + w.sum()}
 
     def finalize(g, acc):

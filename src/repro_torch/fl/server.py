@@ -3,9 +3,9 @@
 Aggregation handles *variable-size* cohorts (the Markov policy selects a
 Binomial(~k) number of clients each round): selected indices are padded to
 ``width`` and averaged with 0/1 weights. ``use_kernel=True`` takes the
-weighted sum through ``kernels.ops.fedavg_reduce`` (K1: the CUDA kernel on
-the GPU, its plain version on the CPU); the default path is plain tensor
-code. Nothing here synchronizes with the host.
+weighted sums of all leaves through ``kernels.ops.fedavg_reduce_leaves``
+(K1: one CUDA launch for the tree on the GPU, its plain version on the
+CPU); the default path is plain tensor code. Nothing here synchronizes with the host.
 """
 from __future__ import annotations
 
@@ -52,10 +52,15 @@ def fedavg_aggregate(global_params: Dict, cohort_params: Dict,
     if use_kernel:
         from repro_torch.kernels import ops as kops
 
+        # every leaf's weighted sum in one K1 launch, in tree_map's order
+        stacks = []
+        tree_map(lambda g, c: stacks.append(
+            c.reshape(c.shape[0], -1).to(torch.float32).contiguous()),
+            global_params, cohort_params)
+        sums = iter(kops.fedavg_reduce_leaves(stacks, weights / denom))
+
         def agg(g, c):
-            flat = c.reshape(c.shape[0], -1).to(torch.float32)
-            out = kops.fedavg_reduce(flat.contiguous(), weights / denom)
-            return torch.where(empty, g, out.reshape(g.shape).to(g.dtype))
+            return torch.where(empty, g, next(sums).reshape(g.shape).to(g.dtype))
 
     else:
 

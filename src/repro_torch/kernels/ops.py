@@ -28,6 +28,13 @@ def fedavg_reduce(params, weights):
     return _fedavg.fedavg_reduce(params, weights)
 
 
+def fedavg_reduce_leaves(stacks, weights):
+    """K1 over a whole parameter tree: each leaf's (N_i,) weighted sum of its
+    (C, N_i) f32 stack against the shared (C,) weights, one launch for up to
+    16 leaves on the GPU (the per-leaf plain version on the CPU)."""
+    return _fedavg.fedavg_reduce_leaves(stacks, weights)
+
+
 def flash_attention(q, k, v, *, scale, kind="full", window=0, block_q=None,
                     block_k=None):
     """K4: causal GQA attention, q (B, Hk, G, S, D) over k/v (B, Hk, S, D),

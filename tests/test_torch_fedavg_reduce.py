@@ -130,3 +130,142 @@ def test_kernel_matches_plain_on_gpu(C, N):
     assert k1.launches == before + 2
     assert torch.equal(out, again)  # a fixed-order sum: launches repeat bitwise
     torch.testing.assert_close(out, plain, rtol=RTOL, atol=ATOL)
+
+
+# --- the grouped launch: one K1 call for a whole parameter tree -------------
+
+# the paper CNN's eight leaves (conv1 w/b, conv2 w/b, fc1 w/b, fc2 w/b) at
+# MNIST's 28 x 28 input, flattened as fl/server.py flattens them
+CNN_LEAVES = [800, 32, 51200, 64, 1_605_632, 512, 5120, 10]
+
+
+def test_cnn_leaf_sizes_match_the_model():
+    from repro_torch.configs.paper_cnn import MNIST_CNN
+    from repro_torch.core.draws import GeneratorDraws
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models.cnn import init_params
+
+    sizes = [t.numel() for t in tree_leaves(init_params(GeneratorDraws(0, "cpu"), MNIST_CNN))]
+    assert sorted(sizes) == sorted(CNN_LEAVES)
+
+
+def test_plain_leaves_match_per_leaf_and_pallas():
+    """The grouped entry's plain route on the paper CNN's eight leaves at a
+    small cohort: bitwise the per-leaf plain version, and within the module
+    tolerance of the reference's Pallas kernel run leaf by leaf in
+    interpret mode."""
+    jnp, ref_ops, _ = _reference()
+    rng = np.random.default_rng(7)
+    C = 3
+    stacks = [rng.standard_normal((C, n)).astype(np.float32) for n in CNN_LEAVES]
+    w = np.array([0.5, 0.5, 0.0], np.float32)  # a padded slot, as in a cohort
+    before = k1.launches
+    got = ops.fedavg_reduce_leaves([torch.from_numpy(s) for s in stacks], torch.from_numpy(w))
+    assert k1.launches == before  # the CPU takes the plain version
+    assert len(got) == len(CNN_LEAVES)
+    for s, out in zip(stacks, got):
+        assert out.shape == (s.shape[1],) and out.dtype == torch.float32
+        assert torch.equal(out, k1.fedavg_reduce_plain(torch.from_numpy(s), torch.from_numpy(w)))
+        pallas = np.asarray(ref_ops.fedavg_reduce(jnp.asarray(s), jnp.asarray(w),
+                                                  block_n=min(s.shape[1], 1 << 18)))
+        np.testing.assert_allclose(out.numpy(), pallas, rtol=RTOL, atol=ATOL)
+
+
+def _covered(sizes, vec):
+    """Columns each leaf's CTAs cover under ``plan_launches``: the kernel's
+    block-to-leaf lookup and column walk, in Python."""
+    seen = [np.zeros(n, np.int64) for n in sizes]
+    for table in k1.plan_launches(sizes, vec):
+        assert 1 <= len(table) <= k1.MAX_LEAVES
+        total = table[-1][1]
+        for bx in range(total):
+            slot = next(j for j, (_, end) in enumerate(table) if bx < end)
+            leaf = table[slot][0]
+            block = bx - (table[slot - 1][1] if slot else 0)
+            cols = k1.VEC_COLS if vec[leaf] else 1
+            first = block * k1.THREADS * cols
+            for t in range(k1.THREADS):
+                lo = first + t * cols
+                seen[leaf][lo:min(lo + cols, sizes[leaf])] += 1
+    return seen
+
+
+@pytest.mark.parametrize("sizes,vec", [
+    (CNN_LEAVES[:4] + [4100] + CNN_LEAVES[5:], [True] * 8),  # the CNN, fc1 cut short
+    ([1, 3, 4, 17, 1024, 1025, 0, 5], [False, False, True, False, True, False, True, False]),
+    ([7 * i + 1 for i in range(20)], [i % 3 == 0 for i in range(20)]),  # over 16 leaves
+    ([0, 0, 12], [True, False, True]),
+], ids=["cnn", "mixed", "twenty", "empty_leaves"])
+def test_leaf_table_covers_every_column_once(sizes, vec):
+    seen = _covered(sizes, vec)
+    for n, s in zip(sizes, seen):
+        assert s.shape == (n,) and (s == 1).all()
+    plans = k1.plan_launches(sizes, vec)
+    assert len(plans) == -(-len(sizes) // k1.MAX_LEAVES)
+    assert [i for table in plans for i, _ in table] == list(range(len(sizes)))
+
+
+def test_leaf_blocks():
+    assert k1.leaf_blocks(0, True) == 0
+    assert k1.leaf_blocks(1, False) == 1
+    assert k1.leaf_blocks(256, False) == 1 and k1.leaf_blocks(257, False) == 2
+    assert k1.leaf_blocks(1024, True) == 1 and k1.leaf_blocks(1028, True) == 2
+    assert k1.leaf_blocks(1_605_632, True) == 1568
+
+
+def test_leaves_reject_a_bad_stack_without_counting():
+    before = k1.launches
+    with pytest.raises(ValueError, match="length"):
+        k1.fedavg_reduce_leaves([torch.zeros((3, 4)), torch.zeros((2, 4))], torch.zeros(3))
+    assert k1.launches == before
+
+
+def test_leaves_of_an_empty_tree():
+    assert k1.fedavg_reduce_leaves([], torch.zeros(3)) == []
+
+
+@pytest.mark.cuda
+def test_grouped_kernel_is_bitwise_single_leaf_launches_on_gpu():
+    """One launch for the CNN's eight leaves; each leaf's sum bitwise equal
+    to its own single-leaf launch (the same column walk), and close to the
+    plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    rng = np.random.default_rng(11)
+    C = 30
+    stacks = [torch.from_numpy(rng.standard_normal((C, n)).astype(np.float32)).cuda()
+              for n in CNN_LEAVES]
+    _, w = _inputs(C, 1, seed=3, zero_slots=15)
+    W = torch.from_numpy(w).cuda()
+    before = k1.launches
+    outs = k1.fedavg_reduce_leaves(stacks, W)
+    assert k1.launches == before + 1
+    singles = [k1.fedavg_reduce(P, W) for P in stacks]
+    torch.cuda.synchronize()
+    for P, out, single in zip(stacks, outs, singles):
+        assert torch.equal(out, single)
+        torch.testing.assert_close(out, k1.fedavg_reduce_plain(P, W), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_grouped_kernel_cuts_long_trees_on_gpu():
+    """21 leaves (mixed vector and scalar, an empty one, an unaligned stack):
+    two launches, every leaf bitwise its single-leaf launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    rng = np.random.default_rng(12)
+    C = 7
+    sizes = [1, 3, 4, 17, 1024, 4096, 0, 5, 8, 33, 64, 100, 7, 12, 16, 31, 4100, 2, 9, 640]
+    stacks = [torch.from_numpy(rng.standard_normal((C, n)).astype(np.float32)).cuda()
+              for n in sizes]
+    buf = torch.from_numpy(rng.standard_normal(C * 1001 + 1).astype(np.float32)).cuda()
+    stacks.append(buf[1:].view(C, 1001))  # loses 16-byte alignment
+    W = torch.from_numpy(rng.random(C).astype(np.float32)).cuda()
+    before = k1.launches
+    outs = k1.fedavg_reduce_leaves(stacks, W)
+    assert k1.launches == before + 2
+    for P, out in zip(stacks, outs):
+        assert out.shape == (P.shape[1],)
+        if P.shape[1]:
+            assert torch.equal(out, k1.fedavg_reduce(P, W))
+            torch.testing.assert_close(out, k1.fedavg_reduce_plain(P, W), rtol=RTOL, atol=ATOL)

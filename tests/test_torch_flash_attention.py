@@ -168,3 +168,73 @@ def test_kernel_raises_under_autograd_on_gpu():
     q.requires_grad_()
     with pytest.raises(RuntimeError, match="no backward"):
         k4.flash_attention(q, k, v, scale=0.125)
+
+
+# --- the bf16 wgmma kernel: CTA packing and host-side rules -----------------
+
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 5, 7, 8, 16, 33, 64, 65, 100, 128])
+def test_tile_rows_packs_whole_positions(G):
+    """A bf16 CTA holds 128 // G whole positions of all G heads: at most 128
+    rows, and more than 64, so each consumer warpgroup has real rows."""
+    P, rows = k4.tile_rows(G)
+    assert P == 128 // G and rows == P * G
+    assert 64 < rows <= 128 and 128 - rows < G
+
+
+@pytest.mark.parametrize("G", [0, 129])
+def test_tile_rows_rejects_g_outside_1_to_128(G):
+    with pytest.raises(ValueError, match="1 <= G <= 128"):
+        k4.tile_rows(G)
+
+
+@pytest.mark.parametrize("dtype,G,scale,match", [
+    ("bfloat16", 129, 0.125, "1 <= G <= 128"),
+    ("bfloat16", 2, 0.0, "positive scale"),
+    ("bfloat16", 2, -0.125, "positive scale"),
+    ("float32", 129, 0.125, None),  # the FMA route takes any G
+    ("float32", 2, -0.125, None),  # ... and any scale
+], ids=["bf16_g129", "bf16_zero_scale", "bf16_negative_scale", "f32_g129", "f32_negative"])
+def test_kernel_rules_checked_on_the_host(dtype, G, scale, match):
+    q, k, v = _torch(_qkv(1, 1, G, 16, 32), dtype)
+    if match is None:
+        k4._check_kernel(q, k, v, scale)
+    else:
+        with pytest.raises(ValueError, match=match):
+            k4._check_kernel(q, k, v, scale)
+
+
+def _model_layout(B, Hk, G, S, D, dtype, seed=0):
+    """q, k, v on the card as the model hands them over: q a view of
+    (B, S, H, D), k and v views of (B, S, Hk, D)."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((B, S, Hk * G, D)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((B, S, Hk, D)).astype(np.float32))
+            for _ in range(2))
+    dt = getattr(torch, dtype)
+    q = q.to("cuda", dt).view(B, S, Hk, G, D).permute(0, 2, 3, 1, 4)
+    return q, *(t.to("cuda", dt).permute(0, 2, 1, 3) for t in (k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hk,G,S,D,kind,window", [
+    (1, 2, G, 384, D, "full", 0) for D in (32, 64, 128) for G in (1, 2, 4, 5, 8, 16)
+] + [
+    (1, 2, 4, S, 64, "full", 0) for S in (200, 2048)
+] + [
+    (1, 2, G, S, D, kind, w) for kind in ("sliding", "chunked") for w in (100, 128)
+    for G, S, D in ((4, 384, 64), (5, 200, 32), (8, 2048, 128))
+])
+def test_wgmma_kernel_in_the_model_layout_on_gpu(B, Hk, G, S, D, kind, window):
+    """The bf16 kernel against its plain version on q, k, v as the model
+    passes them (strided views), two launches bitwise equal."""
+    _gpu()
+    q, k, v = _model_layout(B, Hk, G, S, D, "bfloat16", seed=S + G + D)
+    kw = dict(scale=D**-0.5, kind=kind, window=window, block_q=S, block_k=S)
+    before = k4.launches
+    out = k4.flash_attention(q, k, v, **kw)
+    again = k4.flash_attention(q, k, v, **kw)
+    plain = k4.flash_attention_plain(q, k, v, scale=D**-0.5, kind=kind, window=window)
+    torch.cuda.synchronize()
+    assert k4.launches == before + 2
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), plain.float(), atol=2e-2, rtol=2e-2)

@@ -61,8 +61,12 @@ prints one JSON line for each:
           yardstick.
   kernel_k5    the same for K5 (``flash_decode``) at the serving decode
           shape (8, 4, 8, 640, 64) in bf16, cache full, read in the model's
-          (B, L, Hk, D) layout, and at the reference's test shapes (per-batch
-          valid_len, a partial cache, L not a multiple of any tile);
+          (B, L, Hk, D) layout, at the reference's test shapes (per-batch
+          valid_len, a partial cache, L not a multiple of any tile) and at
+          cases that cut a split (L of 100 and 643; valid_len of 1, inside
+          the first split, at a split edge, 0, and per row ending in
+          different splits); the cluster size and CTA count; its time with
+          the host's call and on the device;
           ``scaled_dot_product_attention`` with a boolean prefix mask as
           yardstick.
   serve_main   tinyllama-1.1b at full width (22 layers, bf16, weights from
@@ -76,7 +80,11 @@ prints one JSON line for each:
           share of device time, peak memory, and no host sync inside
           ``decode_step``. The reference's contract that ``model.prefill``'s
           last logits equal those of ``prefill_tokens`` over the same prompt
-          is checked in f32 (TF32 off) and reported in bf16.
+          is checked in f32 (TF32 off) and reported in bf16. Then
+          ``graph_decode``: one ``model.decode_step`` at batch 8 captured in
+          a CUDA graph, its logits bitwise equal to an eager step's from the
+          same caches and token, and ms per step of 50 replays beside 50
+          eager steps and the weight-read bound.
   serve_parity the reduced tinyllama in f32, TF32 off, from the same numpy
           weights on the card and on the CPU: ``model.prefill`` logits and
           ``serve``'s greedy tokens and logits equal within 1e-4, with K4
@@ -97,9 +105,13 @@ prints one JSON line for each:
           = (4, 2048, 32, 64, 128), chunk 256, bf16 x/B/C sliced from a
           conv-output-shaped buffer, and at smaller f32 and bf16 shapes (a
           chunk that is not a multiple of 64 rows, contiguous inputs), each
-          from a zero state and from a random h0: y and ``h_final`` within
-          K6_TOL, two launches bitwise equal; its time, the plain version's
-          and the bound (no single PyTorch call computes the scan).
+          from a zero state and from a random h0, four chunks and chunks of
+          64: y and ``h_final`` within K6_TOL, two launches bitwise equal;
+          its time, the plain version's, the bound (its inputs and outputs
+          against the tensor-core schedule's operations) beside the same
+          with the schedule's workspace and the FMA schedule's bound, the
+          phase count and the bf16 terms (no single PyTorch call computes
+          the scan).
   ssm_serve_main  mamba2-370m at full width and depth (48 layers, bf16,
           weights from seed 0): ``model.prefill`` at (4, 2048) must launch K6
           48 times (prefill tokens/s, K6's share of device time); then
@@ -942,11 +954,19 @@ def phase_kernel_k5(torch, k5):
     bf16, f32 = torch.bfloat16, torch.float32
     B, P, G_ = SERVE_ARGS["batch"], SERVE_ARGS["prompt_len"], SERVE_ARGS["gen"]
     main = (B, 4, 8, P + G_, 64)  # the serving decode: cache of prompt + gen slots
+    nsplit, split = k5.plan_splits(P + G_)
     cases = [(main, P + G_, bf16), (main, P + 1, bf16)] + [
         (shape, vlen, dt) for dt in (f32, bf16) for shape, vlen in [
             ((2, 2, 4, 512, 64), 512), ((1, 4, 1, 1024, 128), 700),
             ((1, 1, 8, 384, 64), 384), ((3, 2, 2, 256, 64), (64, 128, 256)),
             ((2, 2, 3, 100, 32), 0)]]
+    # cases that cut a split: L not a multiple of 8; valid_len of 1, inside
+    # the first split, at a split edge, and 0; rows that end in different
+    # splits (one of them empty)
+    cases += [((2, 2, 4, 100, 64), 100, bf16), ((2, 2, 4, 643, 64), 643, f32),
+              ((2, 2, 4, 643, 64), (81, 600), bf16), (main, 1, bf16),
+              (main, split // 2, bf16), (main, split, bf16), (main, 0, bf16),
+              (main, (1, split, split + 1, 2 * split, P + G_ - 1, P + G_, 0, P - 1), bf16)]
     errs = {}
     for shape, vlen, dt in cases:
         q, k, v = _attn_inputs(torch, gen, shape, dt, decode=True)
@@ -979,7 +999,8 @@ def phase_kernel_k5(torch, k5):
         "library_ms": cuda_ms(torch, lib),
     }
     emit({"phase": "kernel_k5", "ok": True, "cases": len(cases), "shape": list(main),
-          "dtype": "bfloat16", "ctas": Bm * Hk, "sms": torch.cuda.get_device_properties(
+          "dtype": "bfloat16", "cluster_size": nsplit, "split_slots": split,
+          "ctas": nsplit * Bm * Hk * -(-G // 8), "sms": torch.cuda.get_device_properties(
               0).multi_processor_count, **entry, "device_ms": device_ms(torch, run),
           "library_device_ms": device_ms(torch, lib), "max_abs_err_by_case": errs})
     return entry
@@ -1128,6 +1149,8 @@ def phase_serve_main(torch, k4, k5):
         if syncs:
             raise AssertionError(f"serve_main: decode_step synchronized: {syncs[:3]}")
         d_union, d_window, d_by, d_kernels = _profile(torch, step, 10)
+        graph = _graph_decode(torch, model, params, state["caches"], tok, tree_map,
+                              param_bytes)
     kv_bytes = 2 * n_layers * Bd * (P + SERVE_ARGS["gen"]) * 4 * 64 * 2
 
     # prefill/decode consistency (the reference's test_models_smoke.py:89)
@@ -1158,8 +1181,59 @@ def phase_serve_main(torch, k4, k5):
               "top": sorted(((round(ms / 10, 5), name[:80]) for name, ms in d_by.items()),
                             reverse=True)[:8]},
           "host_syncs_in_2_decode_steps": 0, "plain_calls": 0,
-          "consistency": consistency})
+          "graph_decode": graph, "consistency": consistency})
     return k4_launches, k5_launches
+
+
+def _graph_decode(torch, model, params, caches, tok, tree_map, param_bytes, steps=50):
+    """One ``model.decode_step`` captured in a ``torch.cuda.CUDAGraph`` (the
+    step updates its caches in place and makes no host sync): the replay's
+    logits bitwise equal to an eager step's from the same caches and token,
+    then ms per step of ``steps`` replays beside ``steps`` eager steps and
+    the weight-read bound. A measurement only: the port's serving loop does
+    not capture."""
+    snap = tree_map(lambda t: t.clone(), caches)
+
+    def restore():
+        tree_map(lambda dst, src: dst.copy_(src), caches, snap)
+
+    side = torch.cuda.Stream()  # warm up off the default stream, as capture wants
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            model.decode_step(params, caches, tok)
+    torch.cuda.current_stream().wait_stream(side)
+    restore()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        logits_g, _ = model.decode_step(params, caches, tok)
+    restore()
+    eager = model.decode_step(params, caches, tok)[0].clone()
+    restore()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(logits_g, eager):
+        raise AssertionError("graph_decode: the replayed step's logits differ from the "
+                             f"eager step's (max {float((logits_g - eager).abs().max())})")
+
+    def per_step(fn):
+        restore()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    eager_ms = per_step(lambda: model.decode_step(params, caches, tok))
+    graph_ms = per_step(graph.replay)
+    eager_ms_2 = per_step(lambda: model.decode_step(params, caches, tok))
+    graph_ms_2 = per_step(graph.replay)
+    restore()
+    return {"batch": int(tok.shape[0]), "steps": steps, "logits_bitwise_equal": True,
+            "graph_ms_per_step": [graph_ms, graph_ms_2],
+            "eager_ms_per_step": [eager_ms, eager_ms_2],
+            "weight_read_bound_ms_per_step": param_bytes / HBM_BYTES_PER_S * 1e3}
 
 
 def _prefill_consistency(torch, model, params, tree_map, prefill_tokens):
@@ -1371,7 +1445,9 @@ def phase_kernel_k6(torch, k6):
     main = (B, S, 32, 64, 128)  # mamba2-370m: 32 heads of 64, d_state 128
     cases = [(main, 256, bf16, True), ((1, 512, 4, 64, 128), 256, f32, False),
              ((2, 1024, 8, 64, 128), 256, f32, True), ((2, 64, 8, 32, 16), 16, f32, True),
-             ((1, 200, 2, 64, 64), 100, f32, False), ((2, 128, 3, 32, 16), 32, bf16, True)]
+             ((1, 200, 2, 64, 64), 100, f32, False), ((2, 128, 3, 32, 16), 32, bf16, True),
+             # four chunks (each from zero and from h0), and chunks of 64
+             ((2, 1024, 8, 64, 128), 256, bf16, True), ((2, 512, 4, 64, 128), 64, bf16, True)]
     errs = {}
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's einsums in f32
@@ -1398,19 +1474,32 @@ def phase_kernel_k6(torch, k6):
         run = lambda: k6.ssd_scan(x, dt, A, B_, C_, 256)  # noqa: E731
         plain = lambda: k6.ssd_chunked_plain(x, dt, A, B_, C_, 256)  # noqa: E731
         Bm, Sm, nh, hd, ds = main
-        L = 256
+        L, nc = 256, Sm // 256
         pairs = L * (L + 1) // 2  # causal (i, j) pairs of a chunk
-        ops = Bm * nh * (Sm // L) * (2 * pairs * (ds + hd) + 4 * L * hd * ds)
+        # the FMA schedule (the f32 route's kernel): the scores once per head
+        fma_ops = Bm * nh * nc * (2 * pairs * (ds + hd) + 4 * L * hd * ds)
+        # the tensor-core schedule: CB^T once per (b, chunk), exact in bf16;
+        # then per (b, head, chunk) the chunk state, C h_in^T and the causal
+        # scores times x, each once per bf16 term of its f32 operand
+        ops = Bm * nc * 2 * pairs * ds + k6.BF16_TERMS * Bm * nh * nc * (
+            4 * L * hd * ds + 2 * pairs * hd)
         nbytes = (x.numel() + B_.numel() + C_.numel()) * 2 + (dt.numel() + nh) * 4 \
             + (x.numel() + Bm * nh * hd * ds) * 4  # y and h_final out in f32
+        # the schedule's workspace, beside the bound: chunk states (f32)
+        # written and read, the entering states (bf16 terms) written and
+        # read, CB^T written and read
+        n_states = Bm * nh * nc * hd * ds
+        ws_bytes = 2 * n_states * 4 + 2 * n_states * 2 * k6.BF16_TERMS \
+            + 2 * Bm * nc * L * L * 4
+        bound_s = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S)
         entry = {
             "name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:75",
             "max_abs_err": max(max(e.values()) for e in errs.values()),
             "ms": cuda_ms(torch, run, calls=20), "plain_ms": cuda_ms(torch, plain, calls=3,
                                                                      trials=3),
-            "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3,
-            "bound_by": "operations" if ops / FP32_OPS_PER_S > nbytes / HBM_BYTES_PER_S
+            "bound_ms": bound_s * 1e3,
+            "bound_by": "operations" if ops / BF16_OPS_PER_S > nbytes / HBM_BYTES_PER_S
             else "bytes",
             "library_ms": None,  # no single PyTorch call computes the scan
         }
@@ -1419,9 +1508,16 @@ def phase_kernel_k6(torch, k6):
         torch.backends.cuda.matmul.allow_tf32 = tf32
     emit({"phase": "kernel_k6", "ok": True, "cases": len(errs), "shape": list(main),
           "chunk": 256, "dtype": "bfloat16", "inputs": "strided slices of (B, S, 2304)",
-          "tolerance": K6_TOL, **entry, "device_ms": dev_ms, "gflop": ops / 1e9,
-          "mbytes": nbytes / 1e6, "tflops": ops / (entry["ms"] * 1e-3) / 1e12,
-          "ctas": Bm * nh, "sms": torch.cuda.get_device_properties(0).multi_processor_count,
+          "tolerance": K6_TOL, "phases": k6.PHASES, "bf16_terms": k6.BF16_TERMS, **entry,
+          "device_ms": dev_ms, "workspace_bound_ms": max(
+              (nbytes + ws_bytes) / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3,
+          "fma_bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                                   fma_ops / FP32_OPS_PER_S) * 1e3,
+          "gflop": ops / 1e9, "fma_gflop": fma_ops / 1e9, "mbytes": nbytes / 1e6,
+          "workspace_mbytes": ws_bytes / 1e6, "tflops": ops / (dev_ms * 1e-3) / 1e12,
+          "ctas_per_phase": [Bm * nc * (L // 64) * (L // 64 + 1) // 2, Bm * nh * nc,
+                             Bm * nh * -(-hd * ds // 1024), Bm * nh * nc],
+          "sms": torch.cuda.get_device_properties(0).multi_processor_count,
           "max_abs_err_by_case": errs})
     return entry
 
@@ -1513,7 +1609,7 @@ def phase_ssm_serve_main(torch, k6):
                       "peak_mem_gib": prefill_peak,
                       "device_union_ms": p_union / 2, "window_ms": p_window / 2,
                       "kernels_per_call": p_kernels / 2,
-                      "k6_share_of_device_time": _share(p_by, "ssd_kernel"),
+                      "k6_share_of_device_time": _share(p_by, "ssd_"),
                       "top": sorted(((round(ms / 2, 4), name[:80]) for name, ms in
                                      p_by.items()), reverse=True)[:8]},
           "serve": {**SSM_SERVE_ARGS, "k6_launches": k6_serve,

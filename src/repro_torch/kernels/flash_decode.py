@@ -3,20 +3,23 @@ heads, against a KV cache whose slots at or past ``valid_len`` are masked.
 
 Replaces the TPU kernel ``src/repro/kernels/flash_decode.py::flash_decode``
 (``_decode_kernel``). The CUDA source is
-``src/repro_torch/csrc/flash_decode.cu``: one CTA of 8 warps per (batch,
-kv head, up to 8 query heads) walks only the valid slots, 16 bytes of a
-K/V row per lane, the G query heads in registers, an f32 online softmax
-per slot group merged by shuffles and through shared memory at the end.
+``src/repro_torch/csrc/flash_decode.cu``: each (batch, kv head, up to 8
+query heads) is a thread-block cluster of up to 8 CTAs, and CTA r takes
+the slots ``[r * split, (r + 1) * split)`` of ``plan_splits(L)``. A CTA
+brings its valid K and V rows into shared memory with every load in
+flight, takes the softmax of its G x slots scores as a block (one max, one
+exp a score), and the CTAs' partials are merged in rank order through
+distributed shared memory: one launch, no workspace, no atomics. The
+split depends on L alone, so a row's result depends on that row alone.
 ``valid_len`` (0-d or (B,) int32) is read on the device, so a decode step
-needs no host sync. The cache is read through strides, so the model's
-(B, L, Hk, D) ring cache goes in as a transposed view with no copy, and
-the ragged tail is masked in the kernel, with no padding to ``block_l``.
+needs no host sync; the cache is read through strides, so the model's
+(B, L, Hk, D) ring cache goes in as a transposed view with no copy.
 
 Bound on the H100: it must read the valid K and V once; at the serving
 decode shape (B, Hk, G, L, D) = (8, 4, 8, 640, 64) in bf16 with the cache
-full that is 5.2 MB, 1.6 us at 3.35 TB/s, so it is memory-bound, and in
-practice bound by the launch. B * Hk = 32 CTAs fill 32 of the 132 SMs: a
-split over L (ROADMAP) is the next step.
+full that is 5.3 MB, 1.6 us at 3.35 TB/s, so it is memory-bound, and at
+this size bound in practice by the latency of one pass and the launch.
+The split puts 8 x 32 = 256 CTAs on the 132 SMs, 80 slots each.
 
 ``flash_decode(q, k, v, valid_len, scale=, block_l=)`` is the wrapper, with
 the reference's signature: a CPU tensor goes to the plain version
@@ -28,6 +31,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import struct
+from typing import Tuple
 
 import torch
 
@@ -36,10 +41,31 @@ NEG_INF = -1e30
 DEFAULT_BLOCK_L = 1024
 HEAD_DIMS = (32, 64, 128)  # head dims the kernel is built for
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_SPLITS = 8  # CTAs of a cluster: the portable cluster size
+MIN_SPLIT = 16  # slots a split takes at least
+# the launch's 18 int64 parameters: B, Hk, G, L, D, nsplit, split, the
+# valid_len stride, dtype, then the strides of q, k and v (3 each)
+_PARAMS = struct.Struct("18q")
+
+
+@functools.lru_cache(maxsize=None)
+def plan_splits(L: int) -> Tuple[int, int]:
+    """(nsplit, split) for a cache of L slots: split r takes the slots
+    ``[r * split, min((r + 1) * split, L))``. From L alone (never the batch
+    or ``valid_len``); 1 to ``MAX_SPLITS`` splits, none empty, together
+    covering ``[0, L)`` once."""
+    if L <= 0:
+        raise ValueError(f"the cache needs a slot, got L={L}")
+    split = max(MIN_SPLIT, -(-L // MAX_SPLITS))
+    return -(-L // split), split
 
 
 def _valid_len(valid_len, B, device) -> torch.Tensor:
-    vl = torch.as_tensor(valid_len, dtype=torch.int32, device=device)
+    if (isinstance(valid_len, torch.Tensor) and valid_len.dtype == torch.int32
+            and valid_len.device == device):
+        vl = valid_len
+    else:
+        vl = torch.as_tensor(valid_len, dtype=torch.int32, device=device)
     if vl.dim() > 1 or (vl.dim() == 1 and vl.shape[0] != B):
         raise ValueError(f"valid_len must be () or ({B},), got {tuple(vl.shape)}")
     return vl
@@ -65,25 +91,22 @@ def _launcher():
     from repro_torch.kernels.build import library
 
     fn = library("flash_decode").flash_decode_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p] + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-                             ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_char_p, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _check(q, k, v, block_l):
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+    qs, ks, vs = q.shape, k.shape, v.shape
+    if len(qs) != 4 or len(ks) != 4 or len(vs) != 4:
         raise ValueError(f"expected q (B, Hk, G, D) and k/v (B, Hk, L, D), got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    B, Hk, G, D = q.shape
-    L = k.shape[2]
-    if tuple(k.shape) != (B, Hk, L, D) or tuple(v.shape) != (B, Hk, L, D):
-        raise ValueError(f"k/v must be {(B, Hk, L, D)}, got {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    if not (q.dtype == k.dtype == v.dtype):
+                         f"{tuple(qs)}, {tuple(ks)}, {tuple(vs)}")
+    want = (qs[0], qs[1], ks[2], qs[3])  # (B, Hk, L, D)
+    if ks != want or vs != want:
+        raise ValueError(f"k/v must be {want}, got {tuple(ks)}, {tuple(vs)}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"mixed dtypes {q.dtype}, {k.dtype}, {v.dtype}")
-    if not (q.device == k.device == v.device):
+    if k.device != q.device or v.device != q.device:
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
     if block_l <= 0:
         raise ValueError(f"block_l must be positive, got {block_l}")
@@ -93,12 +116,13 @@ def _check_kernel(q, k, v):
     """What the CUDA kernel takes: 16-byte loads of each row."""
     if q.dtype not in DTYPES:
         raise ValueError(f"the K5 kernel takes float32 or bfloat16, got {q.dtype}")
-    if q.shape[-1] not in HEAD_DIMS:
+    if q.shape[3] not in HEAD_DIMS:
         raise ValueError(f"the K5 kernel takes head dims {HEAD_DIMS}, got "
-                         f"{q.shape[-1]}")
+                         f"{q.shape[3]}")
     vec = 16 // q.element_size()
     for t in (q, k, v):
-        if t.stride(-1) != 1 or t.data_ptr() % 16 or any(s % vec for s in t.stride()[:-1]):
+        st = t.stride()
+        if st[3] != 1 or t.data_ptr() % 16 or st[0] % vec or st[1] % vec or st[2] % vec:
             raise ValueError("q, k and v need 16-byte aligned rows, contiguous "
                              "in the head dim")
 
@@ -115,15 +139,22 @@ def flash_decode(q, k, v, valid_len, *, scale, block_l=DEFAULT_BLOCK_L):
     B, Hk, G, D = q.shape
     L = k.shape[2]
     vl = _valid_len(valid_len, B, q.device)
+    nsplit, split = plan_splits(L)
     out = torch.empty((B, Hk, G, D), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
-                                      *v.stride()[:3])
+    params = _PARAMS.pack(B, Hk, G, L, D, nsplit, split, 1 if vl.dim() == 1 else 0,
+                          DTYPES[q.dtype], *q.stride()[:3], *k.stride()[:3],
+                          *v.stride()[:3])
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), vl.data_ptr(), out.data_ptr(),
+            params, float(scale))
     fn = _launcher()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), vl.data_ptr(),
-                 1 if vl.dim() == 1 else 0, out.data_ptr(), B, Hk, G, L, D,
-                 strides, float(scale), DTYPES[q.dtype], stream)
+    # the raw stream handle: a decode step makes one call a layer, and the
+    # public torch.cuda.current_stream builds a Stream object each time
+    index = q.device.index
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(q.device):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"flash_decode launch failed: CUDA error {err}")
     launches += 1

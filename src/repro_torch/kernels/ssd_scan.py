@@ -9,22 +9,33 @@ the state for its prefill cache and adds ``D * x`` in f32 before it casts,
 so the kernel writes both in f32 (``ops.ssd_scan`` casts y to x's dtype,
 as the Pallas entry does).
 
-The CUDA source is ``src/repro_torch/csrc/ssd_scan.cu``: one CTA per
-(batch, head) walks the chunks in order with the state in shared memory,
-the intra-chunk dual form in 64 x 64 sub-blocks at or below the diagonal,
-every product an f32 FMA. x, B and C are read through strides, f32 or
-bf16, so the model's slices of its conv output go in with no copy.
+The CUDA source is ``src/repro_torch/csrc/ssd_scan.cu``. bf16 x, B and C
+with chunks of at most 256 (the model's route) take the chunked SSD
+decomposition in ``PHASES`` kernels from one C call: CB^T once per (batch,
+chunk) for all heads; each chunk's own state; the state passed over the
+chunks in order; each chunk's output, 1024 CTAs at the main shape. Every
+product is a bf16 tensor-core product with f32 accumulators; its f32
+operand goes in as ``BF16_TERMS`` bf16 terms (hi + lo), which holds the
+f32 tolerance of 1e-4 where one term does not. f32 inputs (and longer
+bf16 chunks) take the f32 FMA kernel: one CTA per (batch, head) walking
+the chunks. x, B and C are read through strides, so the model's slices of
+its conv output go in with no copy. The wrapper allocates the tensor-core
+route's workspace (chunk states, the entering states as bf16 terms, CB^T,
+chunk totals) with ``torch.empty``.
 
-Bound on the H100: at mamba2-370m's prefill shape (B, S, nh, hd, ds) =
-(4, 2048, 32, 64, 128), chunk 256, the chunked schedule with the masked
-blocks skipped is 21.5 GFLOP of f32 FMA work (0.32 ms at 67 TFLOP/s)
-against 110 MB moved (33 us at 3.35 TB/s): bound by operations.
+Bound on the H100 at mamba2-370m's prefill shape (B, S, nh, hd, ds) =
+(4, 2048, 32, 64, 128), chunk 256, bf16: 26 GFLOP of tensor-core work (the
+three products per (batch, head, chunk) once per term, and CB^T; 26 us at
+989 TFLOP/s) against 110 MB of inputs and outputs (33 us at 3.35 TB/s):
+bound by bytes; the schedule's 151 MB of workspace traffic makes it 78 us.
+The FMA route's schedule at that shape needs 21.5 GFLOP of f32 FMA work
+(0.32 ms at 67 TFLOP/s).
 
 ``ssd_scan(x, dt, A, B_, C_, chunk, h0=None)`` is the wrapper: a CPU tensor
 goes to the plain version ``ssd_chunked_plain`` (differentiable), a CUDA
 tensor to the kernel, which raises under autograd (the reference kernel
 has no VJP) and on shapes it does not take. ``launches`` counts the
-kernel calls.
+kernel calls (one a call, whatever the number of phases).
 """
 from __future__ import annotations
 
@@ -38,6 +49,8 @@ launches = 0  # kernel calls
 # (head_dim, d_state) pairs the kernel is built for
 SHAPES = ((32, 16), (32, 64), (32, 128), (64, 16), (64, 64), (64, 128))
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+PHASES = 4  # kernels of the bf16 tensor-core route, from one C call
+BF16_TERMS = 2  # bf16 terms each f32 operand of that route is split into
 
 
 def ssd_chunked_plain(x, dt, A, B_, C_, chunk: int,
@@ -83,14 +96,19 @@ def ssd_chunked_plain(x, dt, A, B_, C_, chunk: int,
 
 @functools.cache
 def _launcher():
-    """The built library's ``ssd_scan_launch``, typed (built at first use)."""
+    """The built library's ``ssd_scan_launch`` and ``ssd_scan_workspace``,
+    typed (built at first use)."""
     from repro_torch.kernels.build import library
 
-    fn = library("ssd_scan").ssd_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib = library("ssd_scan")
+    fn = lib.ssd_scan_launch
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    ws = lib.ssd_scan_workspace
+    ws.argtypes = [ctypes.c_int] * 7
+    ws.restype = ctypes.c_longlong
+    return fn, ws
 
 
 def _check(x, dt, A, B_, C_, chunk, h0):
@@ -150,17 +168,25 @@ def ssd_scan(x, dt, A, B_, C_, chunk: int = 256,
     A = A.contiguous()
     if h0 is not None:
         h0 = h0.to(torch.float32).contiguous()
+        if h0.data_ptr() % 16:  # the state pass reads it 16 bytes at a time
+            h0 = h0.clone()
     y = torch.empty((Bb, S, nh, hd), dtype=torch.float32, device=x.device)
     h_final = torch.empty((Bb, nh, hd, ds), dtype=torch.float32, device=x.device)
-    strides = (ctypes.c_longlong * 10)(*x.stride()[:3], *B_.stride()[:2],
-                                       *C_.stride()[:2], *dt.stride())
-    fn = _launcher()
+    row_strides = x.stride()[:3] + B_.stride()[:2] + C_.stride()[:2]
+    strides = (ctypes.c_longlong * 10)(*row_strides, *dt.stride())
+    # every row of x, B and C 16-byte aligned: 16-byte loads
+    vec = all(t.data_ptr() % 16 == 0 for t in (x, B_, C_)) and all(
+        s % (16 // x.element_size()) == 0 for s in row_strides)
+    fn, workspace = _launcher()
+    n_ws = workspace(Bb, S, nh, hd, ds, L, DTYPES[x.dtype])
+    ws = torch.empty((n_ws,), dtype=torch.float32, device=x.device) if n_ws else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
                  C_.data_ptr(), h0.data_ptr() if h0 is not None else None,
-                 y.data_ptr(), h_final.data_ptr(), Bb, S, nh, hd, ds, L,
-                 strides, DTYPES[x.dtype], stream)
+                 y.data_ptr(), h_final.data_ptr(),
+                 ws.data_ptr() if ws is not None else None, Bb, S, nh, hd, ds, L,
+                 strides, DTYPES[x.dtype], int(vec), stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
     launches += 1

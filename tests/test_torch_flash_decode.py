@@ -4,6 +4,11 @@ reference's oracle ``flash_decode_ref`` for every case of
 ``test_flash_decode_per_batch_valid_len``, and against the Pallas kernel in
 interpret mode for one f32 and one bf16 case.
 
+``plan_splits`` is the CUDA kernel's split of the cache over a cluster of
+up to 8 CTAs, from L alone; ``_split_merge`` runs that schedule (each
+split's softmax by block, the partials merged in rank order) in plain
+torch and equals the plain version within 1e-6 in f32.
+
 Tolerances are the reference's own: 2e-5 in f32, 2e-2 in bf16. On a card,
 the CUDA kernel is held against the plain version at the same tolerances,
 with the cache in the model's (B, L, Hk, D) layout read through strides:
@@ -135,6 +140,110 @@ def test_cpu_tensor_takes_the_plain_version_without_counting():
     assert k5.launches == before
 
 
+SPLIT_LS = [1, 15, 16, 17, 100, 128, 129, 640, 643, 1024, 4096, 100_003]
+
+
+@pytest.mark.parametrize("L", SPLIT_LS)
+def test_plan_splits_cover_the_cache_once(L):
+    nsplit, split = k5.plan_splits(L)
+    assert 1 <= nsplit <= k5.MAX_SPLITS and split >= 1
+    bounds = [(r * split, min((r + 1) * split, L)) for r in range(nsplit)]
+    assert all(lo < hi for lo, hi in bounds)  # no split is empty
+    covered = [s for lo, hi in bounds for s in range(lo, hi)]
+    assert covered == list(range(L))  # [0, L) once, in rank order
+
+
+def test_plan_splits_depend_on_L_alone():
+    """The same plan for every L in 1 .. 3000 however often it is asked;
+    the serving shape's cache of 640 slots in 8 splits of 80."""
+    for L in range(1, 3001):
+        nsplit, split = k5.plan_splits(L)
+        assert (nsplit, split) == k5.plan_splits.__wrapped__(L)
+        assert (nsplit - 1) * split < L <= nsplit * split
+    assert k5.plan_splits(640) == (8, 80)
+    with pytest.raises(ValueError):
+        k5.plan_splits(0)
+
+
+def _split_merge(q, k, v, valid_len, *, scale):
+    """The CUDA kernel's schedule in plain torch: the cache in
+    ``plan_splits(L)``'s splits, each split's softmax by block (its max,
+    p = exp(s - max) rounded to v's dtype for P.V), and the partials
+    (m, l, acc) merged in rank order; a split at or past ``valid_len``
+    leaves the sentinel; ``valid_len`` <= 0 is uniform over all L."""
+    B, Hk, G, D = q.shape
+    L = k.shape[2]
+    nsplit, split = k5.plan_splits(L)
+    vl = torch.as_tensor(valid_len, dtype=torch.int32).broadcast_to((B,))
+    out = torch.empty((B, Hk, G, D), dtype=q.dtype)
+    for b in range(B):
+        n = int(vl[b])
+        none_valid, n = n <= 0, (L if n <= 0 else min(n, L))
+        parts = []
+        for r in range(nsplit):
+            lo, hi = r * split, min((r + 1) * split, n)
+            if hi <= lo:
+                parts.append((torch.full((Hk, G), k5.NEG_INF), torch.zeros((Hk, G)),
+                              torch.zeros((Hk, G, D))))
+                continue
+            s = torch.einsum("hgd,hld->hgl", q[b].float(), k[b, :, lo:hi].float()) * scale
+            if none_valid:
+                s = torch.zeros_like(s)
+            m = s.amax(-1)
+            p = torch.exp(s - m[..., None])
+            acc = torch.einsum("hgl,hld->hgd", p.to(v.dtype).float(), v[b, :, lo:hi].float())
+            parts.append((m, p.sum(-1), acc))
+        mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        lsum, acc = torch.zeros((Hk, G)), torch.zeros((Hk, G, D))
+        for m, l, a in parts:  # rank order
+            c = torch.exp(m - mx)
+            lsum, acc = lsum + l * c, acc + a * c[..., None]
+        out[b] = (acc / torch.clamp(lsum, min=1e-30)[..., None]).to(q.dtype)
+    return out
+
+
+VLENS_640 = [640, 0, 1, 40, 80, 81, 513, (1, 80, 81, 160, 639, 640, 0, 333)]
+
+
+@pytest.mark.parametrize("vlen", VLENS_640, ids=lambda v: f"v{v}")
+def test_split_merge_equals_plain(vlen):
+    """At the serving shape (8, 4, 8, 640, 64), splits of 80: valid_len of
+    all, none, 1, inside the first split, at a split edge and one past it,
+    and per row ending in different splits."""
+    q, k, v = _torch(_qkv(8, 4, 8, 640, 64, seed=6), "float32")
+    vl = torch.tensor(vlen, dtype=torch.int32)
+    torch.testing.assert_close(_split_merge(q, k, v, vl, scale=0.125),
+                               k5.flash_decode_plain(q, k, v, vl, scale=0.125),
+                               atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("L,vlen", [(100, 100), (100, 17), (643, 643), (643, 567),
+                                    (643, (81, 600))])
+def test_split_merge_equals_plain_ragged(L, vlen):
+    """L not a multiple of the split (100: seven splits of 16; 643: eight
+    of 81), the last split short, valid_len at and inside split edges."""
+    q, k, v = _torch(_qkv(2, 2, 4, L, 64, seed=L), "float32")
+    vl = torch.tensor(vlen, dtype=torch.int32)
+    torch.testing.assert_close(_split_merge(q, k, v, vl, scale=0.125),
+                               k5.flash_decode_plain(q, k, v, vl, scale=0.125),
+                               atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_split_merge_matches_pallas_interpret(dtype):
+    """The split schedule against the reference's Pallas K5 in interpret
+    mode, at its tolerance, with the cache cut across splits (L = 1024:
+    eight splits of 128; valid_len 700 ends inside the sixth)."""
+    jnp, ref_ops, _ = _reference()
+    B, Hk, G, L, D, vlen, block = CASES[1]
+    arrs = _qkv(B, Hk, G, L, D, seed=7)
+    got = _split_merge(*_torch(arrs, dtype), vlen, scale=D**-0.5)
+    exp = ref_ops.flash_decode(*(jnp.asarray(a, dtype) for a in arrs), vlen,
+                               scale=D**-0.5, block_l=block)
+    tol = _tol(dtype)
+    np.testing.assert_allclose(_np(got), np.asarray(exp, np.float32), atol=tol, rtol=tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,Hk,G,L,D,vlen", [c[:6] for c in CASES] + [
@@ -142,6 +251,14 @@ def test_cpu_tensor_takes_the_plain_version_without_counting():
     (8, 4, 8, 640, 64, 640),  # tinyllama-1.1b's serving decode, cache full
     (8, 4, 8, 640, 64, 513),  # ... and part-way
     (2, 2, 3, 100, 32, 0),  # no valid slot; G not a power of two
+    (2, 2, 4, 100, 64, 100),  # L not a multiple of 8: seven splits of 16
+    (2, 2, 4, 643, 64, 643),  # eight splits of 81, the last one short
+    (8, 4, 8, 640, 64, 1),  # one valid slot: seven splits read nothing
+    (8, 4, 8, 640, 64, 40),  # inside the first split
+    (8, 4, 8, 640, 64, 80),  # exactly at a split edge
+    (8, 4, 8, 640, 64, 0),  # no valid slot at the serving shape
+    (8, 4, 8, 640, 64, (1, 80, 81, 160, 639, 640, 0, 333)),  # rows end apart
+    (1, 2, 16, 4096, 64, 3000),  # splits of 512 in tiles; two head groups
 ])
 def test_kernel_matches_plain_on_gpu(B, Hk, G, L, D, vlen, dtype):
     if not torch.cuda.is_available():

@@ -7,11 +7,17 @@ Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
 ``nvcc`` per source, all started together), then runs these phases and
 prints one JSON line for each:
 
-  kernel  K2 (``event_topk``) against its plain version on the card, at
-          fleet sizes 16384 .. 2^20 and the edge cases (all ties, all idle,
-          fewer pending events than k); its time (CUDA events, launch
-          overhead included, and device-only: ``device_ms``), the plain
-          version's, the ``torch.topk`` yardstick's, and its bound.
+  kernel  K2 (``event_topk``) against its plain version on the card, bit
+          for bit (values and indices, idle slots included), at fleet sizes
+          16384 .. 2^20 with k from 8 to 16384, k = n, and the edge cases
+          (all ties, all idle, fewer pending events than k, signed zeros);
+          one counted call and one planned launch a case; the pop of
+          ``fl_async --clients 65536 --k 2048`` against the plain pop; a
+          CUDA-graph replay of one call bitwise equal to the eager call;
+          its time (CUDA events, launch overhead included, and device-only:
+          ``device_ms``), the plain version's, the ``torch.topk``
+          yardstick's, its bound and an empty kernel's device time; and the
+          timing ladder TOPK_LADDER beside ``torch.topk``.
   main    the driver's own path, ``repro_torch.launch.fl_async`` at the
           paper CNN's full widths on MNIST at its real size (60 000 images)
           over a 16 384-client fleet with a 256-update buffer, 20 steps:
@@ -90,12 +96,16 @@ prints one JSON line for each:
           ``serve``'s greedy tokens and logits equal within 1e-4, with K4
           and K5 launched on the card.
   kernel_k3    K3 (``aoi_topk``) against its plain version (a stable
-          descending sort), values and indices exactly equal: at the
+          descending sort), sorted and unsorted, bit for bit: at the
           policy's shape (16384 scores, k = 256) on integer ages with and
           without the policy's [0, 0.5) noise, at the example's 1M clients
           with k = 128, on all-equal ages (lower indices first), k = 1,
-          k = 1024 and a ragged last tile; times as for K2, with
-          ``torch.topk`` as the yardstick.
+          k = 1024, a ragged n, the paper's 15% cohort at 16 384, 100 000
+          and 1M clients, k = n and signed zeros; graph replays; times as
+          for K2 on the policy's unsorted call (and sorted), the ladder
+          sorted and unsorted; ``make_policy("oldest_age", 1M, 150 000)``
+          stepped 3 times: one K3 launch a step, masks of exactly k equal
+          to the CPU's plain route, ms a step beside markov's.
   async_oldest ``repro_torch.launch.fl_async`` in ``main``'s configuration
           under ``--policy oldest_age``, 10 steps: K3 launched once a step
           (its ``_topk_idx`` at fleet scale), every policy mask exactly k,
@@ -154,6 +164,9 @@ MAIN_ARGV = ["--dataset", "mnist", "--data-scale", "5", "--clients", "16384",
              "--k", "256", "--policy", "markov", "--latency-profile", "lognormal",
              "--rounds", "20"]
 KERNEL_SHAPE = (16384, 256)  # (n, k) the main path gives K2
+# (n, k) rungs of the top-k timing ladder (K2 and K3): the main path's
+# shape, the paper's 15% cohort at 16 384, and 1M clients at both
+TOPK_LADDER = ((16384, 256), (16384, 2458), (1_000_000, 256), (1_000_000, 150_000))
 SYNC_ARGV = ["--dataset", "mnist", "--data-scale", "5", "--clients", "100",
              "--k", "15", "--m", "10", "--policy", "markov", "--local-epochs", "5",
              "--batch-size", "50", "--lr", "0.02", "--rounds", "60"]
@@ -222,7 +235,56 @@ def device_ms(torch, fn, calls: int = 20) -> float:
     return total / calls
 
 
+def _same_bits(torch, out, plain) -> bool:
+    """Values bit for bit (-0.0 is not +0.0) and indices equal."""
+    (v, i), (pv, pi) = out, plain
+    return torch.equal(v.view(torch.int32), pv.view(torch.int32)) and torch.equal(i, pi)
+
+
+def _graph_replay_equal(torch, fn) -> bool:
+    """One call of ``fn`` captured in a CUDA graph: its replay's output bit
+    for bit the eager call's (a capture that fails raises)."""
+    side = torch.cuda.Stream()  # warm up off the default stream, as capture wants
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    eager = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return _same_bits(torch, captured, eager)
+
+
+def _topk_bound_ms(n, k) -> float:
+    """Values in once; f32 values and i64 indices out once; one comparison
+    per element is the least a selection needs."""
+    return max((n * 4 + k * (4 + 8)) / HBM_BYTES_PER_S, n / FP32_OPS_PER_S) * 1e3
+
+
+def _ladder(torch, run, library, make, sorted_options):
+    """Each rung of TOPK_LADDER: the kernel's ms and device ms beside its
+    bound and ``torch.topk`` of the same ``sorted`` (the yardstick; the port
+    never calls it)."""
+    rungs = []
+    for n, k in TOPK_LADDER:
+        x = make(n)
+        for sorted_ in sorted_options:
+            fn = lambda: run(x, k, sorted_)  # noqa: E731
+            lib = lambda: library(x, k, sorted_)  # noqa: E731
+            rungs.append({"n": n, "k": k, "sorted": sorted_, "ms": cuda_ms(torch, fn),
+                          "device_ms": device_ms(torch, fn),
+                          "bound_ms": _topk_bound_ms(n, k),
+                          "torch_topk_ms": cuda_ms(torch, lib),
+                          "torch_topk_device_ms": device_ms(torch, lib)})
+    return rungs
+
+
 def phase_kernel(torch, event_topk):
+    from repro_torch.sim import events
+
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def times(n, frac):
@@ -230,49 +292,83 @@ def phase_kernel(torch, event_topk):
         pending = torch.rand(n, generator=gen, device="cuda") < frac
         return torch.where(pending, t, torch.inf)
 
+    def signed_zeros(n):
+        z = torch.where(torch.rand(n, generator=gen, device="cuda") < 0.5, 0.0, -0.0)
+        return torch.where(torch.rand(n, generator=gen, device="cuda") < 0.05, 1.0, z)
+
     cases = [(f"n{n}_k{k}", times(n, 0.3), k)
              for n in (16384, 65536, 1_000_003, 2**20) for k in (8, 256)]
+    cases += [(f"n{n}_k{k}", times(n, 0.3), k)
+              for n in (65536, 2**20) for k in (1024, 4096, 16384)]
     cases += [
         ("all_ties", torch.full((16384,), 5.0, device="cuda"), 256),
         ("all_idle", torch.full((65536,), float("inf"), device="cuda"), 8),
         ("fewer_than_k", times(1_000_003, 100 / 1_000_003), 256),
+        ("fewer_than_k_4096", times(2**20, 1000 / 2**20), 4096),
+        ("signed_zeros", signed_zeros(16384), 256),
+        ("signed_zeros_grid", signed_zeros(65536), 4096),
+        ("k_equals_n", times(32768, 0.5), 32768),
     ]
-    max_err = 0.0
+    launches_per_call = {}
     for name, t, k in cases:
-        v, i = event_topk.event_topk(t, k)
-        pv, pi = event_topk.next_k_plain(t, k)
+        before = event_topk.launches
+        out = event_topk.event_topk(t, k)
+        plain = event_topk.next_k_plain(t, k)
         torch.cuda.synchronize()
-        fin = torch.isfinite(pv)
-        if not (torch.equal(torch.isfinite(v), fin) and torch.equal(i[fin], pi[fin])):
+        if not _same_bits(torch, out, plain):
             raise AssertionError(f"K2 disagrees with its plain version: {name}")
-        if fin.any():
-            max_err = max(max_err, float((v[fin] - pv[fin]).abs().max()))
-        if max_err != 0.0:
-            raise AssertionError(f"K2 times differ from the plain version: {name}")
-        if name == "all_ties" and not torch.equal(i.cpu(), torch.arange(k)):
+        if event_topk.launches - before != 1:
+            raise AssertionError(f"K2 counted {event_topk.launches - before} calls: {name}")
+        launches_per_call[name] = event_topk.plan(t.shape[0], k, True).launches
+        if name == "all_ties" and not torch.equal(out[1].cpu(), torch.arange(k)):
             raise AssertionError("K2 tie order is not lower-index-first")
+    if set(launches_per_call.values()) != {1}:
+        raise AssertionError(f"K2 plans more than one launch a call: {launches_per_call}")
+
+    # the pop of fl_async --clients 65536 --k 2048, kernel against plain
+    ev = {**events.init_event_state(65536, "cuda"), "t_done": times(65536, 0.05)}
+    before = event_topk.launches
+    popped = events.pop_events(ev, 2048)
+    plain_pop = events.pop_events(ev, 2048, use_kernel=False)
+    torch.cuda.synchronize()
+    if event_topk.launches - before != 1 or not (
+            _same_bits(torch, popped[:2], plain_pop[:2])
+            and torch.equal(popped[2], plain_pop[2])
+            and torch.equal(popped[3]["t_done"].view(torch.int32),
+                            plain_pop[3]["t_done"].view(torch.int32))):
+        raise AssertionError("K2's pop of (65536, 2048) disagrees with the plain pop")
 
     n, k = KERNEL_SHAPE
     t = times(n, 0.02)  # the main path's t_done: ~1-2% of the fleet in flight
+    big = times(1_000_000, 0.3)
+    graphs = {"n16384_k256": _graph_replay_equal(torch, lambda: event_topk.event_topk(t, k)),
+              "n1000000_k150000": _graph_replay_equal(
+                  torch, lambda: event_topk.event_topk(big, 150_000))}
+    if not all(graphs.values()):
+        raise AssertionError(f"K2 graph replay differs from the eager call: {graphs}")
     ms = cuda_ms(torch, lambda: event_topk.event_topk(t, k))
     plain_ms = cuda_ms(torch, lambda: event_topk.next_k_plain(t, k))
     library_ms = cuda_ms(torch, lambda: torch.topk(t, k, largest=False))
-    bytes_moved = n * 4 + k * (4 + 8)  # times in; f32 times + i64 indices out
-    ops = n  # one comparison per element is the least a selection needs
-    bound_ms = max(bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
     entry = {
         "name": "event_topk", "route": "cuda",
         "source": "src/repro_torch/csrc/event_topk.cu",
         "replaces": "src/repro/kernels/event_topk.py:48",
-        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": _topk_bound_ms(n, k), "bound_by": "bytes", "library_ms": library_ms,
     }
+    ladder = _ladder(torch, lambda x, kk, s: event_topk.event_topk(x, kk),
+                     lambda x, kk, s: torch.topk(x, kk, largest=False, sorted=s),
+                     lambda size: times(size, 0.3), (True,))
     emit({"phase": "kernel", "ok": True, "cases": len(cases), "n": n, "k": k,
-          "passes": event_topk.num_passes(n, k), **entry,
+          "plan": event_topk.plan(n, k, True)._asdict(),
+          "launches_per_call": launches_per_call, "pop_65536_2048_equal": True,
+          "graph_replay_equal": graphs, **entry,
           "device_ms": device_ms(torch, lambda: event_topk.event_topk(t, k)),
           "plain_device_ms": device_ms(torch, lambda: event_topk.next_k_plain(t, k)),
           "library_device_ms": device_ms(
-              torch, lambda: torch.topk(t, k, largest=False))})
+              torch, lambda: torch.topk(t, k, largest=False)),
+          "empty_kernel_device_ms": device_ms(torch, lambda: torch.cuda._sleep(0)),
+          "ladder": ladder})
     return entry
 
 
@@ -1324,34 +1420,116 @@ def phase_kernel_k3(torch, k3):
         a = torch.randint(0, high, (size,), generator=gen, device="cuda").float()
         return a + torch.rand(size, generator=gen, device="cuda") * 0.5 if noise else a
 
+    zeros = torch.where(torch.rand(n, generator=gen, device="cuda") < 0.5, 0.0, -0.0)
     cases = [("policy", ages(n, 64, True), k), ("policy_int", ages(n, 64, False), k),
              ("example_1M", ages(1_000_000, 50, False), 128),
              ("all_equal", torch.full((n,), 7.0, device="cuda"), k),
              ("k1", ages(50_000, 1000, True), 1), ("k1024", ages(70_001, 50, False), 1024),
-             ("n_ragged", ages(2 * 2048 + 3, 10, False), 7)]
+             ("n_ragged", ages(2 * 2048 + 3, 10, False), 7),
+             ("cohort_15pct", ages(n, 128, True), 2458),
+             ("n100000_k15000", ages(100_000, 1000, True), 15_000),
+             ("n1M_k150000", ages(1_000_000, 50, True), 150_000),
+             ("k_equals_n", ages(40_000, 20, False), 40_000),
+             ("signed_zeros", torch.where(torch.rand(n, generator=gen, device="cuda") < 0.05,
+                                          1.0, zeros), k),
+             ("signed_zeros_k_n", zeros, n)]
+    launches_per_call = {}
     for name, a, kk in cases:
-        v, i = k3.aoi_topk(a, kk)
-        pv, pi = k3.topk_plain(a, kk)
-        torch.cuda.synchronize()
-        if not (torch.equal(v, pv) and torch.equal(i, pi)):
-            raise AssertionError(f"K3 disagrees with its plain version: {name}")
-        if name == "all_equal" and not torch.equal(i.cpu(), torch.arange(kk)):
+        for sorted_ in (True, False):
+            before = k3.launches
+            out = k3.aoi_topk(a, kk, sorted_)
+            plain = k3.topk_plain(a, kk, sorted_)
+            torch.cuda.synchronize()
+            if not _same_bits(torch, out, plain):
+                raise AssertionError(f"K3 disagrees with its plain version: {name}, "
+                                     f"sorted={sorted_}")
+            if k3.launches - before != 1:
+                raise AssertionError(f"K3 counted {k3.launches - before} calls: {name}")
+            launches_per_call[f"{name}_{'sorted' if sorted_ else 'unsorted'}"] = k3.plan(
+                a.shape[0], kk, sorted_).launches
+        if name == "all_equal" and not torch.equal(out[1].cpu(), torch.arange(kk)):
             raise AssertionError("K3 tie order is not lower-index-first")
+    if set(launches_per_call.values()) != {1}:
+        raise AssertionError(f"K3 plans more than one launch a call: {launches_per_call}")
     a = cases[0][1]
-    run = lambda: k3.aoi_topk(a, k)  # noqa: E731
-    bytes_moved = n * 4 + k * (4 + 8)  # values in; f32 values + i64 indices out
+    big = cases[9][1]
+    graphs = {f"n{n}_k{k}_unsorted": _graph_replay_equal(
+                  torch, lambda: k3.aoi_topk(a, k, False)),
+              "n1000000_k150000_sorted": _graph_replay_equal(
+                  torch, lambda: k3.aoi_topk(big, 150_000, True))}
+    if not all(graphs.values()):
+        raise AssertionError(f"K3 graph replay differs from the eager call: {graphs}")
+    run = lambda: k3.aoi_topk(a, k, False)  # noqa: E731  (the policy's call)
+    run_sorted = lambda: k3.aoi_topk(a, k)  # noqa: E731
     entry = {
         "name": "aoi_topk", "route": "cuda", "source": "src/repro_torch/csrc/aoi_topk.cu",
         "replaces": "src/repro/kernels/aoi_topk.py:42", "max_abs_err": 0.0,
-        "ms": cuda_ms(torch, run), "plain_ms": cuda_ms(torch, lambda: k3.topk_plain(a, k)),
-        "bound_ms": max(bytes_moved / HBM_BYTES_PER_S, n / FP32_OPS_PER_S) * 1e3,
-        "bound_by": "bytes", "library_ms": cuda_ms(torch, lambda: torch.topk(a, k)),
+        "ms": cuda_ms(torch, run),
+        "plain_ms": cuda_ms(torch, lambda: k3.topk_plain(a, k, False)),
+        "bound_ms": _topk_bound_ms(n, k), "bound_by": "bytes",
+        "library_ms": cuda_ms(torch, lambda: torch.topk(a, k, sorted=False)),
     }
+    ladder = _ladder(torch, lambda x, kk, s: k3.aoi_topk(x, kk, s),
+                     lambda x, kk, s: torch.topk(x, kk, sorted=s),
+                     lambda size: ages(size, max(2, 2 * size // 2458), True), (False, True))
     emit({"phase": "kernel_k3", "ok": True, "cases": [c[0] for c in cases], "n": n, "k": k,
-          "exact": True, **entry, "device_ms": device_ms(torch, run),
-          "plain_device_ms": device_ms(torch, lambda: k3.topk_plain(a, k)),
-          "library_device_ms": device_ms(torch, lambda: torch.topk(a, k))})
+          "sorted": False, "exact": True, "plan": k3.plan(n, k, False)._asdict(),
+          "launches_per_call": launches_per_call, "graph_replay_equal": graphs,
+          **entry, "device_ms": device_ms(torch, run),
+          "sorted_ms": cuda_ms(torch, run_sorted), "sorted_device_ms": device_ms(torch, run_sorted),
+          "plain_device_ms": device_ms(torch, lambda: k3.topk_plain(a, k, False)),
+          "library_device_ms": device_ms(torch, lambda: torch.topk(a, k, sorted=False)),
+          "ladder": ladder, "policy_1M": _policy_1m(torch, k3)})
     return entry
+
+
+def _policy_1m(torch, k3, n=1_000_000, k=150_000, steps=3):
+    """``make_policy("oldest_age", n, k)``, the paper's 15% cohort at 1M
+    clients, stepped on replayed draws on the card and on the CPU: one K3
+    launch a step on the card, masks of exactly k, equal to the CPU's plain
+    route; then ms a step on the card beside the markov policy's."""
+    import numpy as np
+
+    from repro_torch.core import selection
+    from repro_torch.core.draws import GeneratorDraws, ReplayDraws
+
+    rng = np.random.default_rng(17)
+    init = {"policy_init": rng.permutation(n)}
+    step_draws = [{"select": (rng.random(n) * 0.5).astype(np.float32)} for _ in range(steps)]
+    policy = selection.make_policy("oldest_age", n, k)
+    masks, launched = {}, {}
+    for dev in ("cuda", "cpu"):
+        draws = ReplayDraws(init, step_draws, dev)
+        state = policy.init(draws, n)
+        before, rows = k3.launches, []
+        for r in range(steps):
+            sel, state = policy.step(state, draws.step(r))
+            rows.append(sel.cpu())
+        launched[dev] = k3.launches - before
+        masks[dev] = torch.stack(rows)
+    sizes = masks["cuda"].sum(1).tolist()
+    if launched["cuda"] != steps or launched["cpu"] != 0:
+        raise AssertionError(f"policy_1M: K3 launched {launched} in {steps} steps")
+    if sizes != [k] * steps or not torch.equal(masks["cuda"], masks["cpu"]):
+        raise AssertionError(f"policy_1M: masks of sizes {sizes} or unequal to the plain route")
+
+    def step_ms(name, reps=10):
+        pol = selection.make_policy(name, n, k)
+        draws = GeneratorDraws(0, "cuda")
+        state = pol.init(draws, n)
+        for _ in range(2):
+            _, state = pol.step(state, draws)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            _, state = pol.step(state, draws)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    return {"n": n, "k": k, "steps": steps, "k3_launches": launched["cuda"],
+            "mask_sizes": sizes, "masks_equal_plain": True,
+            "oldest_age_ms_per_step": step_ms("oldest_age"),
+            "markov_ms_per_step": step_ms("markov")}
 
 
 def phase_async_oldest(torch, k3):
@@ -1414,7 +1592,7 @@ def phase_async_oldest(torch, k3):
         raise AssertionError(f"async_oldest: a step synchronized with the host: {syncs}")
     out["host_syncs_in_2_steps"] = 0
     out.update(steady_and_profile(torch, engine, state, cfg.rounds + 2, res.wall_time_s,
-                                  match="tile_topk<true"))  # K3 is the descending one
+                                  match="radix_topk_kernel<true"))  # K3: descending
     emit(out)
     return launches
 

@@ -74,19 +74,19 @@ def _on_device(arr: np.ndarray) -> Callable:
 
 def _topk_idx(score: torch.Tensor, k: int) -> torch.Tensor:
     """Indices of the k largest scores, ties to the lower index, as the
-    reference's ``lax.top_k``.
+    reference's ``lax.top_k``, in ascending index order (``_mask`` discards
+    the order, so no sort is paid for).
 
     A score on CUDA with n >= ``sim.events.KERNEL_THRESHOLD`` (the
-    reference's fleet scale) and k <= ``aoi_topk.MAX_K`` goes through the
-    K3 kernel (``ops.oldest_age_topk``); any other shape or device takes
-    the stable descending sort, which keeps equal scores in index order.
-    This is a rule on the shape, not a fallback: a kernel that fails
-    raises."""
+    reference's fleet scale) goes through the K3 kernel
+    (``ops.oldest_age_topk``) for any k; any other shape or device takes the
+    stable descending sort, which keeps equal scores in index order. This is
+    a rule on the shape, not a fallback: a kernel that fails raises."""
     from repro_torch.sim.events import KERNEL_THRESHOLD  # sim imports this module
 
-    if score.is_cuda and score.shape[0] >= KERNEL_THRESHOLD and k <= aoi_topk.MAX_K:
-        return ops.oldest_age_topk(score, k)[1]
-    return aoi_topk.topk_plain(score, k)[1]
+    if score.is_cuda and score.shape[0] >= KERNEL_THRESHOLD:
+        return ops.oldest_age_topk(score, k, sorted=False)[1]
+    return aoi_topk.topk_plain(score, k, sorted=False)[1]
 
 
 def _mask(n: int, idx: torch.Tensor) -> torch.Tensor:

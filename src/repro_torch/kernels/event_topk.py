@@ -2,17 +2,18 @@
 
 Replaces the TPU kernel ``src/repro/kernels/event_topk.py::tile_next_k``
 (``_next_k_kernel``) and its phase 2 in ``src/repro/kernels/ops.py::
-event_next_k``. The CUDA source is ``src/repro_torch/csrc/event_topk.cu``
-(the kernel is ``csrc/tile_topk.cuh``, shared with K3 in descending order):
-each time is packed with its index into one 64-bit key (time bits high,
-index low, so ties order by index for free), one CTA bitonic-sorts a tile
-of ``TILE`` keys in shared memory and keeps its first k, and the same
-kernel runs over the ``tiles * k`` candidates until one tile remains.
+event_next_k``. The CUDA source is ``src/repro_torch/csrc/event_topk.cu``;
+the kernel is the radix select of ``csrc/radix_topk.cuh`` (shared with K3,
+which runs it in descending order; ``kernels/radix_topk.py`` holds the
+plan, the launch and the CPU emulation of its schedule). It takes any
+1 <= k <= n in one launch, always sorted: four MSD digit passes find the
+k-th time, the gather takes the k earliest in index order, four stable LSD
+passes sort them, so equal times keep index order.
 
 Bound on the H100: the function reads ``n * 4`` bytes and writes ``k * 12``;
-at the main path's n = 16384 that is ~20 ns of HBM time, so the call is
-bound by launch latency (two launches at n = 16384). The design keeps the
-launch count at ``1 + ceil(log_{TILE/k}(n / TILE))`` and does no host sync.
+at the main path's (16384, 256) that is ~20 ns of HBM time, and the call is
+one launch of one CTA holding the times in shared memory, bound by the
+launch and the latency of its passes. No host sync.
 
 ``event_topk(times, k)`` is the wrapper: a CPU tensor goes to the plain
 version ``next_k_plain`` (a stable sort), a CUDA tensor to the kernel; a
@@ -21,16 +22,11 @@ kernel calls.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Tuple
 
 import torch
 
-# keys per CTA in csrc/event_topk.cu; a pass keeps k of every TILE keys,
-# so k <= TILE // 2 guarantees each pass at least halves the candidates
-TILE = 2048
-MAX_K = TILE // 2
+from repro_torch.kernels.radix_topk import check, launch, plan  # noqa: F401
 
 launches = 0  # kernel calls (one per event_topk on a CUDA tensor)
 
@@ -43,72 +39,6 @@ def next_k_plain(times: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tenso
     return vals[:k], idx[:k]
 
 
-def num_passes(n: int, k: int) -> int:
-    """Kernel launches one call makes: tile passes until one tile is left."""
-    passes, m = 1, n
-    while -(-m // TILE) > 1:
-        m = -(-m // TILE) * k
-        passes += 1
-    return passes
-
-
-@functools.cache
-def launcher(name: str):
-    """The built library ``name``'s ``<name>_launch`` (a ``tile_topk.cuh``
-    launcher: K2's ``event_topk`` or K3's ``aoi_topk``), typed (built at
-    first use)."""
-    from repro_torch.kernels.build import library
-
-    lib = library(name)
-    if getattr(lib, f"{name}_tile")() != TILE:
-        raise RuntimeError(f"csrc/{name}.cu TILE differs from event_topk.TILE")
-    fn = getattr(lib, f"{name}_launch")
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def check(values: torch.Tensor, k: int) -> None:
-    """What both tile top-k wrappers take: a 1-D f32 vector, 1 <= k <= n."""
-    if values.dim() != 1 or values.dtype != torch.float32:
-        raise ValueError(
-            f"values must be a 1-D float32 tensor, got {tuple(values.shape)} "
-            f"{values.dtype}"
-        )
-    n = values.shape[0]
-    if not 1 <= k <= n:
-        raise ValueError(f"need 1 <= k <= n, got k={k}, n={n}")
-    if n >= 2**31:
-        raise ValueError(f"n={n} exceeds the kernel's 31-bit index range")
-
-
-def launch(name: str, values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run kernel ``name``'s tile passes on a CUDA vector; (values (k,) f32,
-    idx (k,) i64). Raises on what the kernel does not take."""
-    if values.device.type != "cuda":
-        raise ValueError(f"{name} runs on cpu or cuda, got {values.device}")
-    if k > MAX_K:
-        raise ValueError(f"{name} keeps k <= {MAX_K} per {TILE}-key tile, got k={k}")
-    if not values.is_contiguous():
-        raise ValueError("values must be contiguous")
-    fn = launcher(name)
-    n = values.shape[0]
-    dev = values.device
-    cand = -(-n // TILE) * k
-    scratch = torch.empty((2, cand), dtype=torch.int64, device=dev)
-    out_v = torch.empty((k,), dtype=torch.float32, device=dev)
-    out_i = torch.empty((k,), dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(values.data_ptr(), n, k, scratch[0].data_ptr(),
-                 scratch[1].data_ptr(), out_v.data_ptr(), out_i.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    return out_v, out_i
-
-
 def event_topk(times: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(times (k,) f32, idx (k,) i64) of the k earliest entries of
     ``times``; entries with no event carry ``+inf`` (mask by finiteness)."""
@@ -116,6 +46,6 @@ def event_topk(times: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]
     check(times, k)
     if times.device.type == "cpu":
         return next_k_plain(times, k)
-    out = launch("event_topk", times, k)
+    out = launch("event_topk", times, k, True)
     launches += 1
     return out

@@ -56,8 +56,8 @@ def ssd_scan(x, dt, A, B_, C_, *, chunk=256):
     return y.to(x.dtype)
 
 
-def oldest_age_topk(ages, k):
+def oldest_age_topk(ages, k, sorted=True):
     """K3: fleet-scale oldest-age selection. Returns (values (k,) f32,
     indices (k,) i64) of the k highest ages (cast to f32), highest first,
-    ties to the lower index."""
-    return _topk.aoi_topk(ages.to(torch.float32), k)
+    ties to the lower index; ``sorted=False``: the same k in index order."""
+    return _topk.aoi_topk(ages.to(torch.float32), k, sorted)

@@ -10,8 +10,8 @@ otherwise. Both break ties toward the lower client index.
 
 The reference's out-of-range ``.at[idx].set(..., mode="drop")`` has no
 torch counterpart; ``scatter_set`` writes through a buffer with one extra
-dump slot, so masked-out slots (and the duplicate indices that exhausted
-kernel tiles may emit) never write back — with no host sync.
+dump slot, so masked-out slots (the idle clients a pop returns past the
+pending ones) never write back — with no host sync.
 """
 from __future__ import annotations
 
@@ -61,9 +61,8 @@ def next_k_events(
     Slots beyond the number of pending events carry ``+inf`` times —
     callers mask by ``torch.isfinite``. Ties break toward lower index.
     ``use_kernel=None`` takes the kernel for fleets of at least
-    ``KERNEL_THRESHOLD`` on the GPU, as the reference does on an
-    accelerator. The kernel keeps k <= 1024 (``event_topk.MAX_K``): that
-    is the largest buffer the GPU path takes, and a larger one raises.
+    ``KERNEL_THRESHOLD`` on the GPU, for any k, as the reference does on
+    an accelerator.
     """
     n = times.shape[0]
     if use_kernel is None:
@@ -98,8 +97,7 @@ def apply_pop(ev: Dict[str, torch.Tensor], t: torch.Tensor, idx: torch.Tensor):
 
 def scatter_idx(idx: torch.Tensor, mask: torch.Tensor, n: int) -> torch.Tensor:
     """Scatter targets over an (n + 1,) buffer: masked-out slots go to the
-    dump slot ``n`` — duplicate indices from exhausted kernel tiles must
-    never write back."""
+    dump slot ``n`` and never write back."""
     return torch.where(mask, idx, n)
 
 

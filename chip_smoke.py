@@ -53,6 +53,39 @@ prints one JSON line for each:
           the card and plain on the CPU, TF32 off, each card round started
           from the CPU's params of the round before: discrete outputs
           equal, params close, K1 launched once a round.
+  fault_contracts  slice C's bitwise contracts on a 48-client fleet with
+          the paper CNN at full widths, cuDNN deterministic inside the
+          check (restored after): every engine fault armed at rate 0 equals
+          the calm run (sync: dropout, corrupt, sign_flip, scale_attack over
+          4 rounds; async: all six engine faults and a deadline that never
+          fires, over 4 steps: send masks, losses, params); armed at rate
+          0.5, ``run_chunk`` equals per-step steps (the whole state); a
+          crash after 3 steps, ``save_checkpoint``/``load_checkpoint`` of
+          the state and the random streams, 3 more steps on a fresh engine
+          equal 6 uninterrupted; one ``ReplayDraws`` run of the armed async
+          engine whose discrete outputs (pops, ages, fault ``prone``/
+          ``injected``/``exposed``, re-dispatch state, counters) equal the
+          CPU port's on the same fed arrays.
+  sync_attack  ``benchmarks/bench_faults.py`` part (b) at the paper CNN's
+          widths and ``sync_main``'s settings, SYNC_ATTACK_ROUNDS rounds: a
+          model-replacement attack (scale_attack x -3 on 25% of slots)
+          under fedavg, trimmed_mean (trim 0.35) and coordinate_median;
+          rounds/s, steady ms a round, eval loss and accuracy, injections,
+          K1 launches (one a round for fedavg, none for the order
+          statistics) and peak memory. Both robust aggregators must end
+          finite and below fedavg's eval loss.
+  async_chaos  ``main``'s configuration with ``--faults
+          dropout,corrupt,straggler,stale_replay --fault-rate 0.1
+          --robust-agg norm_clip`` and a re-dispatch deadline of
+          DEADLINE_STEPS steps of ``main``'s simulated clock, 10 steps: K2
+          and K1 (``norm_clip``'s clipped delta sum) one launch a step,
+          every injection counter and the deadline's ``rd_expired``/
+          ``redispatched`` above zero, a finite eval loss, no host sync in
+          two steps; the steady ms a step beside ``main``'s as a ratio
+          (``bench_faults.py`` part (a)), device-busy share and peak
+          memory; then ``trimmed_mean`` and ``coordinate_median``
+          (accumulate plus finalize) timed on (256, paper CNN) and (30,
+          paper CNN) f32 stacks beside the bytes bound of one read.
   kernel_k4    K4 (``flash_attention``) against its plain version on the
           card at the serving prefill shape (B, Hk, G, S, D) =
           (4, 4, 8, 2048, 64) in bf16, contiguous and in the model's layout
@@ -136,8 +169,10 @@ prints one JSON line for each:
           CONSISTENCY_TOL and the bf16 gap and top-1 agreement reported.
 
 The main, async_oldest and sync_main phases run before the parity phases,
-which turn TF32 off. Then the ``{"kernels": [...]}`` line (K2, K1, K4, K5,
-K3, K6), the card's
+which turn TF32 off; the slice C phases run after ``sync_parity``, and the
+two that are timed beside ``main`` and ``sync_main`` (``sync_attack``,
+``async_chaos``) set TF32 back to what ``main`` ran with while they run.
+Then the ``{"kernels": [...]}`` line (K2, K1, K4, K5, K3, K6), the card's
 name and power limit as ``nvidia-smi`` reports them, and, last, the device
 line. Any failure exits non-zero; without a GPU, or outside a checkout of
 the repository, the script fails before printing a result. It imports
@@ -195,10 +230,10 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(torch, fn, calls: int = 100, trials: int = 7) -> float:
+def cuda_ms(torch, fn, calls: int = 100, trials: int = 7, warmup: int = 10) -> float:
     """Median per-call device time of ``fn`` over ``trials`` runs of
     ``calls`` back-to-back calls, timed with CUDA events after a warm-up."""
-    for _ in range(10):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     per_call = []
@@ -382,31 +417,22 @@ def _state_tensors(tree, path=""):
 
 def phase_main(torch, event_topk):
     from repro_torch.core import load_metric
-    from repro_torch.engine import run_engine
     from repro_torch.launch import fl_async
 
     args = fl_async.parse_args(MAIN_ARGV)
     t0 = time.time()
     task, engine = fl_async.build(args)
     setup_s = time.time() - t0
-    captured = {}
-    finalize = engine.finalize
-
-    def capture(state, *rest):
-        captured["state"] = state
-        return finalize(state, *rest)
-
-    engine.finalize = capture
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     event_topk.launches = 0
-    res = run_engine(engine, progress=True)
+    res, state = _run_captured(engine, progress=True)
     launches = event_topk.launches
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     fl_async.report(res, args)
 
     cfg = res.config
-    off = [p for p, t in _state_tensors(captured["state"])
+    off = [p for p, t in _state_tensors(state)
            if not (isinstance(t, torch.Tensor) and t.is_cuda)]
     if off:
         raise AssertionError(f"engine state off the GPU: {off}")
@@ -441,14 +467,36 @@ def phase_main(torch, event_topk):
         "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
                  "matmul": torch.backends.cuda.matmul.allow_tf32},
     }
-    state, syncs = sync_free_steps(torch, engine, captured["state"], cfg.rounds)
+    state, syncs = sync_free_steps(torch, engine, state, cfg.rounds)
     if syncs:
         raise AssertionError(f"a step synchronized with the host: {syncs}")
     out["host_syncs_in_2_steps"] = 0
     out.update(steady_and_profile(torch, engine, state, cfg.rounds + 2,
                                   res.wall_time_s))
     emit(out)
-    return launches
+    calm = {"steady_ms_per_step": out["steady_ms_per_step"],
+            "clock_per_step": ws["sim_time"] / cfg.rounds, "tf32": out["tf32"]}
+    return launches, calm
+
+
+def _run_captured(engine, progress=False):
+    """``run_engine(engine)`` and the engine state it ended with (what
+    ``finalize`` was handed)."""
+    from repro_torch.engine import run_engine
+
+    captured = {}
+    finalize = engine.finalize
+
+    def capture(state, *rest):
+        captured["state"] = state
+        return finalize(state, *rest)
+
+    engine.finalize = capture
+    try:
+        res = run_engine(engine, progress=progress)
+    finally:
+        engine.finalize = finalize
+    return res, captured["state"]
 
 
 def sync_free_steps(torch, engine, state, r0, steps=2):
@@ -490,6 +538,15 @@ def _loop(engine, state, r0, steps, eval_every=1):
     return state
 
 
+def _steady_ms(torch, engine, state, r0, steps, eval_every):
+    """Host-clock ms a step over ``steps`` more steps of the driver's loop."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    state = _loop(engine, state, r0, steps, eval_every)
+    torch.cuda.synchronize()
+    return (time.time() - t0) * 1e3 / steps, state
+
+
 def _union_ms(intervals) -> float:
     """Length of the union of ``(start, end)`` intervals in microseconds,
     as ms: device time with any kernel running, overlaps counted once."""
@@ -519,11 +576,7 @@ def steady_and_profile(torch, engine, state, r0, wall_time_s, steps=10, prof_ste
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    t0 = time.time()
-    state = _loop(engine, state, r0, steps, eval_every)
-    torch.cuda.synchronize()
-    steady_ms = (time.time() - t0) * 1e3 / steps
+    steady_ms, state = _steady_ms(torch, engine, state, r0, steps, eval_every)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         _loop(engine, state, r0 + steps, prof_steps, eval_every)
@@ -775,31 +828,21 @@ def phase_kernel_k1(torch, fedavg_reduce):
 def phase_sync_main(torch, fedavg_reduce):
     from repro_torch.core import load_metric
     from repro_torch.core.tree import tree_leaves
-    from repro_torch.engine import run_engine
     from repro_torch.launch import fl_train
 
     args = fl_train.parse_args(SYNC_ARGV)
     t0 = time.time()
     task, engine = fl_train.build(args)
     setup_s = time.time() - t0
-    captured = {}
-    finalize = engine.finalize
-
-    def capture(state, *rest):
-        captured["state"] = state
-        return finalize(state, *rest)
-
-    engine.finalize = capture
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fedavg_reduce.launches = 0
-    res = run_engine(engine, progress=True)
+    res, state = _run_captured(engine, progress=True)
     launches = fedavg_reduce.launches
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     fl_train.report(res, args)
 
     cfg = res.config
-    state = captured["state"]
     off = [p for p, t in _state_tensors(state)
            if not (isinstance(t, torch.Tensor) and t.is_cuda)]
     if off:
@@ -925,6 +968,387 @@ def phase_sync_parity(torch, fedavg_reduce):
           "selected": selected,
           "kernel_launches": launches, "max_param_abs_diff_vs_cpu": worst,
           "tf32": False})
+
+
+# --- slice C: the robustness tier -------------------------------------------
+
+FAULT_N, FAULT_K, FAULT_STEPS = 48, 8, 4  # fault_contracts' small fleet
+ENGINE_FAULTS = ("dropout", "straggler", "stale_replay", "corrupt", "sign_flip",
+                 "scale_attack")
+REPLAY_FAULTS = ("dropout", "straggler", "stale_replay", "corrupt", "sign_flip",
+                 "collude")
+SYNC_ATTACK_ROUNDS = 20
+ATTACK = dict(faults=("scale_attack",), fault_rate=0.25,
+              fault_kwargs={"scale_attack": {"factor": -3.0}})  # bench_faults.py
+ATTACK_AGGREGATORS = (("fedavg", {}), ("trimmed_mean", {"trim": 0.35}),
+                      ("coordinate_median", {}))
+CHAOS_FLAGS = ["--faults", "dropout,corrupt,straggler,stale_replay", "--fault-rate",
+               "0.1", "--robust-agg", "norm_clip"]
+CHAOS_STEPS = 10
+DEADLINE_STEPS = 3  # the deadline: this many steps of the calm run's clock
+
+
+def _mismatches(torch, a, b):
+    """Paths of the tensors of two engine states (or param trees) that are
+    not bitwise equal (floats compared by their bits, so NaN equals the
+    same NaN)."""
+    ta, tb = dict(_state_tensors(a)), dict(_state_tensors(b))
+    if ta.keys() != tb.keys():
+        return sorted(set(ta) ^ set(tb))
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    return [p for p, t in ta.items()
+            if not (t.dtype == tb[p].dtype and torch.equal(bits(t), bits(tb[p])))]
+
+
+def _replay_faults(n, k, m, steps, epochs, examples, shapes, seed=1):
+    """Fixed numpy draws for every site of the armed async path:
+    ``_replay``'s calm sites plus the fault coins, the collude coalition
+    and jitter, the corruption noise and the re-dispatch latencies."""
+    import numpy as np
+
+    init, per_step = _replay(n, k, m, steps, epochs, examples,
+                             {path[:-2]: shape for path, shape in shapes.items()
+                              if path.endswith("/w")}, seed)
+    rng = np.random.default_rng(seed + 1)
+    init["faults/collude/prone"] = rng.random(n, dtype=np.float32)
+    for st in per_step:
+        st["redispatch/latency_compute"] = rng.standard_normal(n).astype(np.float32)
+        st["redispatch/latency_comm"] = rng.exponential(size=n).astype(np.float32)
+        st["faults/straggler/hit"] = rng.random(n, dtype=np.float32)
+        for name in REPLAY_FAULTS:
+            if name != "straggler":
+                st[f"faults/{name}/hit"] = rng.random(k, dtype=np.float32)
+        st["faults/collude/jitter"] = rng.standard_normal(k).astype(np.float32)
+        for path, shape in shapes.items():
+            st[f"faults/noise/{path}"] = rng.standard_normal(
+                (k,) + shape, dtype=np.float32)
+    return init, per_step
+
+
+def phase_fault_contracts(torch, fedavg_reduce):
+    """The robustness tier's bitwise contracts on the card, cuDNN
+    deterministic inside (restored after): rate-0 armed == calm (sync and
+    async), armed run_chunk == per-step, crash-restart through
+    ``checkpoint/store.py``, and one replayed armed async run equal to the
+    CPU port's in every discrete output."""
+    import tempfile
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs.paper_cnn import MNIST_CNN
+    from repro_torch.core.draws import ReplayDraws
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.data.synthetic import load_dataset
+    from repro_torch.engine import RunConfig, make_engine
+    from repro_torch.fl import make_cnn_task
+    from repro_torch.sim import events as ev_mod
+
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        n, k, steps = FAULT_N, FAULT_K, FAULT_STEPS
+        train, test = load_dataset("mnist", seed=0, scale=0.02)
+        task = make_cnn_task(MNIST_CNN, train, test, n, seed=0, device="cuda")
+        base = dict(n_clients=n, k=k, m=10, policy="markov", rounds=steps,
+                    local_epochs=2, batch_size=50, lr0=0.02, seed=0)
+        asyn = dict(base, mode="async", profile="lognormal")
+        sync = dict(base, mode="sync")
+        out = {"phase": "fault_contracts", "n": n, "k": k, "steps": steps,
+               "cnn": "paper-cnn-mnist (full widths)", "cudnn_deterministic": True}
+
+        # rate-0 armed == calm: send masks, losses, final params bitwise
+        def lockstep(calm_kw, armed_kw):
+            calm, armed = (make_engine(task, RunConfig(**calm_kw)),
+                           make_engine(task, RunConfig(**armed_kw)))
+            sc, sa = calm.init(), armed.init()
+            same = True
+            for r in range(steps):
+                sc, ac = calm.step(sc, r)
+                sa, aa = armed.step(sa, r)
+                same &= torch.equal(ac["send"], aa["send"]) and torch.equal(
+                    ac["loss"].nan_to_num(-1.0), aa["loss"].nan_to_num(-1.0))
+            bad = _mismatches(torch, sc["params"], sa["params"])
+            return same and not bad
+        k1_before = fedavg_reduce.launches
+        out["rate0_sync_equals_calm"] = lockstep(sync, dict(
+            sync, faults=("dropout", "corrupt", "sign_flip", "scale_attack"),
+            fault_rate=0.0))
+        out["rate0_sync_k1_launches"] = fedavg_reduce.launches - k1_before
+        out["rate0_async_equals_calm"] = lockstep(asyn, dict(
+            asyn, faults=ENGINE_FAULTS, fault_rate=0.0, redispatch_timeout=1e9))
+
+        # armed at rate 0.5: run_chunk == per-step, the whole state
+        armed_kw = dict(asyn, faults=ENGINE_FAULTS, fault_rate=0.5,
+                        redispatch_timeout=2.0, aggregator="norm_clip")
+        per_step = make_engine(task, RunConfig(**armed_kw))
+        st = per_step.init()
+        for r in range(steps):
+            st, _ = per_step.step(st, r)
+        chunked = make_engine(task, RunConfig(**armed_kw))
+        sc, _ = chunked.run_chunk(chunked.init(), 0, steps, False)
+        out["armed_chunk_equals_per_step"] = not _mismatches(torch, st, sc)
+        out["armed_injected"] = {nm: float(f["injected"]) for nm, f in st["faults"].items()}
+
+        # crash-restart: 3 steps, checkpoint, a fresh engine resumes for 3
+        crash_kw = dict(asyn, rounds=6, faults=("dropout", "corrupt"), fault_rate=0.5,
+                        redispatch_timeout=2.0, aggregator="norm_clip")
+        full_eng = make_engine(task, RunConfig(**crash_kw))
+        full, _ = full_eng.run_chunk(full_eng.init(), 0, 6, False)
+        crashed = make_engine(task, RunConfig(**crash_kw))
+        half, _ = crashed.run_chunk(crashed.init(), 0, 3, False)
+        with tempfile.TemporaryDirectory() as d:
+            tree = {"state": half, "draws": crashed.draws.get_state()}
+            save_checkpoint(d, tree, step=3)
+            restored, step = load_checkpoint(d, tree)
+        restarted = make_engine(task, RunConfig(**crash_kw))
+        restarted.draws.set_state(restored["draws"])
+        resumed, _ = restarted.run_chunk(restored["state"], step, 3, False)
+        out["crash_restart_bitwise"] = not _mismatches(torch, full, resumed)
+
+        # one replayed armed run: the card's discrete outputs equal the CPU's
+        shapes = {p: tuple(t.shape) for p, t in tree_paths(full["params"])}
+        replay_kw = dict(asyn, faults=REPLAY_FAULTS, fault_rate=0.5,
+                         redispatch_timeout=2.0, aggregator="norm_clip")
+        tasks = {"cuda": task,
+                 "cpu": make_cnn_task(MNIST_CNN, train, test, n, seed=0, device="cpu")}
+        init, per_step_draws = _replay_faults(n, k, 10, steps, 2,
+                                              task.examples_per_client, shapes)
+        traces = {}
+        for dev, tk in tasks.items():
+            engine = make_engine(tk, RunConfig(**replay_kw),
+                                 draws=ReplayDraws(init, per_step_draws, dev))
+            pops, orig = [], ev_mod.pop_events
+
+            def recording(ev, kk, *, use_kernel=None):
+                res = orig(ev, kk, use_kernel=use_kernel)
+                pops.append((res[1].cpu(), res[2].cpu()))
+                return res
+
+            ev_mod.pop_events = recording
+            try:
+                state, trace = engine.init(), []
+                for r in range(steps):
+                    state, aux = engine.step(state, r)
+                    trace.append({
+                        "send": aux["send"].cpu(), "ages": state["sched"]["ages"].cpu(),
+                        "version": int(state["version"]), "clock": float(state["clock"]),
+                        "retries": state["rd"]["retries"].cpu(),
+                        "t_disp": state["rd"]["t_disp"].cpu(),
+                        "faults": {f"{nm}.{key}": f[key].cpu() for nm, f in
+                                   state["faults"].items()
+                                   for key in ("prone", "injected", "exposed")},
+                        "counters": {key: float(v) for key, v in state["stats"].items()
+                                     if key in ("redispatched", "rd_expired", "updates",
+                                                "aggs", "stale_max")},
+                    })
+            finally:
+                ev_mod.pop_events = orig
+            traces[dev] = (trace, pops)
+        worst = 0.0
+        for r in range(steps):
+            (a, (ai, av)), (b, (bi, bv)) = [(t[0][r], t[1][r]) for t in
+                                            (traces["cuda"], traces["cpu"])]
+            same = (torch.equal(a["send"], b["send"]) and torch.equal(ai, bi)
+                    and torch.equal(av, bv) and torch.equal(a["ages"], b["ages"])
+                    and a["version"] == b["version"]
+                    and torch.equal(a["retries"], b["retries"])
+                    and all(torch.equal(v, b["faults"][key])
+                            for key, v in a["faults"].items())
+                    and a["counters"] == b["counters"])
+            if not same:
+                raise AssertionError(f"fault_contracts: replay step {r} discrete "
+                                     "outputs differ between the card and the CPU")
+            if abs(a["clock"] - b["clock"]) > 1e-6 * abs(b["clock"]) or not torch.allclose(
+                    a["t_disp"], b["t_disp"], rtol=1e-6):
+                raise AssertionError(f"fault_contracts: replay step {r} clock differs")
+            worst = max(worst, abs(a["clock"] - b["clock"]))
+        last = traces["cpu"][0][-1]
+        out["replay_card_equals_cpu"] = True
+        out["replay_counters"] = last["counters"]
+        out["replay_injected"] = {key: float(v) for key, v in last["faults"].items()
+                                  if key.endswith(".injected")}
+        out["replay_max_clock_diff"] = worst
+        if not (last["counters"]["rd_expired"] > 0
+                and all(v > 0 for v in out["replay_injected"].values())):
+            raise AssertionError(f"fault_contracts: the replayed run is degenerate: {last}")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    failed = [key for key in ("rate0_sync_equals_calm", "rate0_async_equals_calm",
+                              "armed_chunk_equals_per_step", "crash_restart_bitwise")
+              if not out[key]]
+    if failed:
+        raise AssertionError(f"fault_contracts: {failed} do not hold bitwise")
+    if out["rate0_sync_k1_launches"] != 2 * steps:  # calm and armed, one a round
+        raise AssertionError(f"fault_contracts: K1 launched "
+                             f"{out['rate0_sync_k1_launches']} times in 2 x {steps} rounds")
+    emit({**out, "ok": True})
+
+
+class _TF32:
+    """Inside the block, TF32 as ``tf32`` says (``{"cudnn": .., "matmul":
+    ..}``, as ``main`` reports its own), restored after: the parity phases
+    turn TF32 off for the rest of the script, and a phase timed beside
+    ``main`` or ``sync_main`` must run the same math."""
+
+    def __init__(self, torch, tf32):
+        self.torch, self.tf32 = torch, tf32
+
+    def __enter__(self):
+        b = self.torch.backends
+        self.saved = (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32)
+        b.cudnn.allow_tf32 = self.tf32["cudnn"]
+        b.cuda.matmul.allow_tf32 = self.tf32["matmul"]
+
+    def __exit__(self, *exc):
+        b = self.torch.backends
+        b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32 = self.saved
+
+
+def phase_sync_attack(torch, fedavg_reduce, tf32):
+    """``benchmarks/bench_faults.py`` part (b) at the paper's widths and the
+    sync main path's settings: a model-replacement attack (scale_attack
+    x -3 on 25% of slots) under fedavg, trimmed_mean (trim 0.35) and
+    coordinate_median, with TF32 as ``sync_main`` ran it."""
+    with _TF32(torch, tf32):
+        _sync_attack(torch, fedavg_reduce, tf32)
+
+
+def _sync_attack(torch, fedavg_reduce, tf32):
+    import dataclasses
+
+    from repro_torch.engine import make_engine
+    from repro_torch.launch import fl_train
+    from repro_torch.launch._fl_cli import build_run_config, build_task
+
+    argv = SYNC_ARGV[:-1] + [str(SYNC_ATTACK_ROUNDS)]
+    args = fl_train.parse_args(argv)
+    task = build_task(args)
+    rows = {}
+    for name, kwargs in ATTACK_AGGREGATORS:
+        cfg = dataclasses.replace(build_run_config(args, mode="sync", eval_div=30),
+                                  aggregator=name, aggregator_kwargs=kwargs, **ATTACK)
+        engine = make_engine(task, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fedavg_reduce.launches = 0
+        res, state = _run_captured(engine)
+        launches = fedavg_reduce.launches
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        steady, _ = _steady_ms(torch, engine, state, cfg.rounds, 4, cfg.eval_every)
+        last = res.records[-1]
+        rows[name] = {
+            "rounds_per_s": cfg.rounds / res.wall_time_s, "steady_ms_per_round": steady,
+            "eval_loss": last.eval_loss, "accuracy": last.accuracy,
+            "first_eval_loss": res.records[0].eval_loss,
+            "injected": res.load_stats["fault_scale_attack_injected"],
+            "k1_launches": launches, "peak_mem_gib": peak_gib,
+            **{f"agg_{s}": res.load_stats[f"agg_{s}"]
+               for s in engine.aggregator.stat_names},
+        }
+        print(f"  sync_attack {name}: eval_loss={last.eval_loss:.4f} "
+              f"acc={last.accuracy:.4f} injected={rows[name]['injected']:.0f}", flush=True)
+    fed = rows["fedavg"]["eval_loss"]
+    for name in ("trimmed_mean", "coordinate_median"):
+        loss = rows[name]["eval_loss"]
+        if not (math.isfinite(loss) and (not math.isfinite(fed) or loss < fed)):
+            raise AssertionError(f"sync_attack: {name} does not recover: eval loss "
+                                 f"{loss} vs fedavg {fed}")
+    expect = {"fedavg": SYNC_ATTACK_ROUNDS, "trimmed_mean": 0, "coordinate_median": 0}
+    if {name: row["k1_launches"] for name, row in rows.items()} != expect:
+        raise AssertionError(f"sync_attack: K1 launches {rows} != {expect}")
+    if not all(row["injected"] > 0 for row in rows.values()):
+        raise AssertionError("sync_attack: the attack never hit")
+    emit({"phase": "sync_attack", "ok": True, "argv": argv, "attack": ATTACK,
+          "rounds": SYNC_ATTACK_ROUNDS, "tf32": tf32, "aggregators": rows})
+
+
+def _order_stat_ms(torch, name, kwargs, C, params):
+    """One accumulate plus finalize of an order-statistic aggregator over a
+    (C, params) f32 cohort stack (all slots valid), beside the bytes bound
+    of one read of the stack."""
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.engine.registry import make_aggregator
+
+    agg = make_aggregator(name, **kwargs)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    g = tree_map(lambda p: torch.randn(p.shape, generator=gen, device="cuda"), params)
+    upd = tree_map(lambda p: torch.randn((C,) + tuple(p.shape), generator=gen,
+                                         device="cuda"), params)
+    w = torch.ones(C, device="cuda")
+
+    def run():
+        return agg.finalize(g, agg.accumulate(agg.init(g), upd, g, w))
+
+    numel = sum(u.numel() for u in tree_leaves(upd))
+    return {"aggregator": name, "C": C, "numel": numel,
+            "ms": cuda_ms(torch, run, calls=3, trials=3, warmup=2),
+            "bound_ms": numel * 4 / HBM_BYTES_PER_S * 1e3}
+
+
+def phase_async_chaos(torch, event_topk, fedavg_reduce, calm):
+    """``main``'s configuration with the chaos stack armed: dropout,
+    corrupt, straggler and stale_replay at rate 0.1, ``norm_clip``, and a
+    re-dispatch deadline of DEADLINE_STEPS steps of the calm run's clock;
+    the step time beside ``main``'s (bench_faults.py part (a)), with TF32 as
+    ``main`` ran it; then the order-statistic aggregators timed at the
+    fleet and sync widths."""
+    with _TF32(torch, calm["tf32"]):
+        _async_chaos(torch, event_topk, fedavg_reduce, calm)
+
+
+def _async_chaos(torch, event_topk, fedavg_reduce, calm):
+    from repro_torch.engine.config import default_cohort_width
+    from repro_torch.launch import fl_async
+
+    deadline = DEADLINE_STEPS * calm["clock_per_step"]
+    argv = (MAIN_ARGV[:-1] + [str(CHAOS_STEPS)] + CHAOS_FLAGS
+            + ["--redispatch-timeout", f"{deadline:.6g}"])
+    args = fl_async.parse_args(argv)
+    t0 = time.time()
+    task, engine = fl_async.build(args)
+    setup_s = time.time() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    event_topk.launches = fedavg_reduce.launches = 0
+    res, state = _run_captured(engine, progress=True)
+    k2, k1 = event_topk.launches, fedavg_reduce.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    fl_async.report(res, args)
+    cfg, ls = res.config, res.load_stats
+    if (k2, k1) != (cfg.rounds, cfg.rounds):
+        raise AssertionError(f"async_chaos: K2 {k2} and K1 {k1} launches in "
+                             f"{cfg.rounds} steps, expected one each a step")
+    counters = {key: ls[key] for key in ls
+                if key.startswith("fault_") or key in ("rd_expired", "redispatched")}
+    if len(counters) != 6 or not all(v > 0 for v in counters.values()):
+        raise AssertionError(f"async_chaos: a counter stayed at zero: {counters}")
+    if not math.isfinite(res.records[-1].eval_loss):
+        raise AssertionError(f"async_chaos: eval loss {res.records[-1].eval_loss}")
+    state, syncs = sync_free_steps(torch, engine, state, cfg.rounds)
+    if syncs:
+        raise AssertionError(f"async_chaos: a step synchronized with the host: {syncs}")
+    out = {"phase": "async_chaos", "ok": True, "argv": argv, "tf32": calm["tf32"],
+           "deadline_s": deadline, "calm_clock_per_step": calm["clock_per_step"],
+           "k2_launches": k2, "k1_launches": k1, "steps": cfg.rounds,
+           "steps_per_s": cfg.rounds / res.wall_time_s, "setup_s": setup_s,
+           "eval_loss": res.records[-1].eval_loss, "accuracy": res.records[-1].accuracy,
+           "counters": counters, "agg_clipped": ls["agg_clipped"],
+           "sim_time": res.wall_stats["sim_time"], "peak_mem_gib": peak_gib,
+           "host_syncs_in_2_steps": 0}
+    out.update(steady_and_profile(torch, engine, state, cfg.rounds + 2,
+                                  res.wall_time_s, match="fedavg_reduce"))
+    out["main_steady_ms_per_step"] = calm["steady_ms_per_step"]
+    out["chaos_over_main"] = out["steady_ms_per_step"] / calm["steady_ms_per_step"]
+    params = engine.eval_params(state)
+    del state, engine
+    torch.cuda.empty_cache()
+    out["order_stats"] = [
+        _order_stat_ms(torch, name, kwargs, C, params)
+        for C in (cfg.resolved_buffer_size(), default_cohort_width(100, 15))
+        for name, kwargs in ATTACK_AGGREGATORS[1:]]
+    emit(out)
 
 
 def _attn_inputs(torch, gen, shape, dtype, decode=False):
@@ -1877,11 +2301,14 @@ def main() -> int:
     entry = phase_kernel(torch, event_topk)
     k1_entry = phase_kernel_k1(torch, fedavg_reduce)
     k3_entry = phase_kernel_k3(torch, aoi_topk)
-    entry["launches"] = phase_main(torch, event_topk)
+    entry["launches"], calm = phase_main(torch, event_topk)
     k3_entry["launches"] = phase_async_oldest(torch, aoi_topk)
     k1_entry["launches"] = phase_sync_main(torch, fedavg_reduce)
     phase_parity(torch)
     phase_sync_parity(torch, fedavg_reduce)
+    phase_fault_contracts(torch, fedavg_reduce)
+    phase_sync_attack(torch, fedavg_reduce, calm["tf32"])
+    phase_async_chaos(torch, event_topk, fedavg_reduce, calm)
     k4_entry = phase_kernel_k4(torch, flash_attention)
     k5_entry = phase_kernel_k5(torch, flash_decode)
     k4_entry["launches"], k5_entry["launches"] = phase_serve_main(

@@ -29,11 +29,35 @@ Sites used by the calm sync path (``engine/sync.py``):
   ``sim.latency.simulate_sync_duration`` draws ``speed`` at init and
   ``latency_compute``/``latency_comm`` per round.
 
+Named sub-streams (``sub(name)``) keep the draws of the armed robustness
+tier off the calm stream: a fault coin drawn from the run's stream would
+shift every later ``local_perm`` draw, so a rate-0 armed run would stop
+being the calm run. The reference keeps them apart the same way, on
+dedicated key folds (105 and its sub-folds 0/1/2, 106 for re-dispatch,
+``fold_in(k_run, 2**31)`` or ``fold_in(key, 7)`` at init). Sites of the
+sub-streams, as ``ReplayDraws`` names them:
+
+  ``faults/<fault>/prone`` (uniform, init; only for ``client_frac`` < 1),
+  ``faults/<fault>/hit`` (uniform per step: ``(n,)`` at dispatch for
+  ``straggler``, ``(B,)`` at the pop for the others; not drawn at rate 1),
+  ``faults/collude/jitter`` (normal, ``(B,)``), ``faults/noise/<leaf>``
+  (normal, one per param leaf, ``<leaf>`` its path such as ``fc1/w``);
+  ``redispatch/latency_compute`` and ``redispatch/latency_comm`` (the
+  retry latency, drawn every step the deadline is armed).
+
+A replayed Bernoulli coin is the reference's ``uniform(key, shape) < p``
+(that is how ``jax.random.bernoulli`` draws), so the port compares the
+fed uniform with the rate.
+
 ``step(r)`` gives the source for step ``r``: a generator source returns
 itself (its stream simply advances), a replay source its table for ``r``.
+``GeneratorDraws.get_state()``/``set_state()`` carry every generator
+stream (the run's and each sub-stream) through a checkpoint; a replay,
+indexed by step, has none.
 """
 from __future__ import annotations
 
+import hashlib
 from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
@@ -42,16 +66,53 @@ import torch
 _TINY = float(np.finfo(np.float32).tiny)
 
 
+def _sub_seed(seed: int, name: str) -> int:
+    """Seed of the sub-stream ``name`` of a stream seeded with ``seed``: a
+    fixed function of both (not Python's salted ``hash``)."""
+    digest = hashlib.sha256(f"{seed}/{name}".encode()).digest()
+    return int.from_bytes(digest[:8], "little") & ((1 << 63) - 1)
+
+
 class GeneratorDraws:
-    """Draws from one ``torch.Generator`` seeded with ``seed`` on ``device``."""
+    """Draws from one ``torch.Generator`` seeded with ``seed`` on ``device``;
+    ``sub(name)`` is a child with its own generator, made once per name."""
 
     def __init__(self, seed: int, device):
+        self.seed = seed
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
+        self._subs: Dict[str, "GeneratorDraws"] = {}
 
     def step(self, r: int) -> "GeneratorDraws":
         return self
+
+    def sub(self, name: str) -> "GeneratorDraws":
+        """The sub-stream ``name``: the same child every call (and so every
+        step), seeded by ``_sub_seed(seed, name)``."""
+        child = self._subs.get(name)
+        if child is None:
+            child = self._subs[name] = GeneratorDraws(_sub_seed(self.seed, name),
+                                                      self.device)
+        return child
+
+    def get_state(self) -> Dict[str, torch.Generator]:
+        """A copy of every stream made so far, by path (``""`` is this
+        stream, ``"faults/dropout"`` a sub-stream of a sub-stream)."""
+        out = {"": _copy_generator(self.generator)}
+        for name, child in self._subs.items():
+            out.update({f"{name}/{k}".rstrip("/"): g
+                        for k, g in child.get_state().items()})
+        return out
+
+    def set_state(self, states: Mapping[str, torch.Generator]) -> None:
+        """Restore the streams of ``get_state`` (making any sub-stream that
+        this source has not made yet)."""
+        for path, gen in states.items():
+            node = self
+            for name in filter(None, path.split("/")):
+                node = node.sub(name)
+            node.generator.set_state(gen.get_state())
 
     def uniform(self, site: str, shape, low: float = 0.0, high: float = 1.0):
         u = torch.rand(shape, generator=self.generator, device=self.device)
@@ -93,21 +154,29 @@ class ReplayDraws:
 
     def __init__(self, init: Mapping[str, np.ndarray],
                  steps: Sequence[Mapping[str, np.ndarray]], device,
-                 _table: Optional[Mapping[str, np.ndarray]] = None):
+                 _table: Optional[Mapping[str, np.ndarray]] = None,
+                 _prefix: str = ""):
         self.device = torch.device(device)
         self._init = dict(init)
         self._steps = list(steps)
         self._table: Dict[str, np.ndarray] = dict(
             self._init if _table is None else _table
         )
+        self._prefix = _prefix
 
     def step(self, r: int) -> "ReplayDraws":
         if r >= len(self._steps):
             raise IndexError(f"replay has {len(self._steps)} steps, asked for {r}")
         return ReplayDraws(self._init, self._steps, self.device,
-                           _table=self._steps[r])
+                           _table=self._steps[r], _prefix=self._prefix)
+
+    def sub(self, name: str) -> "ReplayDraws":
+        """The same table, its sites read under ``<name>/``."""
+        return ReplayDraws(self._init, self._steps, self.device,
+                           _table=self._table, _prefix=f"{self._prefix}{name}/")
 
     def _get(self, site: str, shape, dtype):
+        site = self._prefix + site
         if site not in self._table:
             raise KeyError(f"replay was not fed draw site {site!r}; fed: "
                            f"{sorted(self._table)}")
@@ -134,3 +203,9 @@ class ReplayDraws:
 
     def categorical(self, site, probs, shape):
         return self._get(site, shape, torch.int64)
+
+
+def _copy_generator(gen: torch.Generator) -> torch.Generator:
+    out = torch.Generator(device=gen.device)
+    out.set_state(gen.get_state())
+    return out

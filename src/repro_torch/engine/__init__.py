@@ -3,8 +3,9 @@
 The same contract as ``repro.engine``: name-based registries
 (``register_policy`` / ``register_aggregator``), the ``Policy`` /
 ``Aggregator`` / ``Engine`` protocols, and ``RunConfig`` in, ``RunResult``
-out, with one JSON-safe serializer. The calm synchronous and asynchronous
-engines are ported (``SyncEngine``, ``AsyncEngine``); ``RunConfig``
+out, with one JSON-safe serializer. The synchronous and asynchronous
+engines are ported (``SyncEngine``, ``AsyncEngine``) with the robustness
+tier (faults, robust aggregators, deadline re-dispatch); ``RunConfig``
 rejects every option of a later slice.
 """
 from repro_torch.engine.registry import (  # noqa: F401
@@ -17,6 +18,7 @@ from repro_torch.engine.registry import (  # noqa: F401
 )
 from repro_torch.engine.serialize import dump_json, to_jsonable  # noqa: F401
 from repro_torch.engine.aggregators import Aggregator, staleness_weight  # noqa: F401
+from repro_torch.engine import robust  # noqa: F401  (registers robust aggregators)
 from repro_torch.engine.config import (  # noqa: F401
     RoundRecord,
     RunConfig,

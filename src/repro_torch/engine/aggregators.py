@@ -20,6 +20,9 @@ Built-ins, as in the reference:
   * ``fedbuff`` — staleness-discounted mean of *deltas* added to the
                   global params (FedBuff/FedAsync style, ``(1+s)^-a``).
   * ``fedprox`` — fedbuff with the mean delta scaled by ``1/(1+mu)``.
+
+The robust aggregators (``norm_clip``, ``trimmed_mean``,
+``coordinate_median``) live in ``engine/robust.py``.
 """
 from __future__ import annotations
 
@@ -35,15 +38,33 @@ from repro_torch.kernels import ops as kops
 
 @dataclasses.dataclass(frozen=True)
 class Aggregator:
-    """The aggregation protocol the engine dispatches through. (The
-    reference's ``additive`` flag and ``stat_names`` telemetry arrive with
-    the slices that use them: cohort sharding and robust aggregators.)"""
+    """The aggregation protocol the engines dispatch through.
+
+    ``additive`` declares, as in the reference, that the accumulator is a
+    plain sum over cohort members (``init`` is the zero element, and the
+    accumulators of two disjoint cohort slices add up to the full
+    cohort's): what a cohort-sharded merge needs (ROADMAP queue 1, slice
+    F). Every aggregator opts in explicitly; the order-statistic robust
+    aggregators do not.
+    """
 
     name: str
     weigh: Callable  # (mask bool (B,), staleness i32 (B,)) -> f32 (B,)
     init: Callable  # (global_params) -> acc
     accumulate: Callable  # (acc, updates, bases, weights) -> acc
     finalize: Callable  # (global_params, acc) -> new global_params
+    additive: bool = False
+    # scalar telemetry names the accumulator carries under acc["stats"]
+    # (e.g. norm_clip's "clipped" count). Engines surface each as an
+    # ``agg_<name>`` counter in RunResult.load_stats; () (every
+    # non-robust built-in) adds no stats key and no per-step ops.
+    stat_names: tuple = ()
+
+
+def acc_stats(acc) -> dict:
+    """The scalar telemetry dict a finished accumulator carries (empty for
+    aggregators that declare no ``stat_names``)."""
+    return acc.get("stats", {}) if isinstance(acc, dict) else {}
 
 
 def staleness_weight(s: torch.Tensor, mode: str = "poly",
@@ -93,7 +114,8 @@ def make_fedavg() -> Aggregator:
             g, acc["usum"],
         )
 
-    return Aggregator("fedavg", weigh, init, accumulate, finalize)
+    return Aggregator("fedavg", weigh, init, accumulate, finalize,
+                      additive=True)
 
 
 def _delta_aggregator(name: str, staleness_mode: str, staleness_exp: float,
@@ -133,7 +155,8 @@ def _delta_aggregator(name: str, staleness_mode: str, staleness_exp: float,
 
         return tree_map(fin, g, acc["dsum"])
 
-    return Aggregator(name, weigh, init, accumulate, finalize)
+    return Aggregator(name, weigh, init, accumulate, finalize,
+                      additive=True)
 
 
 @register_aggregator("fedbuff")

@@ -10,11 +10,16 @@ the last ``max_versions`` global models) -> aggregator
 ``weigh/init/accumulate/finalize`` over the buffered deltas -> clock/
 version advance.
 
-This is the calm path of ``repro.engine.async_engine`` (no topology,
-faults, re-dispatch or defense; ``RunConfig`` rejects those). Every tensor
-of the state lives on the task's device and no step syncs with the host:
-masked scatters go through ``sim.events.scatter_set``, and the only host
-pulls are the per-chunk aux transfer and ``finalize``.
+This is ``repro.engine.async_engine`` without topology or defense
+(``RunConfig`` rejects those). The robustness tier rides the step as in
+the reference, under the same structural rule: faults and the deadline
+re-dispatch, when armed, add their ``(n,)`` state to the engine state and
+draw from their own sub-streams of the run's source (``faults``,
+``redispatch``); absent, no state key, no draw and no op exists, so the
+engine is the calm one. Every tensor of the state lives on the task's
+device and no step syncs with the host: masked scatters go through
+``sim.events.scatter_set``, and the only host pulls are the per-chunk aux
+transfer and ``finalize``.
 
 The load metric is reported on two clocks: X in decision epochs (the
 paper's round-indexed Var[X]) and X in simulated seconds (wall-clock
@@ -35,7 +40,7 @@ from repro_torch.core.load_metric import (
 )
 from repro_torch.core.selection import Policy
 from repro_torch.core.tree import tree_map
-from repro_torch.engine.aggregators import Aggregator
+from repro_torch.engine.aggregators import Aggregator, acc_stats
 from repro_torch.engine.chunk import ChunkRunner, step_once
 from repro_torch.engine.config import RoundRecord, RunConfig, RunResult
 from repro_torch.engine.registry import make_aggregator, make_policy
@@ -52,7 +57,8 @@ def _resolved_profile(profile) -> lat_mod.LatencyProfile:
     return lat_mod.get_profile(profile)
 
 
-def _init_stats(device) -> Dict[str, torch.Tensor]:
+def _init_stats(device, redispatch: bool = False,
+                agg_stats: tuple = ()) -> Dict[str, torch.Tensor]:
     def z():
         return torch.zeros((), dtype=torch.float32, device=device)
 
@@ -64,6 +70,11 @@ def _init_stats(device) -> Dict[str, torch.Tensor]:
         "updates": z(),  # successful updates aggregated
         "aggs": z(),  # server versions produced
     }
+    if redispatch:
+        out["redispatched"] = z()  # expired dispatches re-issued
+        out["rd_expired"] = z()  # deadline expiries (incl. written off)
+    for s in agg_stats:
+        out[f"agg_{s}"] = z()  # aggregator telemetry (e.g. norm_clip)
     return out
 
 
@@ -96,8 +107,10 @@ class AsyncEngine:
         self.profile = _resolved_profile(cfg.profile)
         self.draws = draws if draws is not None else GeneratorDraws(cfg.seed,
                                                                     task.device)
+        self.fault_set = cfg.resolved_faults()
         self._init_state, core = _make_async_step(
-            task, cfg, self.policy, self.aggregator, self.profile
+            task, cfg, self.policy, self.aggregator, self.profile,
+            faults=self.fault_set,
         )
         self._chunk = ChunkRunner(
             core, aux_keys=("loss", "clock", "version", "buffer_fill")
@@ -169,6 +182,18 @@ class AsyncEngine:
             load_stats = empirical_load_stats(sel_hist)
         else:
             load_stats = selection_stats_from_accum(state["load_acc"])
+        load_stats = dict(load_stats)
+        if "faults" in state:
+            for nm, cnt in self.fault_set.counters(state["faults"]).items():
+                load_stats[f"fault_{nm}_injected"] = cnt
+        if "redispatched" in st:
+            load_stats["redispatched"] = int(st["redispatched"])
+            load_stats["rd_expired"] = int(st["rd_expired"])
+        for s in self.aggregator.stat_names:
+            load_stats[f"agg_{s}"] = float(st[f"agg_{s}"])
+        fault_exposure = None
+        if "faults" in state and self.cfg.fault_exposure:
+            fault_exposure = self.fault_set.exposure(state["faults"])
         return RunResult(
             config=self.cfg,
             records=records,
@@ -177,18 +202,40 @@ class AsyncEngine:
             wall_stats=wall_stats,
             params=state["params"],
             wall_time_s=wall_time_s,
+            fault_exposure=fault_exposure,
         )
 
 
 def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
-                     agg: Aggregator, profile: lat_mod.LatencyProfile):
+                     agg: Aggregator, profile: lat_mod.LatencyProfile,
+                     faults=None):
     """Builds ``(init_state, step)`` with ``step(state, draws) -> (state,
     aux)``, the function ``ChunkRunner`` loops over; ``draws`` is the
-    source of this step's draws."""
+    source of this step's draws.
+
+    ``faults`` (a ``repro_torch.faults.FaultSet``) and a non-zero
+    ``cfg.redispatch_timeout`` follow the reference's structural gating:
+    armed, they add their ``(n,)`` state and draw from dedicated
+    sub-streams (``faults``: the reference's fold 105 with sub-folds
+    0 dispatch / 1 pop / 2 corruption noise; ``redispatch``: its folds
+    106/107); absent, no state key, no draw and no op exists.
+    """
     n = cfg.n_clients
     B = cfg.resolved_buffer_size()
     H = cfg.max_versions
     dev = task.device
+    have_faults = faults is not None
+    rd_on = (cfg.redispatch_timeout or 0) > 0
+    kill_on = have_faults and faults.has("kill")
+    corrupt_on = have_faults and (faults.has("scale") or faults.has("noise"))
+    collude_on = have_faults and faults.has("collude")
+    replay_on = have_faults and faults.has("replay")
+    if have_faults:
+        from repro_torch.faults.inject import collude_updates, corrupt_updates
+    if rd_on:
+        # re-dispatch deadlines reuse the heartbeat liveness predicate:
+        # "no completion for longer than the timeout" is the same signal
+        from repro_torch.topo import heartbeat as hb_mod
     local_update = make_local_update(
         task.loss_fn, cfg.local_epochs, cfg.batch_size, task.examples_per_client
     )
@@ -196,7 +243,7 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
     neg_inf = torch.tensor(float("-inf"), device=dev)
 
     def init_state(params, sched_state, draws):
-        return {
+        state = {
             "params": params,
             # ring buffer of the last H global models; slot v % H = version v
             "hist": tree_map(
@@ -207,8 +254,17 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
             "speed": lat_mod.client_speed(draws, n, profile),
             "clock": torch.zeros((), dtype=torch.float32, device=dev),
             "version": torch.zeros((), dtype=torch.int32, device=dev),
-            "stats": _init_stats(dev),
+            "stats": _init_stats(dev, redispatch=rd_on,
+                                 agg_stats=agg.stat_names),
         }
+        if have_faults:
+            state["faults"] = faults.init(draws.sub("faults"))
+        if rd_on:
+            state["rd"] = {
+                "t_disp": torch.zeros((n,), dtype=torch.float32, device=dev),
+                "retries": torch.zeros((n,), dtype=torch.int32, device=dev),
+            }
+        return state
 
     def step(state, draws):
         ev, sched, stats = state["ev"], state["sched"], state["stats"]
@@ -228,11 +284,52 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
 
         # --- dispatch: sample wall-clock latencies, mark in flight
         latency = lat_mod.sample_latency(draws, profile, state["speed"])
+        if have_faults:
+            fstate = state["faults"]
+            fdraws = draws.sub("faults")
+            if faults.has_dispatch:
+                fstate, latency = faults.on_dispatch(fstate, fdraws, send,
+                                                     latency)
         dropped = lat_mod.sample_dropout(draws, profile, n)
         ev = ev_mod.schedule_completions(ev, send, clock, latency, version, dropped)
 
+        # --- deadline-based re-dispatch of expired in-flight dispatches:
+        # a dispatch the server has not heard back from within the
+        # timeout is re-issued at the current version with a fresh
+        # latency (the redispatch sub-stream), at most
+        # redispatch_retries times — then written off (t_done=inf frees
+        # the client to be selected again). The original dispatch's
+        # dropout coin is kept: a retry re-attempts delivery, not the
+        # client's fate.
+        if rd_on:
+            rd_t = torch.where(send, clock, state["rd"]["t_disp"])
+            rd_cnt = torch.where(send, 0, state["rd"]["retries"])
+            inflight = ~torch.isinf(ev["t_done"])
+            exp = inflight & hb_mod.expired(rd_t, clock,
+                                            float(cfg.redispatch_timeout))
+            retry = exp & (rd_cnt < cfg.redispatch_retries)
+            give_up = exp & ~retry
+            rd_lat = lat_mod.sample_latency(draws.sub("redispatch"), profile,
+                                            state["speed"])
+            ev = {
+                **ev,
+                "t_done": torch.where(
+                    retry, clock + rd_lat,
+                    torch.where(give_up, torch.inf, ev["t_done"]),
+                ),
+                "disp_ver": torch.where(retry, version, ev["disp_ver"]),
+            }
+            rd = {
+                "t_disp": torch.where(retry, clock, rd_t),
+                "retries": rd_cnt + retry.to(torch.int32),
+            }
+            rd_retried = retry.to(torch.float32).sum()
+            rd_expired = exp.to(torch.float32).sum()
+
         # --- pop the next B completions, advance the simulated clock
         t_ev, idx, valid, ev = ev_mod.pop_events(ev, B, use_kernel=cfg.use_kernel)
+        if have_faults and faults.has_pop:
+            fstate, eff = faults.on_pop(fstate, fdraws, idx, valid)
         new_clock = torch.maximum(
             clock, torch.max(torch.where(valid, t_ev, neg_inf))
         )
@@ -248,17 +345,34 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
         disp_ver = ev["disp_ver"][idx]
         # versions older than the ring are trained from the oldest retained
         # model; staleness for weighting still uses the true dispatch version
-        read_ver = torch.clamp(
-            disp_ver, min=torch.clamp(version - (H - 1), min=0), max=version
-        )
+        oldest = torch.clamp(version - (H - 1), min=0)
+        read_ver = torch.clamp(disp_ver, min=oldest, max=version)
+        if replay_on:
+            # stale replay: hit slots read an older retained version than
+            # they were dispatched (shift 0 elsewhere is exact identity on
+            # ints); the staleness *weight* below still sees the honest
+            # dispatch version — precisely the attack
+            read_ver = torch.maximum(read_ver - eff.replay_shift, oldest)
         slot = (read_ver % H).long()
         disp_params = tree_map(lambda h: h[slot], state["hist"])
         shards = {k: a[idx] for k, a in task.client_data.items()}
         lr = lr_fn(torch.clamp(disp_ver, min=0))
         updated, losses = local_update(disp_params, shards, draws, lr)
+        if corrupt_on:
+            # missed slots keep their exact values (per-slot where inside
+            # corrupt_updates), so a rate-0 set is bitwise identity
+            updated = corrupt_updates(updated, disp_params, eff, fdraws,
+                                      faults.has("scale"), faults.has("noise"))
+        if collude_on:
+            # after corrupt: a coalition member's replacement is
+            # authoritative over any scale/noise it also drew
+            updated = collude_updates(updated, disp_params, eff)
 
         # --- buffered aggregation of deltas through the aggregator seam
         succ = valid & ~ev["dropped"][idx]
+        if kill_on:
+            # mid-round dropout: the update never arrived
+            succ = succ & ~eff.kill
         staleness = torch.clamp(version - disp_ver, min=0)
         w = agg.weigh(succ, staleness)
         wsum = w.sum()
@@ -266,6 +380,7 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
         denom = torch.clamp(wsum, min=1e-9)
         acc = agg.accumulate(agg.init(state["params"]), updated, disp_params, w)
         params = agg.finalize(state["params"], acc)
+        agg_tel = acc_stats(acc)
         version = version + has.to(torch.int32)
         wslot = (version % H).long().view(1)
         hist = tree_map(lambda h, p: h.index_copy(0, wslot, p[None]),
@@ -302,11 +417,20 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
             "updates": stats["updates"] + succ_f.sum(),
             "aggs": stats["aggs"] + has.to(torch.float32),
         }
+        if rd_on:
+            stats["redispatched"] = state["stats"]["redispatched"] + rd_retried
+            stats["rd_expired"] = state["stats"]["rd_expired"] + rd_expired
+        for s in agg.stat_names:
+            stats[f"agg_{s}"] = state["stats"][f"agg_{s}"] + agg_tel[s]
         new_state = {
             **state,
             "params": params, "hist": hist, "sched": sched, "ev": ev,
             "clock": new_clock, "version": version, "stats": stats,
         }
+        if have_faults:
+            new_state["faults"] = fstate
+        if rd_on:
+            new_state["rd"] = rd
         aux = {
             "send": send,
             "loss": mean_loss,

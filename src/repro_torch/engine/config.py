@@ -5,11 +5,13 @@ validates and serializes the same way in both packages; ``RunResult`` /
 ``RoundRecord`` are the typed output schema; ``chunk_plan`` splits a run
 into chunks that never straddle an eval step.
 
-The port runs the calm synchronous and asynchronous paths (ROADMAP
-queue 1, slices A and B). A config that asks for anything else — a
-topology, faults, re-dispatch, defense, a device mesh or a JAX PRNG
-implementation — raises ``NotImplementedError`` naming the slice that
-brings it, in either mode; no option is silently ignored.
+The port runs the synchronous and asynchronous paths (ROADMAP queue 1,
+slices A and B) with the robustness tier (slice C): faults, robust
+aggregators, deadline re-dispatch and ``fault_exposure``, validated as the
+reference validates them. A config that asks for anything else — a
+topology, defense, a device mesh or a JAX PRNG implementation — raises
+``NotImplementedError`` naming the slice that brings it, in either mode;
+no option is silently ignored.
 
 This module is dependency-free (dataclasses + numpy only).
 """
@@ -76,17 +78,30 @@ class RunConfig:
     mesh_shards: Optional[int] = None  # slice F
     topology: Any = None  # slice D
     topology_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
-    faults: Any = ()  # slice C
-    fault_rate: float = 0.05
+
+    # --- fault injection (repro_torch.faults) ---
+    # fault names from the @register_fault registry ("dropout,corrupt" or
+    # a sequence). Empty -> no fault state, no draws, no ops: the engines
+    # are structurally the calm run.
+    faults: Any = ()
+    fault_rate: float = 0.05  # per-event injection probability
+    # per-fault kwargs, keyed by fault name: {"corrupt": {"sigma": 2.0}}
     fault_kwargs: Dict[str, Dict[str, Any]] = dataclasses.field(
         default_factory=dict
     )
-    redispatch_timeout: Optional[float] = None  # slice C
+    # deadline-based re-dispatch (async engine): a dispatch still in
+    # flight this many simulated seconds later is re-issued at the
+    # current version with a fresh latency draw, at most
+    # redispatch_retries times; then it is written off. None/0 -> the
+    # expiry check and its (n,) state are absent entirely.
+    redispatch_timeout: Optional[float] = None
     redispatch_retries: int = 1
     shard_cohort: bool = False  # slice F
     defense: bool = False  # slice E
     defense_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
-    fault_exposure: bool = False  # slice C
+    # surface per-client fault-exposure counts ((n,) per armed fault) in
+    # RunResult.fault_exposure
+    fault_exposure: bool = False
 
     def __post_init__(self) -> None:
         if self.mode not in MODES:
@@ -106,6 +121,53 @@ class RunConfig:
             raise ValueError(
                 f"steps_per_chunk must be >= 1, got {self.steps_per_chunk}"
             )
+        names = self.fault_names()
+        if names:
+            if not 0.0 <= self.fault_rate <= 1.0:
+                raise ValueError(
+                    f"fault_rate must be in [0, 1], got {self.fault_rate}"
+                )
+            # the static built-in list plus plugins, so a typo fails at
+            # config construction
+            from repro_torch.faults.registry import known_fault_names
+
+            known = known_fault_names()
+            bad = [nm for nm in names if nm not in known]
+            if bad:
+                raise ValueError(
+                    f"unknown fault(s) {', '.join(repr(b) for b in bad)}; "
+                    f"registered: {', '.join(known)}"
+                )
+            stray = set(self.fault_kwargs) - set(names)
+            if stray:
+                raise ValueError(
+                    f"fault_kwargs for fault(s) not in faults: "
+                    f"{', '.join(sorted(stray))}"
+                )
+        elif self.fault_kwargs:
+            raise ValueError("fault_kwargs given without faults")
+        if self.fault_exposure and not names:
+            raise ValueError(
+                "fault_exposure=True records per-client fault hits, but "
+                "no faults are configured — arm faults or drop the flag"
+            )
+        if self.redispatch_timeout is not None:
+            if self.mode != "async":
+                raise ValueError(
+                    "redispatch_timeout re-issues expired dispatches on "
+                    "the async engine's event clock; sync rounds have no "
+                    "in-flight dispatches — drop it or use mode='async'"
+                )
+            if self.redispatch_timeout <= 0:
+                raise ValueError(
+                    f"redispatch_timeout must be > 0 (or None to disable),"
+                    f" got {self.redispatch_timeout}"
+                )
+            if self.redispatch_retries < 0:
+                raise ValueError(
+                    f"redispatch_retries must be >= 0, got "
+                    f"{self.redispatch_retries}"
+                )
 
     def cohort_width(self) -> int:
         """Padded cohort buffer width for variable-size policies."""
@@ -129,15 +191,38 @@ class RunConfig:
     def profile_name(self) -> str:
         return self.profile if isinstance(self.profile, str) else self.profile.name
 
+    def fault_names(self) -> tuple:
+        """Normalized tuple of configured fault names ("a,b" or any
+        sequence of names; () / None / "" -> no faults)."""
+        if not self.faults:
+            return ()
+        if isinstance(self.faults, str):
+            return tuple(
+                nm.strip() for nm in self.faults.split(",") if nm.strip()
+            )
+        return tuple(self.faults)
+
+    def resolved_faults(self):
+        """The ``repro_torch.faults.FaultSet`` this run injects, or None
+        when no faults are configured (lazy import: it brings torch)."""
+        names = self.fault_names()
+        if not names:
+            return None
+        from repro_torch.faults import FaultSet, make_fault
+
+        return FaultSet(
+            make_fault(
+                nm, self.n_clients, self.fault_rate,
+                **dict(self.fault_kwargs.get(nm, {})),
+            )
+            for nm in names
+        )
+
 
 def _slice_guard(cfg: "RunConfig") -> None:
     """Reject every option of the reference that the port does not run yet,
     naming the ROADMAP queue-1 slice that brings it."""
     later = (
-        ("faults", bool(cfg.faults) or bool(cfg.fault_kwargs)
-         or cfg.fault_exposure, "slice C (robustness tier)"),
-        ("redispatch_timeout", cfg.redispatch_timeout is not None,
-         "slice C (robustness tier)"),
         ("topology", cfg.topology is not None or bool(cfg.topology_kwargs),
          "slice D (topology)"),
         ("defense", cfg.defense or bool(cfg.defense_kwargs), "slice E (defense)"),

@@ -7,14 +7,20 @@ every slot from the current global params -> aggregator
 ``fedavg`` aggregator the cohort sum is the ``fedavg_reduce`` kernel
 (K1).
 
-This is the calm path of ``repro.engine.sync`` (no topology, faults,
-defense or cohort sharding; ``RunConfig`` rejects those). The global
-params are not materialized ``width`` times per round: the cohort sees
-them as stride-0 views (``fl.server.broadcast_to_cohort``), the first SGD
-step writes the per-slot copies, and aggregators receive the unstacked
-global tree as ``bases``. Every tensor of the state lives on the task's
-device, and no round syncs with the host: the learning rate comes from
-the policy state's round counter on the device.
+This is ``repro.engine.sync`` without topology, defense or cohort
+sharding (``RunConfig`` rejects those). Faults ride the round as in the
+reference: the fault set's state is part of the engine state, its draws
+come from the ``faults`` sub-stream of the run's source (so a rate-0
+armed run is bitwise the calm run), and the popped cohort goes through
+``on_pop``, then ``corrupt_updates``, then ``collude_updates``, then the
+kill mask on the weights. Robust aggregators' telemetry (``stat_names``)
+accumulates in ``agg_stats``. The global params are not materialized
+``width`` times per round: the cohort sees them as stride-0 views
+(``fl.server.broadcast_to_cohort``), the first SGD step writes the
+per-slot copies, and aggregators receive the unstacked global tree as
+``bases``. Every tensor of the state lives on the task's device, and no
+round syncs with the host: the learning rate comes from the policy
+state's round counter on the device.
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ from repro_torch.core.load_metric import (
     selection_stats_from_accum,
 )
 from repro_torch.core.selection import Policy
-from repro_torch.engine.aggregators import Aggregator
+from repro_torch.engine.aggregators import Aggregator, acc_stats
 from repro_torch.engine.chunk import ChunkRunner, step_once
 from repro_torch.engine.config import RoundRecord, RunConfig, RunResult
 from repro_torch.engine.registry import make_aggregator, make_policy
@@ -67,24 +73,51 @@ class SyncEngine:
         )
         self.draws = draws if draws is not None else GeneratorDraws(cfg.seed,
                                                                     task.device)
-        core = _make_round_core(task, cfg, self.policy, self.aggregator)
+        self.fault_set = cfg.resolved_faults()
+        if self.fault_set is not None:
+            only = self.fault_set.async_only_names()
+            if only:
+                raise ValueError(
+                    f"fault(s) {', '.join(only)} act on the async engine's "
+                    "wall clock / version ring; sync rounds have neither — "
+                    "drop them or use mode='async'"
+                )
+        core = _make_round_core(task, cfg, self.policy, self.aggregator,
+                                faults=self.fault_set)
+        have_faults = self.fault_set is not None
+        stat_names = self.aggregator.stat_names
 
         def step(state, draws):
-            params, sched, selected, loss = core(state["params"], state["sched"],
-                                                 draws)
-            return {"params": params, "sched": sched}, {"send": selected,
-                                                        "loss": loss}
+            params, sched, selected, loss, fstate, tel = core(
+                state["params"], state["sched"], draws,
+                state["faults"] if have_faults else None)
+            out = {"params": params, "sched": sched}
+            if have_faults:
+                out["faults"] = fstate
+            if stat_names:
+                out["agg_stats"] = {s: state["agg_stats"][s] + tel[s]
+                                    for s in stat_names}
+            return out, {"send": selected, "loss": loss}
 
         self._chunk = ChunkRunner(step, aux_keys=("loss",))
 
     def init(self) -> Dict:
         cfg, d = self.cfg, self.draws
-        return {
+        dev = self.task.device
+        state = {
             "params": self.task.init(d),
             "sched": self.policy.init(d, cfg.n_clients),
-            "load_acc": init_selection_accum(cfg.n_clients, cfg.k,
-                                             self.task.device),
+            "load_acc": init_selection_accum(cfg.n_clients, cfg.k, dev),
         }
+        if self.fault_set is not None:
+            # the faults sub-stream: the calm stream's draws never move
+            state["faults"] = self.fault_set.init(d.sub("faults"))
+        if self.aggregator.stat_names:
+            state["agg_stats"] = {
+                s: torch.zeros((), dtype=torch.float32, device=dev)
+                for s in self.aggregator.stat_names
+            }
+        return state
 
     def step(self, state: Dict, r: int):
         return step_once(self._chunk, state, self.draws, r)
@@ -117,6 +150,16 @@ class SyncEngine:
             load_stats = empirical_load_stats(sel_hist)
         else:
             load_stats = selection_stats_from_accum(state["load_acc"])
+        load_stats = dict(load_stats)
+        if "faults" in state:
+            for nm, cnt in self.fault_set.counters(state["faults"]).items():
+                load_stats[f"fault_{nm}_injected"] = cnt
+        if "agg_stats" in state:
+            for s in self.aggregator.stat_names:
+                load_stats[f"agg_{s}"] = float(state["agg_stats"][s])
+        fault_exposure = None
+        if "faults" in state and self.cfg.fault_exposure:
+            fault_exposure = self.fault_set.exposure(state["faults"])
         return RunResult(
             config=self.cfg,
             records=records,
@@ -125,36 +168,63 @@ class SyncEngine:
             wall_stats=None,
             params=state["params"],
             wall_time_s=wall_time_s,
+            fault_exposure=fault_exposure,
         )
 
 
 def _make_round_core(task: FLTask, cfg: RunConfig, policy: Policy,
-                     agg: Aggregator):
-    """The per-round function ``round_fn(params, sched_state, draws) ->
-    (params, sched_state, selected, mean_loss)``, shared by the engine's
-    chunk loop and the legacy ``fl.rounds.make_round_fn``.
+                     agg: Aggregator, faults=None):
+    """The per-round function ``round_fn(params, sched_state, draws,
+    fstate=None) -> (params, sched_state, selected, mean_loss, fstate,
+    agg_telemetry)``, shared by the engine's chunk loop and the legacy
+    ``fl.rounds.make_round_fn``.
 
     ``draws`` is the round's source: the policy draws at ``select``, the
     local update one ``local_perm`` stream per cohort slot over all
     ``width`` slots, padding included (the reference's
     ``split(k_local, width)``).
+
+    ``faults`` (a ``repro_torch.faults.FaultSet``) threads the fault state
+    through the round, drawing from ``draws.sub("faults")`` (the
+    reference's fold 105 off ``k_sel``: sub-fold 1 for ``on_pop``, 2 for
+    the corruption noise); with no faults armed nothing is drawn there and
+    the round is the faultless one.
     """
     width = cfg.cohort_width() if not policy.exact_k else cfg.k
     local_update = make_local_update(
         task.loss_fn, cfg.local_epochs, cfg.batch_size, task.examples_per_client
     )
     lr_fn = exponential_decay(cfg.lr0, cfg.lr_decay)
+    have_faults = faults is not None
+    kill_on = have_faults and faults.has("kill")
+    corrupt_on = have_faults and (faults.has("scale") or faults.has("noise"))
+    collude_on = have_faults and faults.has("collude")
+    if have_faults:
+        from repro_torch.faults.inject import collude_updates, corrupt_updates
 
-    def round_fn(params, sched_state, draws):
+    def round_fn(params, sched_state, draws, fstate=None):
         selected, sched_state = policy.step(sched_state, draws)
         idx, mask = cohort_indices(selected, width)
+        if have_faults:
+            fdraws = draws.sub("faults")
+            fstate, eff = faults.on_pop(fstate, fdraws, idx, mask > 0)
         shards = {k: a[idx] for k, a in task.client_data.items()}
         lr = lr_fn(sched_state["round"] - 1).expand(width)
         updated, losses = local_update(
             broadcast_to_cohort(params, width), shards, draws, lr
         )
+        if corrupt_on:
+            updated = corrupt_updates(updated, params, eff, fdraws,
+                                      faults.has("scale"), faults.has("noise"))
+        if collude_on:
+            # after corrupt: the coalition's replacement is authoritative
+            updated = collude_updates(updated, params, eff)
+        valid = mask > 0
+        if kill_on:
+            # a dropped client's update never reaches the server: weight 0
+            valid = valid & ~eff.kill
         # sync cohorts are never stale: staleness is identically zero
-        w = agg.weigh(mask > 0, torch.zeros_like(idx))
+        w = agg.weigh(valid, torch.zeros_like(idx))
         acc = agg.accumulate(agg.init(params), updated, params, w)
         params = agg.finalize(params, acc)
         wsum = w.sum()
@@ -162,6 +232,6 @@ def _make_round_core(task: FLTask, cfg: RunConfig, policy: Policy,
         mean_loss = torch.where(wsum > 0,
                                 torch.sum(losses * w) / torch.clamp(wsum, min=1.0),
                                 torch.full_like(wsum, float("nan")))
-        return params, sched_state, selected, mean_loss
+        return params, sched_state, selected, mean_loss, fstate, acc_stats(acc)
 
     return round_fn

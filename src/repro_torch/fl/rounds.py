@@ -23,7 +23,13 @@ def make_round_fn(task: FLTask, fl: FLConfig, policy: Policy):
     from repro_torch.engine.sync import _make_round_core
 
     cfg = run_config_from_legacy(fl)
-    return _make_round_core(task, cfg, policy, make_aggregator("fedavg"))
+    core = _make_round_core(task, cfg, policy, make_aggregator("fedavg"))
+
+    def round_fn(params, sched_state, draws):
+        # the fault- and telemetry-free 4-tuple view of the round core
+        return core(params, sched_state, draws)[:4]
+
+    return round_fn
 
 
 def run_training(

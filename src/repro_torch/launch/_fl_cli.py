@@ -1,9 +1,12 @@
 """CLI plumbing for the port's federated training driver.
 
 The flags are those of ``repro.launch._fl_cli`` (plus ``--device``), so a
-command line moves between the packages unchanged. Flags of options the
-port does not run yet reach ``RunConfig``, which raises
-``NotImplementedError`` naming the ROADMAP slice that brings them.
+command line moves between the packages unchanged. The robustness tier's
+flags (``--faults``, ``--fault-rate``, ``--robust-agg``,
+``--redispatch-timeout``, ``--redispatch-retries``) run as in the
+reference. Flags of options the port does not run yet (topology, defense,
+device meshes) reach ``RunConfig``, which raises ``NotImplementedError``
+naming the ROADMAP slice that brings them.
 """
 from __future__ import annotations
 
@@ -48,6 +51,26 @@ def add_common_args(ap: argparse.ArgumentParser, defaults: Dict[str, Any]) -> No
                     help="skip materializing the (rounds, n) selection "
                          "matrix; load stats come from the device-resident "
                          "accumulators")
+    # --- fault injection & graceful degradation (repro_torch.faults) ---
+    ap.add_argument("--faults", default=None, metavar="NAME[,NAME...]",
+                    help="comma-separated fault injections from the "
+                         "@register_fault registry (e.g. dropout,corrupt); "
+                         "omitting the flag is bitwise the fault-free run")
+    ap.add_argument("--fault-rate", type=float, default=0.05,
+                    help="per-event injection probability shared by every "
+                         "armed fault (default 0.05)")
+    ap.add_argument("--robust-agg", default=None, metavar="NAME",
+                    help="shorthand for --aggregator with a robust rule "
+                         "(norm_clip | trimmed_mean | coordinate_median); "
+                         "conflicts with --aggregator")
+    ap.add_argument("--redispatch-timeout", type=float, default=None,
+                    metavar="SECONDS",
+                    help="deadline-based re-dispatch: an in-flight client "
+                         "past this simulated-seconds deadline is re-sent "
+                         "the current model (async engine only)")
+    ap.add_argument("--redispatch-retries", type=int, default=1,
+                    help="re-dispatch attempts per dispatch before the "
+                         "slot is abandoned (default 1)")
     # options of later slices: accepted, then rejected by RunConfig
     ap.add_argument("--rng-impl", default=None)
     ap.add_argument("--mesh-shards", type=int, default=None, metavar="D")
@@ -55,11 +78,6 @@ def add_common_args(ap: argparse.ArgumentParser, defaults: Dict[str, Any]) -> No
     ap.add_argument("--topology", default=None, metavar="NAME")
     ap.add_argument("--tiers", default=None, metavar="E0[,E1,...]")
     ap.add_argument("--heartbeat-timeout", type=float, default=None)
-    ap.add_argument("--faults", default=None, metavar="NAME[,NAME...]")
-    ap.add_argument("--fault-rate", type=float, default=0.05)
-    ap.add_argument("--robust-agg", default=None, metavar="NAME")
-    ap.add_argument("--redispatch-timeout", type=float, default=None)
-    ap.add_argument("--redispatch-retries", type=int, default=1)
     ap.add_argument("--defense", action="store_true")
     ap.add_argument("--quarantine-threshold", type=float, default=None)
     ap.add_argument("--mtd-window", type=int, default=None)
@@ -87,21 +105,41 @@ def build_task(args: argparse.Namespace) -> FLTask:
     )
 
 
+def fault_args(args: argparse.Namespace) -> Dict[str, Any]:
+    """``faults``/``redispatch_*`` RunConfig fields from the shared fault
+    flags; ``--robust-agg`` is folded into ``args.aggregator`` so the
+    drivers' aggregator handling sees one source of truth."""
+    if args.robust_agg is not None:
+        if args.aggregator is not None:
+            raise SystemExit(
+                "--robust-agg is shorthand for --aggregator: pass one"
+            )
+        args.aggregator = args.robust_agg
+    kw: Dict[str, Any] = {}
+    if args.faults is not None:
+        from repro_torch.faults import known_fault_names
+
+        names = tuple(s.strip() for s in args.faults.split(",") if s.strip())
+        unknown = [n for n in names if n not in known_fault_names()]
+        if unknown:
+            raise SystemExit(
+                f"unknown fault(s) {', '.join(unknown)}; registered: "
+                f"{', '.join(known_fault_names())}"
+            )
+        kw["faults"] = names
+        kw["fault_rate"] = args.fault_rate
+    if args.redispatch_timeout is not None:
+        kw["redispatch_timeout"] = args.redispatch_timeout
+        kw["redispatch_retries"] = args.redispatch_retries
+    return kw
+
+
 def _later_slice_args(args: argparse.Namespace) -> Dict[str, Any]:
     """RunConfig fields of the flags of later slices, so that RunConfig
     rejects them by name."""
-    if args.robust_agg is not None:
-        raise NotImplementedError(
-            "--robust-agg (robust aggregators) is not ported to repro_torch "
-            "yet: it arrives with ROADMAP queue 1, slice C (robustness tier)"
-        )
     kw: Dict[str, Any] = {}
     if args.topology is not None or args.tiers or args.heartbeat_timeout:
         kw["topology"] = args.topology or "star"
-    if args.faults:
-        kw["faults"] = args.faults
-    if args.redispatch_timeout is not None:
-        kw["redispatch_timeout"] = args.redispatch_timeout
     if (args.defense or args.quarantine_threshold is not None
             or args.mtd_window is not None or args.detector or args.collusion):
         kw["defense"] = True
@@ -110,6 +148,7 @@ def _later_slice_args(args: argparse.Namespace) -> Dict[str, Any]:
 
 def build_run_config(args: argparse.Namespace, mode: str, eval_div: int,
                      **extra) -> RunConfig:
+    extra = {**fault_args(args), **_later_slice_args(args), **extra}
     return RunConfig(
         mode=mode,
         n_clients=args.clients, k=args.k, m=args.m, policy=args.policy,
@@ -122,9 +161,28 @@ def build_run_config(args: argparse.Namespace, mode: str, eval_div: int,
         rng_impl=args.rng_impl,
         mesh_shards=args.mesh_shards,
         shard_cohort=args.shard_cohort,
-        **_later_slice_args(args),
         **extra,
     )
+
+
+def print_robustness_stats(load_stats) -> None:
+    """The robustness tier's counters, as the reference's drivers print
+    them: injections per fault, the deadline re-dispatch, and the robust
+    aggregator's telemetry."""
+    ls = load_stats or {}
+    injected = {k[len("fault_"):-len("_injected")]: v for k, v in ls.items()
+                if k.startswith("fault_") and k.endswith("_injected")}
+    if injected:
+        print("faults injected: " + ", ".join(
+            f"{nm}={int(v)}" for nm, v in injected.items()))
+    if "redispatched" in ls:
+        print(f"re-dispatch: {ls['redispatched']} re-sent, "
+              f"{ls['rd_expired']} deadline hits")
+    agg_stats = {k[len("agg_"):]: v for k, v in ls.items()
+                 if k.startswith("agg_")}
+    if agg_stats:
+        print("robust aggregation: " + ", ".join(
+            f"{nm}={int(v)}" for nm, v in agg_stats.items()))
 
 
 def write_result(path: Optional[str], result, args: argparse.Namespace) -> None:

@@ -16,6 +16,9 @@ Examples:
       --data-scale 5 --clients 16384 --k 256 --rounds 20   # fleet scale, K2
   PYTHONPATH=src python -m repro_torch.launch.fl_async --device cpu \\
       --clients 20 --k 4 --rounds 4 --data-scale 0.05     # CPU smoke run
+  PYTHONPATH=src python -m repro_torch.launch.fl_async --faults dropout,corrupt \\
+      --fault-rate 0.1 --robust-agg trimmed_mean \\
+      --redispatch-timeout 30         # chaos run with graceful degradation
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from repro_torch.launch._fl_cli import (
     add_common_args,
     build_run_config,
     build_task,
+    print_robustness_stats,
     write_result,
 )
 from repro_torch.sim import PROFILES
@@ -61,7 +65,8 @@ def build(args: argparse.Namespace):
         aggregator_kwargs={
             "staleness_mode": "const" if args.staleness_weight == 0 else "poly",
             "staleness_exp": args.staleness_weight,
-        } if args.aggregator in (None, "fedbuff", "fedprox") else {},
+        } if (args.aggregator in (None, "fedbuff", "fedprox", "norm_clip")
+              and args.robust_agg in (None, "norm_clip")) else {},
         buffer_size=args.buffer_size,
         max_versions=args.max_versions,
         profile=args.latency_profile,
@@ -84,6 +89,7 @@ def report(res, args: argparse.Namespace) -> None:
           f"Var random={load_metric.random_selection_var(cfg.n_clients, cfg.k):.3f} "
           f"Var markov*={load_metric.optimal_var(cfg.n_clients, cfg.k, cfg.m):.3f}")
     print(f"staleness: mean={ws['mean_staleness']:.2f} max={ws['max_staleness']}")
+    print_robustness_stats(res.load_stats)
     if res.load_stats:
         es = res.load_stats
         print(f"dispatch cohorts: mean={es['mean_cohort']:.2f} std={es['std_cohort']:.2f} "

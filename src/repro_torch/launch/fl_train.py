@@ -16,6 +16,9 @@ Examples:
       --data-scale 5 --policy markov --rounds 60   # MNIST at its real size
   PYTHONPATH=src python -m repro_torch.launch.fl_train --device cpu \\
       --clients 12 --k 4 --rounds 4 --data-scale 0.02   # CPU smoke run
+  PYTHONPATH=src python -m repro_torch.launch.fl_train --data-scale 5 \\
+      --lr 0.02 --rounds 20 --faults scale_attack --fault-rate 0.25 \\
+      --robust-agg coordinate_median     # model-replacement attack, defended
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from repro_torch.launch._fl_cli import (
     add_common_args,
     build_run_config,
     build_task,
+    print_robustness_stats,
     write_result,
 )
 
@@ -61,6 +65,7 @@ def report(res, args: argparse.Namespace) -> None:
           f"Var markov*={load_metric.optimal_var(cfg.n_clients, cfg.k, cfg.m):.3f}")
     print(f"cohort   : mean={stats['mean_cohort']:.2f} std={stats['std_cohort']:.2f} "
           f"range [{stats['min_cohort']}, {stats['max_cohort']}]")
+    print_robustness_stats(stats)
     if args.target_acc:
         r = rounds_to_target(res.history(), args.target_acc)
         print(f"rounds to {args.target_acc:.0%}: {r}")

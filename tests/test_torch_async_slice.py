@@ -233,8 +233,8 @@ def test_run_result_matches(runs):
 
 @pytest.mark.parametrize("option", [
     dict(mode="sync", topology="hierarchical"), dict(topology="hierarchical"),
-    dict(faults="dropout"),
-    dict(redispatch_timeout=30.0), dict(defense=True), dict(mesh_shards=0),
+    dict(topology_kwargs={"tiers": (4,)}),
+    dict(defense_kwargs={"threshold": 0.5}), dict(defense=True), dict(mesh_shards=0),
     dict(shard_cohort=True), dict(rng_impl="rbg"),
 ])
 def test_out_of_slice_options_raise(option):
@@ -251,11 +251,42 @@ def test_driver_runs_on_cpu_and_rejects_later_slices(capsys):
     out = capsys.readouterr().out
     assert "== load metric X (wall clock) ==" in out
     assert len(res.records) == 2 and np.isfinite(res.records[-1].eval_loss)
-    for flags in (["--arch", "tinyllama-1.1b"], ["--faults", "dropout"],
+    for flags in (["--arch", "tinyllama-1.1b"],
                   ["--topology", "hierarchical"], ["--defense"]):
         with pytest.raises(NotImplementedError):
             fl_async.main(["--device", "cpu", "--clients", "12", "--k", "4",
                            "--rounds", "1", "--data-scale", "0.02", *flags])
+
+
+@pytest.mark.parametrize("driver", ["fl_async", "fl_train"])
+def test_drivers_run_the_robustness_tier_on_cpu(capsys, driver):
+    """The fault flags run in both drivers (slice C) and the drivers print
+    the counters as the reference's do."""
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.launch.{driver}")
+    flags = ["--device", "cpu", "--clients", "12", "--k", "4", "--rounds", "2",
+             "--data-scale", "0.02", "--local-epochs", "1",
+             "--faults", "dropout,corrupt", "--fault-rate", "0.1",
+             "--robust-agg", "trimmed_mean"]
+    if driver == "fl_async":
+        flags += ["--redispatch-timeout", "30"]
+    res = mod.main(flags)
+    out = capsys.readouterr().out
+    assert "faults injected: dropout=" in out and ", corrupt=" in out
+    assert "robust aggregation: unweighted=" in out
+    assert res.config.resolved_aggregator() == "trimmed_mean"
+    assert res.config.fault_names() == ("dropout", "corrupt")
+    assert res.config.aggregator_kwargs == {}
+    assert "fault_dropout_injected" in res.load_stats
+    if driver == "fl_async":
+        assert "re-dispatch: " in out and " deadline hits" in out
+        assert res.config.redispatch_timeout == 30.0
+        assert "rd_expired" in res.load_stats
+    with pytest.raises(SystemExit, match="shorthand"):
+        mod.main(flags + ["--aggregator", "fedavg"])
+    with pytest.raises(SystemExit, match="unknown fault"):
+        mod.main(["--device", "cpu", "--faults", "nope"])
 
 
 @pytest.mark.parametrize("policy", ["markov", "random", "oldest_age"])

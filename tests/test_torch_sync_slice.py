@@ -419,8 +419,8 @@ def test_legacy_async_wrapper_is_the_engine_run(small_task):
 
 
 @pytest.mark.parametrize("option", [
-    dict(topology="hierarchical"), dict(faults="dropout"), dict(defense=True),
-    dict(mesh_shards=0), dict(shard_cohort=True),
+    dict(topology="hierarchical"), dict(defense_kwargs={"threshold": 0.5}),
+    dict(defense=True), dict(mesh_shards=0), dict(shard_cohort=True),
 ])
 def test_later_slice_options_raise_under_sync(option):
     with pytest.raises(NotImplementedError, match="slice"):
@@ -441,7 +441,7 @@ def test_fl_train_driver_runs_on_cpu(capsys):
     assert res.config.eval_every == 1  # rounds // 30, at least 1
     assert len(res.records) == 3 and np.isfinite(res.records[-1].eval_loss)
     assert k1.launches == before  # on the CPU, K1's plain version
-    for flags in (["--faults", "dropout"], ["--topology", "hierarchical"],
+    for flags in (["--mesh-shards", "0"], ["--topology", "hierarchical"],
                   ["--defense"], ["--arch", "tinyllama-1.1b"]):
         with pytest.raises(NotImplementedError):
             fl_train.main(["--device", "cpu", "--clients", "12", "--k", "4",

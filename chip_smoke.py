@@ -794,6 +794,7 @@ def phase_kernel_k1(torch, fedavg_reduce):
                             2 * C * N / FP32_OPS_PER_S) * 1e3,
         }
 
+    segmented = _k1_segmented(torch, fedavg_reduce, leaves)
     rows = [timed(*case) for case in main_cases + [fleet_case]]
     per_round = rows[:len(main_cases)]
     # one sync round: one grouped launch for the eight leaves; the plain
@@ -806,7 +807,7 @@ def phase_kernel_k1(torch, fedavg_reduce):
         "name": "fedavg_reduce", "route": "cuda",
         "source": "src/repro_torch/csrc/fedavg_reduce.cu",
         "replaces": "src/repro/kernels/fedavg_reduce.py:35",
-        "max_abs_err": max_err,
+        "max_abs_err": max(max_err, segmented["segmented_max_abs_err"]),
         "ms": cuda_ms(torch, run),
         "plain_ms": cuda_ms(torch, lambda: [fedavg_reduce.fedavg_reduce_plain(P, round_w)
                                             for P in round_stacks]),
@@ -821,8 +822,112 @@ def phase_kernel_k1(torch, fedavg_reduce):
           "single_leaf_launches_ms": cuda_ms(torch, singles_run),
           "single_leaf_launches_device_ms": device_ms(torch, singles_run),
           "library_device_ms": device_ms(torch, mv_run),
-          "rows": rows, "max_abs_err_vs_f64": f64_err})
+          "rows": rows, "max_abs_err_vs_f64": f64_err, **segmented})
     return entry
+
+
+def _k1_segmented(torch, fedavg_reduce, leaves):
+    """K1's segmented route (the tier merges of the tiered aggregation)
+    against its plain version on the card: each case within K1's tolerance
+    of ``segment_reduce_plain`` (NaN positions equal), launches bitwise
+    repeatable; then ``async_hier``'s tier 0 timed: the (256, paper CNN)
+    delta stack over 64 nodes in one launch for the eight leaves, beside the
+    flat launch on the same stack, the plain version, a one-hot ``torch.mm``
+    and the bytes bound."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    B, E0 = FLEET[1], 64
+
+    def case(name, C, N, E, offset=0):
+        P = torch.randn(C * N + offset, generator=gen, device="cuda")[offset:].view(C, N)
+        w = torch.rand(C, generator=gen, device="cuda") + 0.1
+        seg = torch.randint(0, E, (C,), generator=gen, device="cuda", dtype=torch.int32)
+        if name == "one_node":
+            seg.zero_()
+        elif name == "own_node":
+            seg = torch.arange(C, device="cuda", dtype=torch.int32)
+        elif name == "empty_node":
+            seg = torch.where(seg == 3, 2, seg)
+        elif name == "padded":
+            w[C - 40:] = 0.0
+            seg[C - 40:] = 0
+        elif name == "nan_row":
+            P[11, 5] = float("nan")
+        return name, P, w, seg, E
+
+    cases = [case("one_node", B, 5120, 1), case("own_node", B, 1024, B),
+             case("nodes8", B, 5120, 8), case("nodes64", B, 5120, E0),
+             case("empty_node", B, 4096, 8), case("padded", B, 4096, E0),
+             case("nan_row", B, 4096, 8), case("n_not_mult4", B, 1001, E0),
+             case("unaligned", B, 4096, E0, offset=1)]
+    if cases[-1][1].data_ptr() % 16 == 0:
+        raise AssertionError("the unaligned segmented case is aligned")
+    worst = 0.0
+    for name, P, w, seg, E in cases:
+        out = fedavg_reduce.fedavg_reduce_leaves([P], w, seg, E)[0]
+        again = fedavg_reduce.fedavg_reduce_leaves([P], w, seg, E)[0]
+        plain = fedavg_reduce.segment_reduce_plain(P, w, seg, E)
+        scale = fedavg_reduce.segment_reduce_plain(P.abs().nan_to_num(), w.abs(), seg, E)
+        torch.cuda.synchronize()
+        if not torch.equal(out.view(torch.int32), again.view(torch.int32)):
+            raise AssertionError(f"K1 segmented launches differ bitwise: {name}")
+        if not torch.equal(out.isnan(), plain.isnan()):
+            raise AssertionError(f"K1 segmented NaNs differ from the plain version: {name}")
+        err = (out - plain).abs().nan_to_num()
+        if bool((err > K1_RTOL * scale + K1_ATOL).any()):
+            raise AssertionError(f"K1 segmented route disagrees with its plain version: "
+                                 f"{name}")
+        worst = max(worst, float(err.max()))
+        if name == "nan_row":
+            rows = out.isnan().any(dim=1).tolist()
+            if rows != [e == int(seg[11]) for e in range(E)]:
+                raise AssertionError(f"K1 segmented route: the NaN left its segment: {rows}")
+        if name == "empty_node" and not bool((out[3] == 0).all()):
+            raise AssertionError("K1 segmented route: an empty segment is not 0")
+    # async_hier's tier 0: the fedbuff delta stacks of the paper CNN's leaves
+    stacks = [torch.randn((B, n), generator=gen, device="cuda") for n in leaves]
+    w = torch.rand(B, generator=gen, device="cuda")
+    seg = torch.sort(torch.randint(0, E0, (B,), generator=gen, device="cuda",
+                                   dtype=torch.int32)).values
+    run = lambda: fedavg_reduce.fedavg_reduce_leaves(stacks, w, seg, E0)  # noqa: E731
+    before = fedavg_reduce.launches
+    outs = run()
+    tier0_launches = fedavg_reduce.launches - before
+    for P, out in zip(stacks, outs):
+        plain = fedavg_reduce.segment_reduce_plain(P, w, seg, E0)
+        scale = fedavg_reduce.segment_reduce_plain(P.abs(), w, seg, E0)
+        err = (out - plain).abs()
+        if bool((err > K1_RTOL * scale + K1_ATOL).any()):
+            raise AssertionError("K1 segmented route disagrees at async_hier's tier 0")
+        worst = max(worst, float(err.max()))
+    if tier0_launches != 1:
+        raise AssertionError(f"K1 segmented: {tier0_launches} launches for the tree")
+    onehot = [(torch.arange(E0, device="cuda")[:, None] == seg[None, :]).float() * w]
+    numel = sum(leaves)
+    timing = {
+        "shape": [B, numel], "nodes": E0, "launches_per_call": tier0_launches,
+        "ms": cuda_ms(torch, run, calls=20),
+        "device_ms": device_ms(torch, run),
+        "flat_ms": cuda_ms(torch, lambda: fedavg_reduce.fedavg_reduce_leaves(stacks, w),
+                           calls=20),
+        "flat_device_ms": device_ms(torch, lambda: fedavg_reduce.fedavg_reduce_leaves(
+            stacks, w)),
+        "plain_ms": cuda_ms(torch, lambda: [fedavg_reduce.segment_reduce_plain(
+            P, w, seg, E0) for P in stacks], calls=5, trials=3, warmup=2),
+        "library_ms": _mm_f32_ms(torch, onehot[0], stacks),
+        # the stack read once, the (E, N) sums written once, w and seg read
+        "bound_ms": (B * numel + E0 * numel + 2 * B) * 4 / HBM_BYTES_PER_S * 1e3,
+        "flat_bound_ms": (B * numel + numel + B) * 4 / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library": "torch.mm of the (64, 256) one-hot weight matrix, f32 (TF32 off)",
+    }
+    return {"segmented_cases": [c[0] for c in cases], "segmented_max_abs_err": worst,
+            "segmented_bitwise_repeat": True, "segmented_tier0": timing}
+
+
+def _mm_f32_ms(torch, W, stacks):
+    """``cuda_ms`` of ``torch.mm(W, P)`` over the stacks in full f32."""
+    with _TF32(torch, {"cudnn": torch.backends.cudnn.allow_tf32, "matmul": False}):
+        return cuda_ms(torch, lambda: [torch.mm(W, P) for P in stacks], calls=20)
 
 
 def phase_sync_main(torch, fedavg_reduce):
@@ -1349,6 +1454,297 @@ def _async_chaos(torch, event_topk, fedavg_reduce, calm):
         for C in (cfg.resolved_buffer_size(), default_cohort_width(100, 15))
         for name, kwargs in ATTACK_AGGREGATORS[1:]]
     emit(out)
+
+
+# --- slice D: aggregation topologies -----------------------------------------
+
+HIER_FLAGS = ["--topology", "hierarchical", "--tiers", "64,8"]
+SYNC_HIER_FLAGS = ["--topology", "hierarchical", "--tiers", "10,2"]
+SYNC_HIER_ROUNDS = 20
+TOPO_STEPS = 4  # topo_contracts' steps (6 for the crash-restart)
+TOPO_HB = 5.0  # topo_contracts' heartbeat: about the median latency with 3 hops
+TOPO_KW = {"tiers": (4, 2), "heartbeat_timeout": TOPO_HB}
+
+
+def _replay_hops(per_step, n, tiers, seed=2):
+    """The hop sites of a hierarchy over ``tiers`` added to each step's
+    replayed draws: ``hop/0`` per client, ``hop/<i>`` per tier-(i-1) node."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    for st in per_step:
+        for i, size in enumerate((n,) + tuple(tiers)):
+            st[f"hop/{i}/latency_compute"] = rng.standard_normal(size).astype(np.float32)
+            st[f"hop/{i}/latency_comm"] = rng.exponential(size=size).astype(np.float32)
+    return per_step
+
+
+def phase_topo_contracts(torch, fedavg_reduce):
+    """Slice D's bitwise contracts on the card, cuDNN deterministic inside
+    (restored after): a star equals no topology (sync and async), a tiered
+    ``run_chunk`` equals its steps, crash-restart under a hierarchy with a
+    heartbeat, and one replayed tiered async run equal to the CPU port's in
+    every discrete output."""
+    import tempfile
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs.paper_cnn import MNIST_CNN
+    from repro_torch.core.draws import ReplayDraws
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.data.synthetic import load_dataset
+    from repro_torch.engine import RunConfig, make_engine
+    from repro_torch.fl import make_cnn_task
+    from repro_torch.sim import events as ev_mod
+
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        n, k, steps = FAULT_N, FAULT_K, TOPO_STEPS
+        train, test = load_dataset("mnist", seed=0, scale=0.02)
+        task = make_cnn_task(MNIST_CNN, train, test, n, seed=0, device="cuda")
+        base = dict(n_clients=n, k=k, m=10, policy="markov", rounds=steps,
+                    local_epochs=2, batch_size=50, lr0=0.02, seed=0)
+        asyn = dict(base, mode="async", profile="lognormal")
+        sync = dict(base, mode="sync")
+        hier = dict(topology="hierarchical", topology_kwargs=TOPO_KW)
+        out = {"phase": "topo_contracts", "n": n, "k": k, "steps": steps,
+               "topology": RunConfig(**asyn, **hier).topology_name(),
+               "cnn": "paper-cnn-mnist (full widths)", "cudnn_deterministic": True}
+
+        def lockstep(kw_a, kw_b):
+            """Two engines stepped side by side: send masks, losses and the
+            final state bitwise."""
+            ea, eb = make_engine(task, RunConfig(**kw_a)), make_engine(task, RunConfig(**kw_b))
+            sa, sb = ea.init(), eb.init()
+            same = True
+            for r in range(steps):
+                sa, aa = ea.step(sa, r)
+                sb, ab = eb.step(sb, r)
+                same &= torch.equal(aa["send"], ab["send"]) and torch.equal(
+                    aa["loss"].nan_to_num(-1.0), ab["loss"].nan_to_num(-1.0))
+            return same and not _mismatches(torch, sa, sb)
+
+        out["star_equals_none_sync"] = lockstep(sync, dict(sync, topology="star"))
+        out["star_equals_none_async"] = lockstep(asyn, dict(asyn, topology="star"))
+
+        def chunk_vs_steps(kw):
+            per_step = make_engine(task, RunConfig(**kw))
+            st = per_step.init()
+            for r in range(steps):
+                st, _ = per_step.step(st, r)
+            chunked = make_engine(task, RunConfig(**kw))
+            sc, _ = chunked.run_chunk(chunked.init(), 0, steps, False)
+            return st, not _mismatches(torch, st, sc)
+
+        k1_before = fedavg_reduce.launches
+        _, out["tiered_chunk_equals_per_step_sync"] = chunk_vs_steps(
+            dict(sync, topology="hierarchical", topology_kwargs={"tiers": (4, 2)}))
+        out["tiered_sync_k1_launches"] = fedavg_reduce.launches - k1_before
+        st, out["tiered_chunk_equals_per_step_async"] = chunk_vs_steps(
+            dict(asyn, aggregator="norm_clip", **hier))
+        out["tiered_async_hb_expired"] = float(st["stats"]["hb_expired"])
+
+        # crash-restart: 3 steps, checkpoint, a fresh engine resumes for 3
+        crash_kw = dict(asyn, rounds=6, redispatch_timeout=2.0, **hier)
+        full_eng = make_engine(task, RunConfig(**crash_kw))
+        full, _ = full_eng.run_chunk(full_eng.init(), 0, 6, False)
+        crashed = make_engine(task, RunConfig(**crash_kw))
+        half, _ = crashed.run_chunk(crashed.init(), 0, 3, False)
+        with tempfile.TemporaryDirectory() as d:
+            tree = {"state": half, "draws": crashed.draws.get_state()}
+            save_checkpoint(d, tree, step=3)
+            restored, step = load_checkpoint(d, tree)
+        restarted = make_engine(task, RunConfig(**crash_kw))
+        restarted.draws.set_state(restored["draws"])
+        resumed, _ = restarted.run_chunk(restored["state"], step, 3, False)
+        out["crash_restart_bitwise"] = not _mismatches(torch, full, resumed)
+
+        # one replayed tiered run: the card's discrete outputs equal the CPU's
+        shapes = {p[:-2]: tuple(t.shape) for p, t in tree_paths(full["params"])
+                  if p.endswith("/w")}
+        tasks = {"cuda": task,
+                 "cpu": make_cnn_task(MNIST_CNN, train, test, n, seed=0, device="cpu")}
+        init, per_step_draws = _replay(n, k, 10, steps, 2, task.examples_per_client,
+                                       shapes)
+        per_step_draws = _replay_hops(per_step_draws, n, TOPO_KW["tiers"])
+        traces = {}
+        for dev, tk in tasks.items():
+            engine = make_engine(tk, RunConfig(**asyn, **hier),
+                                 draws=ReplayDraws(init, per_step_draws, dev))
+            pops, orig = [], ev_mod.pop_events
+
+            def recording(ev, kk, *, use_kernel=None):
+                res = orig(ev, kk, use_kernel=use_kernel)
+                pops.append((res[1].cpu(), res[2].cpu()))
+                return res
+
+            ev_mod.pop_events = recording
+            try:
+                state, trace = engine.init(), []
+                for r in range(steps):
+                    state, aux = engine.step(state, r)
+                    trace.append({
+                        "send": aux["send"].cpu(), "ages": state["sched"]["ages"].cpu(),
+                        "version": int(state["version"]), "clock": float(state["clock"]),
+                        "tier_acc": {key: v.cpu() for key, v in state["tier_acc"].items()},
+                        "last_beat": state["hb"]["last_beat"].cpu(),
+                        "counters": {key: float(v) for key, v in state["stats"].items()
+                                     if key in ("hb_expired", "updates", "aggs",
+                                                "stale_max", "stale_cnt")},
+                    })
+            finally:
+                ev_mod.pop_events = orig
+            traces[dev] = (trace, pops)
+        worst = 0.0
+        for r in range(steps):
+            (a, (ai, av)), (b, (bi, bv)) = [(t[0][r], t[1][r]) for t in
+                                            (traces["cuda"], traces["cpu"])]
+            same = (torch.equal(a["send"], b["send"]) and torch.equal(ai, bi)
+                    and torch.equal(av, bv) and torch.equal(a["ages"], b["ages"])
+                    and a["version"] == b["version"] and a["counters"] == b["counters"]
+                    and all(torch.equal(v, b["tier_acc"][key])
+                            for key, v in a["tier_acc"].items()))
+            if not same:
+                raise AssertionError(f"topo_contracts: replay step {r} discrete "
+                                     "outputs differ between the card and the CPU")
+            if abs(a["clock"] - b["clock"]) > 1e-6 * abs(b["clock"]) or not torch.allclose(
+                    a["last_beat"], b["last_beat"], rtol=1e-6):
+                raise AssertionError(f"topo_contracts: replay step {r} clock differs")
+            worst = max(worst, abs(a["clock"] - b["clock"]))
+        last = traces["cpu"][0][-1]
+        out["replay_card_equals_cpu"] = True
+        out["replay_counters"] = last["counters"]
+        out["replay_max_clock_diff"] = worst
+        if not (last["counters"]["hb_expired"] > 0 and last["counters"]["updates"] > 0):
+            raise AssertionError(f"topo_contracts: the replayed run is degenerate: {last}")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    failed = [key for key in ("star_equals_none_sync", "star_equals_none_async",
+                              "tiered_chunk_equals_per_step_sync",
+                              "tiered_chunk_equals_per_step_async",
+                              "crash_restart_bitwise") if not out[key]]
+    if failed:
+        raise AssertionError(f"topo_contracts: {failed} do not hold bitwise")
+    if out["tiered_sync_k1_launches"] != 2 * 2 * steps:  # 2 engines, tiers 0 and 1
+        raise AssertionError(f"topo_contracts: K1 launched "
+                             f"{out['tiered_sync_k1_launches']} times in 2 x {steps} "
+                             "tiered rounds, expected two a round")
+    emit({**out, "ok": True})
+
+
+def phase_async_hier(torch, event_topk, fedavg_reduce, calm):
+    """``main``'s configuration under ``--topology hierarchical --tiers
+    64,8`` and a heartbeat of DEADLINE_STEPS steps of ``main``'s simulated
+    clock, 20 steps, with TF32 as ``main`` ran it."""
+    with _TF32(torch, calm["tf32"]):
+        return _async_hier(torch, event_topk, fedavg_reduce, calm)
+
+
+def _async_hier(torch, event_topk, fedavg_reduce, calm):
+    from repro_torch.launch import fl_async
+
+    timeout = DEADLINE_STEPS * calm["clock_per_step"]
+    argv = MAIN_ARGV + HIER_FLAGS + ["--heartbeat-timeout", f"{timeout:.6g}"]
+    args = fl_async.parse_args(argv)
+    t0 = time.time()
+    task, engine = fl_async.build(args)
+    setup_s = time.time() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    event_topk.launches = fedavg_reduce.launches = 0
+    res, state = _run_captured(engine, progress=True)
+    k2, k1 = event_topk.launches, fedavg_reduce.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    fl_async.report(res, args)
+    cfg, ls, ws = res.config, res.load_stats, res.wall_stats
+    topo = cfg.resolved_topology()
+    if (k2, k1) != (cfg.rounds, 2 * cfg.rounds):
+        raise AssertionError(f"async_hier: K2 {k2} and K1 {k1} launches in {cfg.rounds} "
+                             "steps, expected one K2 and two K1 (tiers 0 and 1) a step")
+    off = [p for p, t in _state_tensors(state)
+           if not (isinstance(t, torch.Tensor) and t.is_cuda)]
+    if off:
+        raise AssertionError(f"async_hier: engine state off the GPU: {off}")
+    tiers = {key: ls[key] for key in ("tier_num_samples", "tier_mean_X", "tier_var_X")}
+    if any(len(v) != topo.tier_sizes[0] for v in tiers.values()):
+        raise AssertionError(f"async_hier: tier entries {tiers}")
+    if not 0 < sum(tiers["tier_num_samples"]) == ls["num_samples"]:
+        raise AssertionError(f"async_hier: tier samples {sum(tiers['tier_num_samples'])} "
+                             f"vs the run's {ls['num_samples']}")
+    if not ws["hb_expired"] > 0:
+        raise AssertionError(f"async_hier: the heartbeat ({timeout} s) never fired")
+    evals = [r.eval_loss for r in res.records]
+    if not all(map(math.isfinite, evals)) or not ws["updates_applied"] > 0:
+        raise AssertionError(f"async_hier: eval losses {evals}, "
+                             f"{ws['updates_applied']} updates")
+    state, syncs = sync_free_steps(torch, engine, state, cfg.rounds)
+    if syncs:
+        raise AssertionError(f"async_hier: a step synchronized with the host: {syncs}")
+    out = {"phase": "async_hier", "ok": True, "argv": argv, "tf32": calm["tf32"],
+           "topology": cfg.topology_name(), "heartbeat_timeout_s": timeout,
+           "calm_clock_per_step": calm["clock_per_step"],
+           "k2_launches": k2, "k1_launches": k1, "steps": cfg.rounds,
+           "steps_per_s": cfg.rounds / res.wall_time_s, "setup_s": setup_s,
+           "eval_loss": evals[-1], "accuracy": res.records[-1].accuracy,
+           "hb_expired": ws["hb_expired"], "updates_applied": ws["updates_applied"],
+           "sim_time": ws["sim_time"], "main_sim_time": 20 * calm["clock_per_step"],
+           "num_samples": ls["num_samples"], **tiers,
+           "tier_nodes_without_samples": sum(c == 0 for c in tiers["tier_num_samples"]),
+           "peak_mem_gib": peak_gib, "host_syncs_in_2_steps": 0}
+    out.update(steady_and_profile(torch, engine, state, cfg.rounds + 2,
+                                  res.wall_time_s, match="fedavg_reduce"))
+    out["main_steady_ms_per_step"] = calm["steady_ms_per_step"]
+    out["hier_over_main"] = out["steady_ms_per_step"] / calm["steady_ms_per_step"]
+    emit(out)
+    return k1
+
+
+def phase_sync_hier(torch, fedavg_reduce, tf32):
+    """``sync_main`` under ``--topology hierarchical --tiers 10,2``,
+    SYNC_HIER_ROUNDS rounds, with TF32 as ``sync_main`` ran it."""
+    with _TF32(torch, tf32):
+        return _sync_hier(torch, fedavg_reduce, tf32)
+
+
+def _sync_hier(torch, fedavg_reduce, tf32):
+    from repro_torch.launch import fl_train
+
+    argv = SYNC_ARGV[:-1] + [str(SYNC_HIER_ROUNDS)] + SYNC_HIER_FLAGS
+    args = fl_train.parse_args(argv)
+    t0 = time.time()
+    task, engine = fl_train.build(args)
+    setup_s = time.time() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fedavg_reduce.launches = 0
+    res, state = _run_captured(engine, progress=True)
+    launches = fedavg_reduce.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    fl_train.report(res, args)
+    cfg, ls = res.config, res.load_stats
+    if launches != 2 * cfg.rounds:
+        raise AssertionError(f"sync_hier: K1 launched {launches} times in {cfg.rounds} "
+                             "rounds, expected two a round (tiers 0 and 1)")
+    accs = [r.accuracy for r in res.records]
+    evals = [r.eval_loss for r in res.records]
+    if not (all(map(math.isfinite, evals)) and accs[-1] > accs[0]
+            and evals[-1] < evals[0]):
+        raise AssertionError(f"sync_hier: did not learn: accuracy {accs}, eval {evals}")
+    if len(ls["tier_var_X"]) != 10 or sum(ls["tier_num_samples"]) != ls["num_samples"]:
+        raise AssertionError(f"sync_hier: tier stats {ls}")
+    state, syncs = sync_free_steps(torch, engine, state, cfg.rounds)
+    if syncs:
+        raise AssertionError(f"sync_hier: a round synchronized with the host: {syncs}")
+    steady, _ = _steady_ms(torch, engine, state, cfg.rounds + 2, 4, cfg.eval_every)
+    emit({"phase": "sync_hier", "ok": True, "argv": argv, "tf32": tf32,
+          "topology": cfg.topology_name(), "rounds": cfg.rounds,
+          "kernel_launches": launches, "rounds_per_s": cfg.rounds / res.wall_time_s,
+          "steady_ms_per_round": steady, "setup_s": setup_s,
+          "eval_loss": evals[-1], "first_eval_loss": evals[0], "accuracy": accs[-1],
+          "first_accuracy": accs[0], "var_X": ls["var_X"], "x_samples": ls["num_samples"],
+          "tier_var_X": ls["tier_var_X"], "tier_num_samples": ls["tier_num_samples"],
+          "peak_mem_gib": peak_gib, "host_syncs_in_2_rounds": 0})
+    return launches
 
 
 def _attn_inputs(torch, gen, shape, dtype, decode=False):
@@ -2309,6 +2705,9 @@ def main() -> int:
     phase_fault_contracts(torch, fedavg_reduce)
     phase_sync_attack(torch, fedavg_reduce, calm["tf32"])
     phase_async_chaos(torch, event_topk, fedavg_reduce, calm)
+    phase_topo_contracts(torch, fedavg_reduce)
+    k1_entry["launches"] += phase_async_hier(torch, event_topk, fedavg_reduce, calm)
+    k1_entry["launches"] += phase_sync_hier(torch, fedavg_reduce, calm["tf32"])
     k4_entry = phase_kernel_k4(torch, flash_attention)
     k5_entry = phase_kernel_k5(torch, flash_decode)
     k4_entry["launches"], k5_entry["launches"] = phase_serve_main(

@@ -33,7 +33,8 @@ Named sub-streams (``sub(name)``) keep the draws of the armed robustness
 tier off the calm stream: a fault coin drawn from the run's stream would
 shift every later ``local_perm`` draw, so a rate-0 armed run would stop
 being the calm run. The reference keeps them apart the same way, on
-dedicated key folds (105 and its sub-folds 0/1/2, 106 for re-dispatch,
+dedicated key folds (104 for the hop latency, 105 and its sub-folds 0/1/2,
+106/107 for re-dispatch,
 ``fold_in(k_run, 2**31)`` or ``fold_in(key, 7)`` at init). Sites of the
 sub-streams, as ``ReplayDraws`` names them:
 
@@ -43,7 +44,13 @@ sub-streams, as ``ReplayDraws`` names them:
   ``faults/collude/jitter`` (normal, ``(B,)``), ``faults/noise/<leaf>``
   (normal, one per param leaf, ``<leaf>`` its path such as ``fc1/w``);
   ``redispatch/latency_compute`` and ``redispatch/latency_comm`` (the
-  retry latency, drawn every step the deadline is armed).
+  retry latency, drawn every step the deadline is armed);
+  ``hop/<i>/latency_compute`` and ``hop/<i>/latency_comm`` (a multi-tier
+  topology's per-hop latency, every step: hop ``i`` = 0 is the client ->
+  tier-0 link, ``(n,)``; hop ``i`` >= 1 the ``(E,)`` draws of the tier
+  above, or of gossip round ``i - 1``; the reference's ``i``-th split of
+  its fold-104 key) and ``redispatch/hop/<i>/...`` (the same for a
+  re-dispatch, its fold 107).
 
 A replayed Bernoulli coin is the reference's ``uniform(key, shape) < p``
 (that is how ``jax.random.bernoulli`` draws), so the port compares the

@@ -309,3 +309,113 @@ def selection_stats_from_accum(acc) -> dict:
         "min_cohort": min_c,
         "max_cohort": max_c,
     }
+
+
+# ---------------------------------------------------------------------------
+# Per-tier accumulators: the same X moments, grouped by aggregation node
+# ---------------------------------------------------------------------------
+#
+# Under a multi-tier topology (repro_torch.topo) the fleet-wide Var[X] hides
+# imbalance between tiers. The grouped accumulator keeps the selection-gap
+# moments per tier-0 node, (E,) vectors instead of scalars, with the same
+# Kahan compensation. The reference segment-sums the (n,) increments into
+# (E,); here the client -> node map (``Topology.assign``) is static and
+# contiguous, so each node's clients are one block of the fleet and the
+# segment sum is a gather into an (E, block) table summed on its rows in a
+# fixed order: no atomics, so runs repeat bitwise (the f32 sum of squared
+# gaps is order-exact only below 2^24).
+
+_TIER_MOMENTS = ("gap_sum", "gap_sumsq", "gap_cnt")
+
+
+def tier_blocks(group_of_client, device="cpu"):
+    """The (E, L) gather table of a contiguous client -> node map: row ``e``
+    lists node ``e``'s clients in order, padded with ``n`` (an index past
+    the fleet that ``block_sums`` points at a zero)."""
+    import torch
+
+    g = np.asarray(group_of_client)
+    n = g.shape[0]
+    e = int(g.max()) + 1 if n else 0
+    if np.any(np.diff(g) < 0):
+        raise ValueError("tier_blocks needs a contiguous (non-decreasing) map")
+    starts = np.searchsorted(g, np.arange(e), side="left")
+    ends = np.searchsorted(g, np.arange(e), side="right")
+    width = int((ends - starts).max()) if e else 0
+    table = np.full((e, width), n, np.int64)
+    for i, (s, t) in enumerate(zip(starts, ends)):
+        table[i, :t - s] = np.arange(s, t)
+    return torch.as_tensor(table, device=device)
+
+
+def block_sums(values, table):
+    """(E,) per-node sums of the (n,) ``values`` over ``tier_blocks``'s
+    table, each a fixed-order row sum."""
+    import torch
+
+    padded = torch.cat([values, values.new_zeros((1,))])
+    return padded[table].sum(dim=1)
+
+
+def init_tier_accum(n: int, n_groups: int, device="cpu"):
+    """Fresh per-tier gap accumulator: ``n`` clients over ``n_groups``
+    tier-0 aggregation nodes."""
+    import torch
+
+    acc = {
+        "last_sel": torch.full((n,), -1, dtype=torch.int32, device=device),
+        "steps": torch.zeros((), dtype=torch.int32, device=device),
+    }
+    for name in _TIER_MOMENTS:
+        acc[name] = torch.zeros((n_groups,), dtype=torch.float32, device=device)
+        acc["c_" + name] = torch.zeros((n_groups,), dtype=torch.float32,
+                                       device=device)
+    return acc
+
+
+def update_tier_accum(acc, selected, blocks):
+    """Fold one round's (n,) bool selection into the per-tier moments;
+    ``blocks`` is ``tier_blocks(Topology.assign(n))`` on the fleet's
+    device."""
+    import torch
+
+    r = acc["steps"]
+    has_gap = selected & (acc["last_sel"] >= 0)
+    gap = torch.where(has_gap, r - acc["last_sel"], 0).to(torch.float32)
+    increments = {
+        "gap_sum": block_sums(gap, blocks),
+        "gap_sumsq": block_sums(gap * gap, blocks),
+        "gap_cnt": block_sums(has_gap.to(torch.float32), blocks),
+    }
+    out = {
+        "last_sel": torch.where(selected, r, acc["last_sel"]),
+        "steps": r + 1,
+    }
+    for name, inc in increments.items():
+        out[name], out["c_" + name] = _kahan_add(
+            acc[name], acc["c_" + name], inc
+        )
+    return out
+
+
+def tier_stats_from_accum(acc) -> dict:
+    """Per-tier-node mean/var of X as plain lists (JSON-safe), NaN where
+    a node has no gap samples yet."""
+    a = {
+        name: np.asarray(acc[name].cpu(), np.float64)
+        - np.asarray(acc["c_" + name].cpu(), np.float64)
+        for name in _TIER_MOMENTS
+    }
+    cnt = a["gap_cnt"]
+    with np.errstate(invalid="ignore", divide="ignore"):
+        mean = np.where(cnt > 0, a["gap_sum"] / cnt, np.nan)
+        var = np.where(
+            cnt > 0,
+            np.maximum(a["gap_sumsq"] / np.maximum(cnt, 1.0) - mean * mean, 0.0),
+            np.nan,
+        )
+    return {
+        "tier_num_samples": [int(c) for c in cnt],
+        "tier_mean_X": [float(v) for v in mean],
+        "tier_var_X": [float(v) for v in var],
+    }

@@ -28,6 +28,21 @@
 // words of a row, so each row read is coalesced; there is no reuse to keep
 // on chip beyond the weights. The seven small leaves of the paper CNN are
 // launch cost, not bytes: one launch for the tree pays it once.
+//
+// Segmented route (the tiered aggregation of repro_torch.topo). With a
+// (C,) int32 segment map seg and E segments, each leaf's output is (E, N):
+//   out[e, n] = sum over c ascending with seg[c] == e of w[c] * P[c, n].
+// The grid's y axis is the segment: a CTA owns (column tile, leaf, e). It
+// stages w in shared memory CHUNK at a time and compacts the chunk's rows
+// of segment e into a shared list, in ascending c (a ballot prefix per
+// warp), then walks only that list: it loads only its own segment's rows,
+// and its work per chunk is the CTA's share of the stack plus one pass over
+// the map. Rows of other segments are skipped, not multiplied by 0, so a
+// NaN stays in its segment; a segment with no row writes exactly 0. Every
+// (e, n) is still a fixed-order f32 FMA sum with no atomics, and the whole
+// stack is read once over the grid. The map is data (seg = assign[idx] of
+// the popped cohort), so the launch needs no host sync. Bound: (C*N + E*N
+// + 2*C) * 4 bytes a leaf.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -45,10 +60,52 @@ struct LeafTable {
   int block_end[MAX_LEAVES];  // inclusive prefix sums of the leaves' block counts
 };
 
+constexpr int WARPS = THREADS / 32;
+
+// rows[0..return) = the c in [c0, c0 + cn) with seg[c] == e, ascending (a
+// block-wide ordered compaction: one ballot prefix per warp and pass).
+__device__ __forceinline__ int compact_rows(const int* __restrict__ seg, int c0, int cn,
+                                           int e, int* rows, int* warp_count) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int base = 0;
+  for (int j0 = 0; j0 < cn; j0 += THREADS) {
+    const int j = j0 + threadIdx.x;
+    const bool hit = j < cn && seg[c0 + j] == e;
+    const unsigned ballot = __ballot_sync(0xffffffffu, hit);
+    if (lane == 0) warp_count[warp] = __popc(ballot);
+    __syncthreads();
+    int before = base, total = base;
+    for (int k = 0; k < WARPS; ++k) {
+      before += k < warp ? warp_count[k] : 0;
+      total += warp_count[k];
+    }
+    if (hit) rows[before + __popc(ballot & ((1u << lane) - 1u))] = j;
+    __syncthreads();  // warp_count is rewritten by the next pass
+    base = total;
+  }
+  return base;
+}
+
+// acc[j] += wc * row[j] for the thread's columns, one f32 FMA each.
 template <bool VEC>
+__device__ __forceinline__ void fma_row(float* acc, float wc, const float* row) {
+  if constexpr (VEC) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(row));
+    acc[0] = fmaf(wc, v.x, acc[0]);
+    acc[1] = fmaf(wc, v.y, acc[1]);
+    acc[2] = fmaf(wc, v.z, acc[2]);
+    acc[3] = fmaf(wc, v.w, acc[3]);
+  } else {
+    acc[0] = fmaf(wc, __ldg(row), acc[0]);
+  }
+}
+
+template <bool VEC, bool SEG>
 __device__ __forceinline__ void reduce_columns(const float* __restrict__ P,
                                                const float* __restrict__ sw_global,
-                                               float* sw, int C, int64_t N, int64_t block,
+                                               const int* __restrict__ seg_global,
+                                               float* sw, int* rows, int* warp_count,
+                                               int C, int64_t N, int64_t block, int e,
                                                float* __restrict__ out) {
   constexpr int COLS = VEC ? 4 : 1;
   const int64_t col = (block * THREADS + threadIdx.x) * COLS;
@@ -61,25 +118,25 @@ __device__ __forceinline__ void reduce_columns(const float* __restrict__ P,
     const int cn = min(CHUNK, C - c0);
     __syncthreads();  // the previous chunk's weights are no longer read
     for (int j = threadIdx.x; j < cn; j += THREADS) sw[j] = sw_global[c0 + j];
+    // SEG: only segment e's rows of the chunk, in order
+    const int count = SEG ? compact_rows(seg_global, c0, cn, e, rows, warp_count) : 0;
     __syncthreads();
     if (live) {
-      const float* row = P + static_cast<int64_t>(c0) * N + col;
+      if constexpr (SEG) {
 #pragma unroll 4
-      for (int c = 0; c < cn; ++c, row += N) {
-        const float wc = sw[c];
-        if constexpr (VEC) {
-          const float4 v = __ldg(reinterpret_cast<const float4*>(row));
-          acc[0] = fmaf(wc, v.x, acc[0]);
-          acc[1] = fmaf(wc, v.y, acc[1]);
-          acc[2] = fmaf(wc, v.z, acc[2]);
-          acc[3] = fmaf(wc, v.w, acc[3]);
-        } else {
-          acc[0] = fmaf(wc, __ldg(row), acc[0]);
+        for (int i = 0; i < count; ++i) {
+          const int c = rows[i];
+          fma_row<VEC>(acc, sw[c], P + static_cast<int64_t>(c0 + c) * N + col);
         }
+      } else {
+        const float* row = P + static_cast<int64_t>(c0) * N + col;
+#pragma unroll 4
+        for (int c = 0; c < cn; ++c, row += N) fma_row<VEC>(acc, sw[c], row);
       }
     }
   }
   if (!live) return;
+  if constexpr (SEG) out += static_cast<int64_t>(e) * N;
   if constexpr (VEC) {
     *reinterpret_cast<float4*>(out + col) = make_float4(acc[0], acc[1], acc[2], acc[3]);
   } else {
@@ -87,17 +144,24 @@ __device__ __forceinline__ void reduce_columns(const float* __restrict__ P,
   }
 }
 
+template <bool SEG>
 __global__ void __launch_bounds__(THREADS)
-fedavg_reduce_kernel(const __grid_constant__ LeafTable tab, const float* __restrict__ w, int C) {
+fedavg_reduce_kernel(const __grid_constant__ LeafTable tab, const float* __restrict__ w,
+                     const int* __restrict__ seg, int C) {
   __shared__ float sw[CHUNK];
+  __shared__ int rows[SEG ? CHUNK : 1];
+  __shared__ int warp_count[WARPS];
   const int bx = static_cast<int>(blockIdx.x);
+  const int e = static_cast<int>(blockIdx.y);
   int leaf = 0;
   while (bx >= tab.block_end[leaf]) ++leaf;  // uniform over the block
   const int64_t block = bx - (leaf ? tab.block_end[leaf - 1] : 0);
   if (tab.vec[leaf]) {
-    reduce_columns<true>(tab.P[leaf], w, sw, C, tab.N[leaf], block, tab.out[leaf]);
+    reduce_columns<true, SEG>(tab.P[leaf], w, seg, sw, rows, warp_count, C, tab.N[leaf],
+                              block, e, tab.out[leaf]);
   } else {
-    reduce_columns<false>(tab.P[leaf], w, sw, C, tab.N[leaf], block, tab.out[leaf]);
+    reduce_columns<false, SEG>(tab.P[leaf], w, seg, sw, rows, warp_count, C, tab.N[leaf],
+                               block, e, tab.out[leaf]);
   }
 }
 
@@ -107,15 +171,20 @@ extern "C" {
 
 // One launch for n <= MAX_LEAVES leaves on `stream`; returns
 // cudaGetLastError() (0 on success). Leaf i: P[i] (C*N[i] floats,
-// row-major), out[i] (N[i] floats, allocated by the caller), vec[i] (1 when
-// N[i] is a multiple of 4 and P[i], out[i] are 16-byte aligned),
+// row-major), out[i] (N[i] floats, or E*N[i] with a segment map, allocated
+// by the caller), vec[i] (1 when N[i] is a multiple of 4 and P[i], out[i]
+// are 16-byte aligned),
 // block_end[i] = the sum of the block counts of leaves 0..i, a leaf taking
-// ceil(N / (256 * (vec ? 4 : 1))) blocks; leaves with N = 0 take none. The
-// caller keeps every buffer alive until the stream reaches the kernel.
+// ceil(N / (256 * (vec ? 4 : 1))) blocks; leaves with N = 0 take none.
+// seg: null for the plain sum, else the (C,) int32 segment map on the
+// device and E >= 1 its segment count (rows with seg outside 0..E-1 count
+// nowhere). The caller keeps every buffer alive until the stream reaches
+// the kernel.
 int fedavg_reduce_group_launch(const float* const* P, float* const* out, const long long* N,
                                const int* vec, const int* block_end, int n, const float* w,
-                               int C, cudaStream_t stream) {
-  if (n < 1 || n > MAX_LEAVES) return static_cast<int>(cudaErrorInvalidValue);
+                               int C, const int* seg, int E, cudaStream_t stream) {
+  if (n < 1 || n > MAX_LEAVES || E < 1 || E > 65535 || (!seg && E != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   LeafTable tab;
   for (int i = 0; i < MAX_LEAVES; ++i) {
     const int j = i < n ? i : n - 1;  // unused slots repeat the last leaf's end
@@ -127,7 +196,11 @@ int fedavg_reduce_group_launch(const float* const* P, float* const* out, const l
   }
   const int blocks = block_end[n - 1];
   if (blocks <= 0) return 0;
-  fedavg_reduce_kernel<<<blocks, THREADS, 0, stream>>>(tab, w, C);
+  if (seg) {
+    fedavg_reduce_kernel<true><<<dim3(blocks, E), THREADS, 0, stream>>>(tab, w, seg, C);
+  } else {
+    fedavg_reduce_kernel<false><<<blocks, THREADS, 0, stream>>>(tab, w, nullptr, C);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,8 +5,9 @@ The same contract as ``repro.engine``: name-based registries
 ``Aggregator`` / ``Engine`` protocols, and ``RunConfig`` in, ``RunResult``
 out, with one JSON-safe serializer. The synchronous and asynchronous
 engines are ported (``SyncEngine``, ``AsyncEngine``) with the robustness
-tier (faults, robust aggregators, deadline re-dispatch); ``RunConfig``
-rejects every option of a later slice.
+tier (faults, robust aggregators, deadline re-dispatch) and aggregation
+topologies (``repro_torch.topo``); ``RunConfig`` rejects every option of a
+later slice.
 """
 from repro_torch.engine.registry import (  # noqa: F401
     aggregator_names,

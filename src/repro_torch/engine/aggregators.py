@@ -23,11 +23,19 @@ Built-ins, as in the reference:
 
 The robust aggregators (``norm_clip``, ``trimmed_mean``,
 ``coordinate_median``) live in ``engine/robust.py``.
+
+Node form (``accumulate_nodes``): under a multi-tier topology
+(``topo.reduce.tiered_apply``) the cohort is accumulated per tier-0 node.
+Each additive built-in sums ``w_c * term_c`` over its slots, where
+``term_c`` is ``u``, ``u - b`` or the clipped ``u - b``, so its node form is
+one call of K1's segmented route on the same stacks; the per-node scalars
+(``wsum``, telemetry) are ``node_sums``. A plugin without a node form is
+accumulated one slot at a time (``tiered_apply``'s fallback).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -43,9 +51,9 @@ class Aggregator:
     ``additive`` declares, as in the reference, that the accumulator is a
     plain sum over cohort members (``init`` is the zero element, and the
     accumulators of two disjoint cohort slices add up to the full
-    cohort's): what a cohort-sharded merge needs (ROADMAP queue 1, slice
-    F). Every aggregator opts in explicitly; the order-statistic robust
-    aggregators do not.
+    cohort's): what a tier merge (``topo.reduce.tiered_apply``) and a
+    cohort-sharded merge (ROADMAP queue 1, slice F) need. Every aggregator
+    opts in explicitly; the order-statistic robust aggregators do not.
     """
 
     name: str
@@ -59,6 +67,30 @@ class Aggregator:
     # ``agg_<name>`` counter in RunResult.load_stats; () (every
     # non-robust built-in) adds no stats key and no per-step ops.
     stat_names: tuple = ()
+    # (g, updates, bases, w, seg, num_nodes) -> the accumulators of the
+    # tier-0 nodes, every leaf with a leading (num_nodes,) axis: node e's
+    # accumulator over the slots with seg == e. None: ``tiered_apply``
+    # accumulates one slot at a time and sums the slots by node.
+    accumulate_nodes: Optional[Callable] = None
+
+
+def node_sums(x: torch.Tensor, seg: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    """(B,) -> (num_nodes,) sums of ``x`` over the slots of each node: a
+    masked (num_nodes, B) tensor summed on its rows, in a fixed order (a
+    value of another node is replaced, not multiplied, by 0)."""
+    nodes = torch.arange(num_nodes, device=x.device, dtype=seg.dtype)
+    return torch.where(seg[None, :] == nodes[:, None], x[None, :], 0.0).sum(dim=1)
+
+
+def cohort_reduce(terms, w: torch.Tensor, seg=None, num_nodes: int = 1):
+    """K1 over a tree of (B, ...) ``terms``, one call for the tree: each
+    leaf's f32 weighted sum over the cohort, or with a (B,) int32 node map
+    ``seg`` (K1's segmented route) its (num_nodes, ...) sums by node."""
+    stacks = [t.reshape(t.shape[0], -1).to(torch.float32).contiguous()
+              for t in tree_leaves(terms)]
+    sums = iter(kops.fedavg_reduce_leaves(stacks, w.contiguous(), seg, num_nodes))
+    lead = () if seg is None else (num_nodes,)
+    return tree_map(lambda t: next(sums).view(lead + tuple(t.shape[1:])), terms)
 
 
 def acc_stats(acc) -> dict:
@@ -96,14 +128,9 @@ def make_fedavg() -> Aggregator:
 
     def accumulate(acc, updates, bases, w):
         # the weighted cohort sums of all leaves are one K1 call (one CUDA
-        # launch on the GPU, its plain version on the CPU), in tree_map's order
-        stacks = []
-        tree_map(lambda s, u: stacks.append(
-            u.reshape(u.shape[0], -1).to(torch.float32).contiguous()),
-            acc["usum"], updates)
-        sums = iter(kops.fedavg_reduce_leaves(stacks, w))
-        usum = tree_map(lambda s, u: s + next(sums).view(s.shape).to(s.dtype),
-                        acc["usum"], updates)
+        # launch on the GPU, its plain version on the CPU)
+        usum = tree_map(lambda s, t: s + t.to(s.dtype), acc["usum"],
+                        cohort_reduce(updates, w))
         return {"usum": usum, "wsum": acc["wsum"] + w.sum()}
 
     def finalize(g, acc):
@@ -114,8 +141,13 @@ def make_fedavg() -> Aggregator:
             g, acc["usum"],
         )
 
+    def accumulate_nodes(g, updates, bases, w, seg, num_nodes):
+        usum = cohort_reduce(updates, w, seg, num_nodes)
+        return {"usum": tree_map(lambda gl, s: s.to(gl.dtype), g, usum),
+                "wsum": node_sums(w, seg, num_nodes)}
+
     return Aggregator("fedavg", weigh, init, accumulate, finalize,
-                      additive=True)
+                      additive=True, accumulate_nodes=accumulate_nodes)
 
 
 def _delta_aggregator(name: str, staleness_mode: str, staleness_exp: float,
@@ -155,8 +187,13 @@ def _delta_aggregator(name: str, staleness_mode: str, staleness_exp: float,
 
         return tree_map(fin, g, acc["dsum"])
 
+    def accumulate_nodes(g, updates, bases, w, seg, num_nodes):
+        deltas = tree_map(lambda u, b: (u - b).to(torch.float32), updates, bases)
+        return {"dsum": cohort_reduce(deltas, w, seg, num_nodes),
+                "wsum": node_sums(w, seg, num_nodes)}
+
     return Aggregator(name, weigh, init, accumulate, finalize,
-                      additive=True)
+                      additive=True, accumulate_nodes=accumulate_nodes)
 
 
 @register_aggregator("fedbuff")

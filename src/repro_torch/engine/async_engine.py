@@ -10,16 +10,17 @@ the last ``max_versions`` global models) -> aggregator
 ``weigh/init/accumulate/finalize`` over the buffered deltas -> clock/
 version advance.
 
-This is ``repro.engine.async_engine`` without topology or defense
-(``RunConfig`` rejects those). The robustness tier rides the step as in
-the reference, under the same structural rule: faults and the deadline
-re-dispatch, when armed, add their ``(n,)`` state to the engine state and
-draw from their own sub-streams of the run's source (``faults``,
-``redispatch``); absent, no state key, no draw and no op exists, so the
-engine is the calm one. Every tensor of the state lives on the task's
-device and no step syncs with the host: masked scatters go through
-``sim.events.scatter_set``, and the only host pulls are the per-chunk aux
-transfer and ``finalize``.
+This is ``repro.engine.async_engine`` without defense (``RunConfig``
+rejects it). The robustness tier and the aggregation topology ride the
+step as in the reference, under the same structural rule: faults, the
+deadline re-dispatch, a multi-tier topology and a heartbeat, when armed,
+add their state to the engine state and draw from their own sub-streams of
+the run's source (``faults``, ``redispatch``, ``hop``); absent, no state
+key, no draw and no op exists, so the engine is the calm one, and a star
+topology is no topology bit for bit. Every tensor of the state lives on
+the task's device and no step syncs with the host: masked scatters go
+through ``sim.events.scatter_set``, and the only host pulls are the
+per-chunk aux transfer and ``finalize``.
 
 The load metric is reported on two clocks: X in decision epochs (the
 paper's round-indexed Var[X]) and X in simulated seconds (wall-clock
@@ -37,6 +38,7 @@ from repro_torch.core.load_metric import (
     empirical_load_stats,
     init_selection_accum,
     selection_stats_from_accum,
+    tier_stats_from_accum,
 )
 from repro_torch.core.selection import Policy
 from repro_torch.core.tree import tree_map
@@ -57,7 +59,7 @@ def _resolved_profile(profile) -> lat_mod.LatencyProfile:
     return lat_mod.get_profile(profile)
 
 
-def _init_stats(device, redispatch: bool = False,
+def _init_stats(device, heartbeat: bool = False, redispatch: bool = False,
                 agg_stats: tuple = ()) -> Dict[str, torch.Tensor]:
     def z():
         return torch.zeros((), dtype=torch.float32, device=device)
@@ -70,6 +72,8 @@ def _init_stats(device, redispatch: bool = False,
         "updates": z(),  # successful updates aggregated
         "aggs": z(),  # server versions produced
     }
+    if heartbeat:
+        out["hb_expired"] = z()  # updates excluded by heartbeat churn
     if redispatch:
         out["redispatched"] = z()  # expired dispatches re-issued
         out["rd_expired"] = z()  # deadline expiries (incl. written off)
@@ -107,10 +111,11 @@ class AsyncEngine:
         self.profile = _resolved_profile(cfg.profile)
         self.draws = draws if draws is not None else GeneratorDraws(cfg.seed,
                                                                     task.device)
+        self.topo = cfg.resolved_topology()
         self.fault_set = cfg.resolved_faults()
         self._init_state, core = _make_async_step(
             task, cfg, self.policy, self.aggregator, self.profile,
-            faults=self.fault_set,
+            topo=self.topo, faults=self.fault_set,
         )
         self._chunk = ChunkRunner(
             core, aux_keys=("loss", "clock", "version", "buffer_fill")
@@ -149,9 +154,14 @@ class AsyncEngine:
             buffer_fill=int(aux["buffer_fill"]),
         )
 
+    def _topo_tag(self) -> str:
+        if self.topo is None or self.topo.is_star:
+            return ""
+        return f"/{self.topo.describe()}"
+
     def progress_line(self, rec: RoundRecord, elapsed: float) -> str:
         return (
-            f"  [{self.policy.name}/{self.profile.name}] "
+            f"  [{self.policy.name}/{self.profile.name}{self._topo_tag()}] "
             f"step {rec.round:4d} t={rec.clock:9.2f}s v={rec.version:4d} "
             f"acc={rec.accuracy:.4f} loss={rec.eval_loss:.4f} ({elapsed:.1f}s)"
         )
@@ -178,11 +188,15 @@ class AsyncEngine:
             "aggregations": int(st["aggs"]),
             "sim_time": float(state["clock"]),
         }
+        if "hb_expired" in st:
+            wall_stats["hb_expired"] = int(st["hb_expired"])
         if sel_hist is not None:
             load_stats = empirical_load_stats(sel_hist)
         else:
             load_stats = selection_stats_from_accum(state["load_acc"])
         load_stats = dict(load_stats)
+        if "tier_acc" in state:
+            load_stats.update(tier_stats_from_accum(state["tier_acc"]))
         if "faults" in state:
             for nm, cnt in self.fault_set.counters(state["faults"]).items():
                 load_stats[f"fault_{nm}_injected"] = cnt
@@ -208,10 +222,25 @@ class AsyncEngine:
 
 def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
                      agg: Aggregator, profile: lat_mod.LatencyProfile,
-                     faults=None):
+                     aggregate=None, topo=None, faults=None):
     """Builds ``(init_state, step)`` with ``step(state, draws) -> (state,
     aux)``, the function ``ChunkRunner`` loops over; ``draws`` is the
     source of this step's draws.
+
+    ``aggregate(params, updates, bases, w, idx) -> (params, stats)``
+    replaces the inline ``init/accumulate/finalize`` chain (``idx`` is the
+    cohort -> client map, which the tiered reduction uses to route each
+    slot to its tier-0 node); by default it is that chain, or
+    ``topo.reduce.tiered_apply`` under a multi-tier topology.
+
+    ``topo`` (a ``repro_torch.topo.Topology``) reshapes the aggregation as
+    in the reference: the default aggregate becomes the tiered reduction,
+    every dispatch pays the per-hop DAG latency drawn from the ``hop``
+    sub-stream (the reference's fold 104; a re-dispatch's from
+    ``redispatch/hop``, its fold 107), the per-tier load accumulators ride
+    the state, and a non-zero ``heartbeat_timeout`` excludes dark clients
+    from the reduction. A star (or ``topo=None``) leaves every state key,
+    draw and op untouched; a star with a heartbeat arms only the heartbeat.
 
     ``faults`` (a ``repro_torch.faults.FaultSet``) and a non-zero
     ``cfg.redispatch_timeout`` follow the reference's structural gating:
@@ -224,6 +253,8 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
     B = cfg.resolved_buffer_size()
     H = cfg.max_versions
     dev = task.device
+    tiered = topo is not None and not topo.is_star
+    hb_timeout = float(topo.heartbeat_timeout) if topo is not None else 0.0
     have_faults = faults is not None
     rd_on = (cfg.redispatch_timeout or 0) > 0
     kill_on = have_faults and faults.has("kill")
@@ -232,10 +263,27 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
     replay_on = have_faults and faults.has("replay")
     if have_faults:
         from repro_torch.faults.inject import collude_updates, corrupt_updates
-    if rd_on:
+    if tiered:
+        from repro_torch.core.load_metric import (
+            init_tier_accum,
+            tier_blocks,
+            update_tier_accum,
+        )
+        from repro_torch.topo.reduce import make_hop_latency, tiered_apply
+
+        blocks = tier_blocks(topo.assign(n), dev)
+        hop_fn = make_hop_latency(topo, n)
+    if hb_timeout > 0 or rd_on:
         # re-dispatch deadlines reuse the heartbeat liveness predicate:
         # "no completion for longer than the timeout" is the same signal
         from repro_torch.topo import heartbeat as hb_mod
+    if aggregate is None:
+        if tiered:
+            aggregate = tiered_apply(agg, topo, n)
+        else:
+            def aggregate(g, updates, bases, w, idx=None):
+                acc = agg.accumulate(agg.init(g), updates, bases, w)
+                return agg.finalize(g, acc), acc_stats(acc)
     local_update = make_local_update(
         task.loss_fn, cfg.local_epochs, cfg.batch_size, task.examples_per_client
     )
@@ -254,9 +302,13 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
             "speed": lat_mod.client_speed(draws, n, profile),
             "clock": torch.zeros((), dtype=torch.float32, device=dev),
             "version": torch.zeros((), dtype=torch.int32, device=dev),
-            "stats": _init_stats(dev, redispatch=rd_on,
+            "stats": _init_stats(dev, heartbeat=hb_timeout > 0, redispatch=rd_on,
                                  agg_stats=agg.stat_names),
         }
+        if hb_timeout > 0:
+            state["hb"] = hb_mod.init_heartbeat(n, dev)
+        if tiered:
+            state["tier_acc"] = init_tier_accum(n, int(topo.tier_sizes[0]), dev)
         if have_faults:
             state["faults"] = faults.init(draws.sub("faults"))
         if rd_on:
@@ -284,12 +336,18 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
 
         # --- dispatch: sample wall-clock latencies, mark in flight
         latency = lat_mod.sample_latency(draws, profile, state["speed"])
+        if tiered:
+            # per-hop DAG latency, only when a multi-tier topology is armed
+            latency = latency + hop_fn(draws.sub("hop"))
         if have_faults:
             fstate = state["faults"]
             fdraws = draws.sub("faults")
             if faults.has_dispatch:
                 fstate, latency = faults.on_dispatch(fstate, fdraws, send,
                                                      latency)
+        if hb_timeout > 0:
+            # dispatch is a heartbeat: the client pulled the model now
+            hb = hb_mod.beat(state["hb"], send, clock)
         dropped = lat_mod.sample_dropout(draws, profile, n)
         ev = ev_mod.schedule_completions(ev, send, clock, latency, version, dropped)
 
@@ -309,8 +367,10 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
                                             float(cfg.redispatch_timeout))
             retry = exp & (rd_cnt < cfg.redispatch_retries)
             give_up = exp & ~retry
-            rd_lat = lat_mod.sample_latency(draws.sub("redispatch"), profile,
-                                            state["speed"])
+            rd_draws = draws.sub("redispatch")
+            rd_lat = lat_mod.sample_latency(rd_draws, profile, state["speed"])
+            if tiered:
+                rd_lat = rd_lat + hop_fn(rd_draws.sub("hop"))
             ev = {
                 **ev,
                 "t_done": torch.where(
@@ -373,14 +433,20 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
         if kill_on:
             # mid-round dropout: the update never arrived
             succ = succ & ~eff.kill
+        if hb_timeout > 0:
+            # an update landing more than the timeout after its client's
+            # last contact looks dead to its tier coordinator: excluded
+            # like a dropped slot. Every arrival still counts as contact
+            dark = succ & hb_mod.expired(hb["last_beat"][idx], t_ev, hb_timeout)
+            succ = succ & ~dark
+            arrived = valid & ~eff.kill if kill_on else valid
+            hb = hb_mod.beat_at(hb, idx, arrived, t_ev)
         staleness = torch.clamp(version - disp_ver, min=0)
         w = agg.weigh(succ, staleness)
         wsum = w.sum()
         has = wsum > 0
         denom = torch.clamp(wsum, min=1e-9)
-        acc = agg.accumulate(agg.init(state["params"]), updated, disp_params, w)
-        params = agg.finalize(state["params"], acc)
-        agg_tel = acc_stats(acc)
+        params, agg_tel = aggregate(state["params"], updated, disp_params, w, idx)
         version = version + has.to(torch.int32)
         wslot = (version % H).long().view(1)
         hist = tree_map(lambda h, p: h.index_copy(0, wslot, p[None]),
@@ -417,6 +483,9 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
             "updates": stats["updates"] + succ_f.sum(),
             "aggs": stats["aggs"] + has.to(torch.float32),
         }
+        if hb_timeout > 0:
+            stats["hb_expired"] = (state["stats"]["hb_expired"]
+                                   + dark.to(torch.float32).sum())
         if rd_on:
             stats["redispatched"] = state["stats"]["redispatched"] + rd_retried
             stats["rd_expired"] = state["stats"]["rd_expired"] + rd_expired
@@ -427,10 +496,14 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
             "params": params, "hist": hist, "sched": sched, "ev": ev,
             "clock": new_clock, "version": version, "stats": stats,
         }
+        if hb_timeout > 0:
+            new_state["hb"] = hb
         if have_faults:
             new_state["faults"] = fstate
         if rd_on:
             new_state["rd"] = rd
+        if tiered:
+            new_state["tier_acc"] = update_tier_accum(state["tier_acc"], send, blocks)
         aux = {
             "send": send,
             "loss": mean_loss,

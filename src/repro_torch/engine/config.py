@@ -6,12 +6,13 @@ validates and serializes the same way in both packages; ``RunResult`` /
 into chunks that never straddle an eval step.
 
 The port runs the synchronous and asynchronous paths (ROADMAP queue 1,
-slices A and B) with the robustness tier (slice C): faults, robust
-aggregators, deadline re-dispatch and ``fault_exposure``, validated as the
-reference validates them. A config that asks for anything else — a
-topology, defense, a device mesh or a JAX PRNG implementation — raises
-``NotImplementedError`` naming the slice that brings it, in either mode;
-no option is silently ignored.
+slices A and B) with the robustness tier (slice C: faults, robust
+aggregators, deadline re-dispatch and ``fault_exposure``) and aggregation
+topologies (slice D: ``topology``/``topology_kwargs``, resolved eagerly
+through ``repro_torch.topo.graph``), validated as the reference validates
+them. A config that asks for anything else — defense, a device mesh or a
+JAX PRNG implementation — raises ``NotImplementedError`` naming the slice
+that brings it, in either mode; no option is silently ignored.
 
 This module is dependency-free (dataclasses + numpy only).
 """
@@ -76,7 +77,15 @@ class RunConfig:
 
     # --- options of later slices (each raises NotImplementedError) ---
     mesh_shards: Optional[int] = None  # slice F
-    topology: Any = None  # slice D
+    # --- aggregation topology (repro_torch.topo) ---
+    # None / "star" -> the single-server reduction, bit-for-bit unchanged.
+    # A registered topology name ("hierarchical", "gossip", or anything
+    # added via @register_topology) or a ready ``Topology`` routes the
+    # aggregation through the tiered reduction (additive aggregators only),
+    # prices each cross-tier hop with a sim.latency profile, and — when the
+    # topology arms ``heartbeat_timeout`` — excludes clients that went dark
+    # from their tier's reduction (async engine; sync rejects a heartbeat).
+    topology: Any = None
     topology_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     # --- fault injection (repro_torch.faults) ---
@@ -120,6 +129,14 @@ class RunConfig:
         if self.steps_per_chunk is not None and self.steps_per_chunk < 1:
             raise ValueError(
                 f"steps_per_chunk must be >= 1, got {self.steps_per_chunk}"
+            )
+        if self.topology is not None:
+            # resolve eagerly so a typo'd name or an invalid tier shape
+            # fails at config construction, not mid-run
+            self.resolved_topology()
+        elif self.topology_kwargs:
+            raise ValueError(
+                "topology_kwargs given without a topology name"
             )
         names = self.fault_names()
         if names:
@@ -191,6 +208,30 @@ class RunConfig:
     def profile_name(self) -> str:
         return self.profile if isinstance(self.profile, str) else self.profile.name
 
+    def resolved_topology(self):
+        """The ``repro_torch.topo.Topology`` this run aggregates through, or
+        None for the default star; validated against ``n_clients``
+        (``topo.graph`` is numpy-only, like this module)."""
+        if self.topology is None:
+            return None
+        from repro_torch.topo.graph import Topology, make_topology
+
+        if isinstance(self.topology, Topology):
+            topo = self.topology
+            if self.topology_kwargs:
+                raise ValueError(
+                    "topology_kwargs only apply to registry names; got a "
+                    "ready Topology instance"
+                )
+        else:
+            topo = make_topology(self.topology, **dict(self.topology_kwargs))
+        topo.validate(self.n_clients)
+        return topo
+
+    def topology_name(self) -> str:
+        topo = self.resolved_topology()
+        return "star" if topo is None else topo.describe()
+
     def fault_names(self) -> tuple:
         """Normalized tuple of configured fault names ("a,b" or any
         sequence of names; () / None / "" -> no faults)."""
@@ -223,8 +264,6 @@ def _slice_guard(cfg: "RunConfig") -> None:
     """Reject every option of the reference that the port does not run yet,
     naming the ROADMAP queue-1 slice that brings it."""
     later = (
-        ("topology", cfg.topology is not None or bool(cfg.topology_kwargs),
-         "slice D (topology)"),
         ("defense", cfg.defense or bool(cfg.defense_kwargs), "slice E (defense)"),
         ("mesh_shards", cfg.mesh_shards is not None, "slice F (multi-GPU)"),
         ("shard_cohort", cfg.shard_cohort, "slice F (multi-GPU)"),

@@ -9,8 +9,9 @@ global params arbitrarily far. These aggregators bound that influence:
     still a plain sum (``additive=True``), and that sum
     ``sum_c w_c * scale_c * d_c`` over the f32 delta stack is exactly K1's
     function: one ``fedavg_reduce_leaves`` call (one CUDA launch for the
-    tree on the GPU). Carries a ``clipped`` counter in ``acc["stats"]``
-    (surfaced as ``agg_clipped``).
+    tree on the GPU), and its node form under a topology is the same call
+    on K1's segmented route. Carries a ``clipped`` counter in
+    ``acc["stats"]`` (surfaced as ``agg_clipped``).
   * ``trimmed_mean`` — coordinate-wise trimmed mean of the deltas: the
     ``trim`` fraction of highest and lowest values per coordinate is
     discarded. Order statistics do not sum, so ``additive=False``.
@@ -31,9 +32,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.tree import tree_map, tree_paths
-from repro_torch.engine.aggregators import Aggregator, staleness_weight
+from repro_torch.engine.aggregators import (
+    Aggregator,
+    cohort_reduce,
+    node_sums,
+    staleness_weight,
+)
 from repro_torch.engine.registry import register_aggregator
-from repro_torch.kernels import ops as kops
 
 
 def _f32_zeros_like(g):
@@ -63,7 +68,9 @@ def make_norm_clip(clip: float = 10.0, staleness_mode: str = "poly",
         return {"dsum": _f32_zeros_like(g), "wsum": _zero(g),
                 "stats": {"clipped": _zero(g)}}
 
-    def accumulate(acc, updates, bases, w):
+    def clipped_deltas(updates, bases, w):
+        """The f32 deltas, the clipped weights ``w * scale`` and the
+        per-slot clip indicator."""
         deltas = tree_map(lambda u, b: (u - b).to(torch.float32), updates, bases)
         # per-slot global L2 over the whole delta tree, leaves summed in the
         # reference's order
@@ -71,18 +78,21 @@ def make_norm_clip(clip: float = 10.0, staleness_mode: str = "poly",
                  for _, d in tree_paths(deltas))
         norm = torch.sqrt(sq)
         scale = torch.clamp(clip / torch.clamp(norm, min=1e-12), max=1.0)
-        ws = w * scale
-        # the clipped weighted delta sums of all leaves: one K1 call, in
-        # tree_map's order
-        stacks = []
-        tree_map(lambda d: stacks.append(d.reshape(d.shape[0], -1).contiguous()),
-                 deltas)
-        sums = iter(kops.fedavg_reduce_leaves(stacks, ws.contiguous()))
-        dsum = tree_map(lambda s: s + next(sums).view(s.shape), acc["dsum"])
-        clipped = acc["stats"]["clipped"] + torch.sum(
-            ((norm > clip) & (w > 0)).to(torch.float32))
+        return deltas, w * scale, ((norm > clip) & (w > 0)).to(torch.float32)
+
+    def accumulate(acc, updates, bases, w):
+        deltas, ws, hit = clipped_deltas(updates, bases, w)
+        # the clipped weighted delta sums of all leaves: one K1 call
+        dsum = tree_map(torch.add, acc["dsum"], cohort_reduce(deltas, ws))
+        clipped = acc["stats"]["clipped"] + torch.sum(hit)
         return {"dsum": dsum, "wsum": acc["wsum"] + w.sum(),
                 "stats": {"clipped": clipped}}
+
+    def accumulate_nodes(g, updates, bases, w, seg, num_nodes):
+        deltas, ws, hit = clipped_deltas(updates, bases, w)
+        return {"dsum": cohort_reduce(deltas, ws, seg, num_nodes),
+                "wsum": node_sums(w, seg, num_nodes),
+                "stats": {"clipped": node_sums(hit, seg, num_nodes)}}
 
     def finalize(g, acc):
         has = acc["wsum"] > 0
@@ -92,7 +102,8 @@ def make_norm_clip(clip: float = 10.0, staleness_mode: str = "poly",
             g, acc["dsum"])
 
     return Aggregator("norm_clip", weigh, init, accumulate, finalize,
-                      additive=True, stat_names=("clipped",))
+                      additive=True, stat_names=("clipped",),
+                      accumulate_nodes=accumulate_nodes)
 
 
 def _order_stat_aggregator(name: str, reduce_sorted) -> Aggregator:

@@ -7,20 +7,24 @@ every slot from the current global params -> aggregator
 ``fedavg`` aggregator the cohort sum is the ``fedavg_reduce`` kernel
 (K1).
 
-This is ``repro.engine.sync`` without topology, defense or cohort
-sharding (``RunConfig`` rejects those). Faults ride the round as in the
-reference: the fault set's state is part of the engine state, its draws
-come from the ``faults`` sub-stream of the run's source (so a rate-0
-armed run is bitwise the calm run), and the popped cohort goes through
-``on_pop``, then ``corrupt_updates``, then ``collude_updates``, then the
-kill mask on the weights. Robust aggregators' telemetry (``stat_names``)
-accumulates in ``agg_stats``. The global params are not materialized
-``width`` times per round: the cohort sees them as stride-0 views
+This is ``repro.engine.sync`` without defense or cohort sharding
+(``RunConfig`` rejects those). A multi-tier topology routes the round's
+aggregation through ``topo.reduce.tiered_apply`` (with the unstacked
+global tree as bases) and adds the per-tier load accumulators
+(``tier_acc``); a heartbeat is rejected, as in the reference (sync rounds
+have no mid-round clock). Faults ride the round as in the reference: the
+fault set's state is part of the engine state, its draws come from the
+``faults`` sub-stream of the run's source (so a rate-0 armed run is
+bitwise the calm run), and the popped cohort goes through ``on_pop``, then
+``corrupt_updates``, then ``collude_updates``, then the kill mask on the
+weights. Robust aggregators' telemetry (``stat_names``) accumulates in
+``agg_stats``. The global params are not materialized ``width`` times per
+round: the cohort sees them as stride-0 views
 (``fl.server.broadcast_to_cohort``), the first SGD step writes the
 per-slot copies, and aggregators receive the unstacked global tree as
 ``bases``. Every tensor of the state lives on the task's device, and no
-round syncs with the host: the learning rate comes from the policy
-state's round counter on the device.
+round syncs with the host: the learning rate comes from the policy state's
+round counter on the device.
 """
 from __future__ import annotations
 
@@ -32,7 +36,11 @@ from repro_torch.core.draws import GeneratorDraws
 from repro_torch.core.load_metric import (
     empirical_load_stats,
     init_selection_accum,
+    init_tier_accum,
     selection_stats_from_accum,
+    tier_blocks,
+    tier_stats_from_accum,
+    update_tier_accum,
 )
 from repro_torch.core.selection import Policy
 from repro_torch.engine.aggregators import Aggregator, acc_stats
@@ -73,6 +81,14 @@ class SyncEngine:
         )
         self.draws = draws if draws is not None else GeneratorDraws(cfg.seed,
                                                                     task.device)
+        self.topo = cfg.resolved_topology()
+        if self.topo is not None and self.topo.heartbeat_timeout > 0:
+            raise ValueError(
+                "heartbeat churn is wall-clock-based and needs the async "
+                "engine's event clock; sync rounds have no mid-round time "
+                "for a client to go dark in — drop heartbeat_timeout or "
+                "use mode='async'"
+            )
         self.fault_set = cfg.resolved_faults()
         if self.fault_set is not None:
             only = self.fault_set.async_only_names()
@@ -82,8 +98,17 @@ class SyncEngine:
                     "wall clock / version ring; sync rounds have neither — "
                     "drop them or use mode='async'"
                 )
+        tiered = self.topo is not None and not self.topo.is_star
+        aggregate = None
+        blocks = None
+        if tiered:
+            from repro_torch.topo.reduce import tiered_apply
+
+            aggregate = tiered_apply(self.aggregator, self.topo, cfg.n_clients,
+                                     stacked_bases=False)
+            blocks = tier_blocks(self.topo.assign(cfg.n_clients), task.device)
         core = _make_round_core(task, cfg, self.policy, self.aggregator,
-                                faults=self.fault_set)
+                                aggregate=aggregate, faults=self.fault_set)
         have_faults = self.fault_set is not None
         stat_names = self.aggregator.stat_names
 
@@ -92,6 +117,9 @@ class SyncEngine:
                 state["params"], state["sched"], draws,
                 state["faults"] if have_faults else None)
             out = {"params": params, "sched": sched}
+            if blocks is not None:
+                out["tier_acc"] = update_tier_accum(state["tier_acc"], selected,
+                                                    blocks)
             if have_faults:
                 out["faults"] = fstate
             if stat_names:
@@ -109,6 +137,9 @@ class SyncEngine:
             "sched": self.policy.init(d, cfg.n_clients),
             "load_acc": init_selection_accum(cfg.n_clients, cfg.k, dev),
         }
+        if self.topo is not None and not self.topo.is_star:
+            state["tier_acc"] = init_tier_accum(
+                cfg.n_clients, int(self.topo.tier_sizes[0]), dev)
         if self.fault_set is not None:
             # the faults sub-stream: the calm stream's draws never move
             state["faults"] = self.fault_set.init(d.sub("faults"))
@@ -140,8 +171,12 @@ class SyncEngine:
         )
 
     def progress_line(self, rec: RoundRecord, elapsed: float) -> str:
+        tag = (
+            f"/{self.topo.describe()}"
+            if self.topo is not None and not self.topo.is_star else ""
+        )
         return (
-            f"  [{self.policy.name}] round {rec.round:4d} "
+            f"  [{self.policy.name}{tag}] round {rec.round:4d} "
             f"acc={rec.accuracy:.4f} loss={rec.eval_loss:.4f} ({elapsed:.1f}s)"
         )
 
@@ -151,6 +186,8 @@ class SyncEngine:
         else:
             load_stats = selection_stats_from_accum(state["load_acc"])
         load_stats = dict(load_stats)
+        if "tier_acc" in state:
+            load_stats.update(tier_stats_from_accum(state["tier_acc"]))
         if "faults" in state:
             for nm, cnt in self.fault_set.counters(state["faults"]).items():
                 load_stats[f"fault_{nm}_injected"] = cnt
@@ -173,7 +210,7 @@ class SyncEngine:
 
 
 def _make_round_core(task: FLTask, cfg: RunConfig, policy: Policy,
-                     agg: Aggregator, faults=None):
+                     agg: Aggregator, aggregate=None, faults=None):
     """The per-round function ``round_fn(params, sched_state, draws,
     fstate=None) -> (params, sched_state, selected, mean_loss, fstate,
     agg_telemetry)``, shared by the engine's chunk loop and the legacy
@@ -189,6 +226,10 @@ def _make_round_core(task: FLTask, cfg: RunConfig, policy: Policy,
     reference's fold 105 off ``k_sel``: sub-fold 1 for ``on_pop``, 2 for
     the corruption noise); with no faults armed nothing is drawn there and
     the round is the faultless one.
+
+    ``aggregate(params, updates, bases, w, idx) -> (params, stats)``
+    replaces the inline ``init/accumulate/finalize`` chain (the engine
+    passes ``topo.reduce.tiered_apply`` under a multi-tier topology).
     """
     width = cfg.cohort_width() if not policy.exact_k else cfg.k
     local_update = make_local_update(
@@ -201,6 +242,10 @@ def _make_round_core(task: FLTask, cfg: RunConfig, policy: Policy,
     collude_on = have_faults and faults.has("collude")
     if have_faults:
         from repro_torch.faults.inject import collude_updates, corrupt_updates
+    if aggregate is None:
+        def aggregate(g, updates, bases, w, idx=None):
+            acc = agg.accumulate(agg.init(g), updates, bases, w)
+            return agg.finalize(g, acc), acc_stats(acc)
 
     def round_fn(params, sched_state, draws, fstate=None):
         selected, sched_state = policy.step(sched_state, draws)
@@ -225,13 +270,12 @@ def _make_round_core(task: FLTask, cfg: RunConfig, policy: Policy,
             valid = valid & ~eff.kill
         # sync cohorts are never stale: staleness is identically zero
         w = agg.weigh(valid, torch.zeros_like(idx))
-        acc = agg.accumulate(agg.init(params), updated, params, w)
-        params = agg.finalize(params, acc)
+        params, tel = aggregate(params, updated, params, w, idx)
         wsum = w.sum()
         # NaN, not a fake near-0 datapoint, when nobody was selected
         mean_loss = torch.where(wsum > 0,
                                 torch.sum(losses * w) / torch.clamp(wsum, min=1.0),
                                 torch.full_like(wsum, float("nan")))
-        return params, sched_state, selected, mean_loss, fstate, acc_stats(acc)
+        return params, sched_state, selected, mean_loss, fstate, tel
 
     return round_fn

@@ -24,13 +24,22 @@ cohort and the shared (C,) weights and returns each leaf's (N_i,) sum: CPU
 tensors go to the plain version leaf by leaf, CUDA tensors to one launch
 per ``MAX_LEAVES`` leaves (``plan_launches`` cuts the tree). A kernel that
 does not build or launch raises. ``fedavg_reduce(params, weights)`` is a
-tree of one leaf. ``launches`` counts kernel launches.
+tree of one leaf. ``launches`` counts kernel launches, of both routes.
+
+The segmented route (``seg``, ``num_segments``) is the tiered aggregation's
+tier merge: each leaf returns ``(E, N_i)`` with ``out[e] = sum over c
+ascending with seg[c] == e of w[c] * P[c]``. On the card a CTA owns (column
+tile, leaf, segment) and loads only its segment's rows, so rows of other
+segments are skipped (a NaN stays in its segment) and an empty segment is
+exactly 0; each output is a fixed-order f32 FMA sum, bitwise repeatable.
+Its plain version is ``index_add_`` on the CPU, which adds in row order.
+Bound: ``(C*N + E*N + 2*C) * 4`` bytes a leaf (the stack read once).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -43,6 +52,15 @@ VEC_COLS = 4  # columns a thread takes with 16-byte loads
 def fedavg_reduce_plain(params: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """The plain version: ``(w[:, None] * P).sum(0)`` in f32."""
     return (weights[:, None] * params).sum(0)
+
+
+def segment_reduce_plain(params: torch.Tensor, weights: torch.Tensor,
+                         seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """The segmented route's plain version: ``(E, N)`` with row ``e`` the sum
+    of ``w[c] * P[c]`` over the rows ``c`` with ``seg[c] == e``
+    (``index_add_``, which adds in row order on the CPU)."""
+    out = params.new_zeros((num_segments, params.shape[1]))
+    return out.index_add_(0, seg.long(), weights[:, None] * params)
 
 
 def leaf_blocks(n: int, vec: bool) -> int:
@@ -74,7 +92,7 @@ def _launcher():
 
     fn = library("fedavg_reduce").fedavg_reduce_group_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                                           ctypes.c_void_p]
+                                           ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -105,25 +123,49 @@ def _check(params: torch.Tensor, weights: torch.Tensor) -> None:
         raise ValueError(f"C={params.shape[0]} exceeds the kernel's int range")
 
 
-def fedavg_reduce_leaves(stacks: Sequence[torch.Tensor],
-                         weights: torch.Tensor) -> List[torch.Tensor]:
+def _check_seg(seg: torch.Tensor, weights: torch.Tensor, num_segments: int) -> None:
+    if seg.dim() != 1 or seg.dtype != torch.int32 or seg.shape[0] != weights.shape[0]:
+        raise ValueError(
+            f"seg must be a ({weights.shape[0]},) int32 tensor, got "
+            f"{tuple(seg.shape)} {seg.dtype}"
+        )
+    if seg.device != weights.device or not seg.is_contiguous():
+        raise ValueError(f"seg must be contiguous on {weights.device}, got {seg.device}")
+    if not 1 <= num_segments <= 65535:
+        raise ValueError(f"num_segments must be in 1..65535, got {num_segments}")
+
+
+def fedavg_reduce_leaves(stacks: Sequence[torch.Tensor], weights: torch.Tensor,
+                         seg: Optional[torch.Tensor] = None,
+                         num_segments: int = 1) -> List[torch.Tensor]:
     """Each leaf's ``(N_i,)`` f32 weighted sum over the cohort rows of its
-    ``(C, N_i)`` stack, all leaves sharing ``weights`` (C,)."""
+    ``(C, N_i)`` stack, all leaves sharing ``weights`` (C,). With ``seg``
+    ((C,) int32 on the weights' device) each leaf gives ``(num_segments,
+    N_i)``: row ``e`` sums the rows ``c`` with ``seg[c] == e``."""
     global launches
     for params in stacks:
         _check(params, weights)
+    if seg is not None:
+        _check_seg(seg, weights, num_segments)
+    elif num_segments != 1:
+        raise ValueError("num_segments without a segment map")
     if weights.device.type == "cpu":
-        return [fedavg_reduce_plain(params, weights) for params in stacks]
+        if seg is None:
+            return [fedavg_reduce_plain(params, weights) for params in stacks]
+        return [segment_reduce_plain(params, weights, seg, num_segments)
+                for params in stacks]
     if weights.device.type != "cuda":
         raise ValueError(f"fedavg_reduce runs on cpu or cuda, got {weights.device}")
     sizes = [params.shape[1] for params in stacks]
+    rows = num_segments if seg is not None else 1
     # one buffer for every output, each leaf's slice starting 16-byte aligned
     offsets, total = [], 0
     for n in sizes:
         offsets.append(total)
-        total += -(-n // VEC_COLS) * VEC_COLS
+        total += -(-n * rows // VEC_COLS) * VEC_COLS
     buf = torch.empty((total,), dtype=torch.float32, device=weights.device)
-    outs = [buf[o:o + n] for o, n in zip(offsets, sizes)]
+    outs = [buf[o:o + n * rows].view(rows, n) if seg is not None else buf[o:o + n]
+            for o, n in zip(offsets, sizes)]
     vec = [n % VEC_COLS == 0 and p.data_ptr() % 16 == 0 and o.data_ptr() % 16 == 0
            for n, p, o in zip(sizes, stacks, outs)]
     C = weights.shape[0]
@@ -140,7 +182,8 @@ def fedavg_reduce_leaves(stacks: Sequence[torch.Tensor],
                      (ctypes.c_longlong * m)(*(sizes[i] for i in leaves)),
                      (ctypes.c_int * m)(*(int(vec[i]) for i in leaves)),
                      (ctypes.c_int * m)(*(end for _, end in table)),
-                     m, weights.data_ptr(), C, stream)
+                     m, weights.data_ptr(), C,
+                     seg.data_ptr() if seg is not None else None, rows, stream)
             if err != 0:
                 raise RuntimeError(f"fedavg_reduce launch failed: CUDA error {err}")
             launches += 1

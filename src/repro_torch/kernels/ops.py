@@ -28,11 +28,13 @@ def fedavg_reduce(params, weights):
     return _fedavg.fedavg_reduce(params, weights)
 
 
-def fedavg_reduce_leaves(stacks, weights):
+def fedavg_reduce_leaves(stacks, weights, seg=None, num_segments=1):
     """K1 over a whole parameter tree: each leaf's (N_i,) weighted sum of its
     (C, N_i) f32 stack against the shared (C,) weights, one launch for up to
-    16 leaves on the GPU (the per-leaf plain version on the CPU)."""
-    return _fedavg.fedavg_reduce_leaves(stacks, weights)
+    16 leaves on the GPU (the per-leaf plain version on the CPU). With a
+    (C,) int32 segment map ``seg``, each leaf's (num_segments, N_i) sums of
+    the rows of each segment (the tiered aggregation's tier merge)."""
+    return _fedavg.fedavg_reduce_leaves(stacks, weights, seg, num_segments)
 
 
 def flash_attention(q, k, v, *, scale, kind="full", window=0, block_q=None,

@@ -3,10 +3,11 @@
 The flags are those of ``repro.launch._fl_cli`` (plus ``--device``), so a
 command line moves between the packages unchanged. The robustness tier's
 flags (``--faults``, ``--fault-rate``, ``--robust-agg``,
-``--redispatch-timeout``, ``--redispatch-retries``) run as in the
-reference. Flags of options the port does not run yet (topology, defense,
-device meshes) reach ``RunConfig``, which raises ``NotImplementedError``
-naming the ROADMAP slice that brings them.
+``--redispatch-timeout``, ``--redispatch-retries``) and the topology flags
+(``--topology``, ``--tiers``, ``--heartbeat-timeout``) run as in the
+reference. Flags of options the port does not run yet (defense, device
+meshes) reach ``RunConfig``, which raises ``NotImplementedError`` naming
+the ROADMAP slice that brings them.
 """
 from __future__ import annotations
 
@@ -71,13 +72,26 @@ def add_common_args(ap: argparse.ArgumentParser, defaults: Dict[str, Any]) -> No
     ap.add_argument("--redispatch-retries", type=int, default=1,
                     help="re-dispatch attempts per dispatch before the "
                          "slot is abandoned (default 1)")
+    # --- aggregation topology (repro_torch.topo) ---
+    ap.add_argument("--topology", default=None, metavar="NAME",
+                    help="aggregation topology from the @register_topology "
+                         "registry (star | hierarchical | gossip). Default: "
+                         "the star, bit-for-bit identical to not passing "
+                         "the flag. Multi-tier topologies need an additive "
+                         "aggregator and report per-tier Var[X].")
+    ap.add_argument("--tiers", default=None, metavar="E0[,E1,...]",
+                    help="aggregation nodes per tier, bottom-up, e.g. "
+                         "'64,8' for edge->regional->global (hierarchical) "
+                         "or '8' for the peer-node count (gossip)")
+    ap.add_argument("--heartbeat-timeout", type=float, default=None,
+                    metavar="SECONDS",
+                    help="simulated-seconds liveness timeout: updates from "
+                         "clients dark for longer are excluded from their "
+                         "tier's reduction (async engine only)")
     # options of later slices: accepted, then rejected by RunConfig
     ap.add_argument("--rng-impl", default=None)
     ap.add_argument("--mesh-shards", type=int, default=None, metavar="D")
     ap.add_argument("--shard-cohort", action="store_true")
-    ap.add_argument("--topology", default=None, metavar="NAME")
-    ap.add_argument("--tiers", default=None, metavar="E0[,E1,...]")
-    ap.add_argument("--heartbeat-timeout", type=float, default=None)
     ap.add_argument("--defense", action="store_true")
     ap.add_argument("--quarantine-threshold", type=float, default=None)
     ap.add_argument("--mtd-window", type=int, default=None)
@@ -103,6 +117,30 @@ def build_task(args: argparse.Namespace) -> FLTask:
         noniid_alpha=0.6 if args.noniid else None, seed=args.seed,
         device=args.device,
     )
+
+
+def topology_args(args: argparse.Namespace) -> Dict[str, Any]:
+    """``topology``/``topology_kwargs`` RunConfig fields from the shared
+    ``--topology``/``--tiers``/``--heartbeat-timeout`` flags."""
+    if args.topology is None:
+        if args.tiers is not None or args.heartbeat_timeout is not None:
+            raise SystemExit(
+                "--tiers/--heartbeat-timeout need --topology"
+            )
+        return {}
+    kw: Dict[str, Any] = {}
+    if args.tiers is not None:
+        tiers = tuple(int(t) for t in args.tiers.split(","))
+        # gossip is a flat peer graph: one tier, named 'nodes'
+        if args.topology == "gossip":
+            if len(tiers) != 1:
+                raise SystemExit("gossip takes a single --tiers value")
+            kw["nodes"] = tiers[0]
+        else:
+            kw["tiers"] = tiers
+    if args.heartbeat_timeout is not None:
+        kw["heartbeat_timeout"] = args.heartbeat_timeout
+    return {"topology": args.topology, "topology_kwargs": kw}
 
 
 def fault_args(args: argparse.Namespace) -> Dict[str, Any]:
@@ -138,8 +176,6 @@ def _later_slice_args(args: argparse.Namespace) -> Dict[str, Any]:
     """RunConfig fields of the flags of later slices, so that RunConfig
     rejects them by name."""
     kw: Dict[str, Any] = {}
-    if args.topology is not None or args.tiers or args.heartbeat_timeout:
-        kw["topology"] = args.topology or "star"
     if (args.defense or args.quarantine_threshold is not None
             or args.mtd_window is not None or args.detector or args.collusion):
         kw["defense"] = True
@@ -148,7 +184,8 @@ def _later_slice_args(args: argparse.Namespace) -> Dict[str, Any]:
 
 def build_run_config(args: argparse.Namespace, mode: str, eval_div: int,
                      **extra) -> RunConfig:
-    extra = {**fault_args(args), **_later_slice_args(args), **extra}
+    extra = {**topology_args(args), **fault_args(args), **_later_slice_args(args),
+             **extra}
     return RunConfig(
         mode=mode,
         n_clients=args.clients, k=args.k, m=args.m, policy=args.policy,
@@ -183,6 +220,25 @@ def print_robustness_stats(load_stats) -> None:
     if agg_stats:
         print("robust aggregation: " + ", ".join(
             f"{nm}={int(v)}" for nm, v in agg_stats.items()))
+
+
+def print_tier_stats(load_stats: Optional[Dict[str, Any]]) -> None:
+    """Per-tier load metric report (present when a multi-tier topology
+    ran): Var[X] per tier-0 aggregation node next to the fleet-wide
+    figure, which is where inter-tier imbalance shows up."""
+    if not load_stats or "tier_var_X" not in load_stats:
+        return
+    mean = load_stats["tier_mean_X"]
+    var = load_stats["tier_var_X"]
+    ns = load_stats["tier_num_samples"]
+    print(f"per-tier X ({len(var)} tier-0 nodes):")
+    show = range(len(var)) if len(var) <= 8 else list(range(4)) + [-1]
+    for i in show:
+        node = i if i >= 0 else len(var) - 1
+        if node != i and len(var) > 8:
+            print("  ...")
+        print(f"  node {node:3d}: E[X]={mean[node]:.3f} "
+              f"Var[X]={var[node]:.3f} (samples {ns[node]})")
 
 
 def write_result(path: Optional[str], result, args: argparse.Namespace) -> None:

@@ -19,6 +19,9 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.fl_async --faults dropout,corrupt \\
       --fault-rate 0.1 --robust-agg trimmed_mean \\
       --redispatch-timeout 30         # chaos run with graceful degradation
+  PYTHONPATH=src python -m repro_torch.launch.fl_async --topology hierarchical \\
+      --tiers 64,8 --heartbeat-timeout 300 --clients 16384 --k 256 \\
+      --data-scale 5 --rounds 20      # edge -> regional -> global, K1 tiers
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from repro_torch.launch._fl_cli import (
     build_run_config,
     build_task,
     print_robustness_stats,
+    print_tier_stats,
     write_result,
 )
 from repro_torch.sim import PROFILES
@@ -89,6 +93,8 @@ def report(res, args: argparse.Namespace) -> None:
           f"Var random={load_metric.random_selection_var(cfg.n_clients, cfg.k):.3f} "
           f"Var markov*={load_metric.optimal_var(cfg.n_clients, cfg.k, cfg.m):.3f}")
     print(f"staleness: mean={ws['mean_staleness']:.2f} max={ws['max_staleness']}")
+    if "hb_expired" in ws:
+        print(f"heartbeat churn: {ws['hb_expired']} updates expired")
     print_robustness_stats(res.load_stats)
     if res.load_stats:
         es = res.load_stats
@@ -97,6 +103,7 @@ def report(res, args: argparse.Namespace) -> None:
         print(f"X_round: E[X]={es['mean_X']:.3f} Var[X]={es['var_X']:.3f} "
               f"(samples {es['num_samples']}, "
               f"{'history' if res.selection is not None else 'accumulators'})")
+    print_tier_stats(res.load_stats)
     if res.records:
         last = res.records[-1]
         print(f"final: acc={last.accuracy:.4f} eval_loss={last.eval_loss:.4f} "
@@ -113,6 +120,7 @@ def main(argv: Optional[Sequence[str]] = None):
         f"steps={cfg.rounds} aggregator={cfg.resolved_aggregator()} "
         f"staleness=(1+s)^-{args.staleness_weight} "
         f"chunk={cfg.resolved_steps_per_chunk()} device={task.device}"
+        + (f" topology={cfg.topology_name()}" if cfg.topology else "")
     )
     res = run_engine(engine, progress=True)
     report(res, args)

@@ -19,6 +19,8 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.fl_train --data-scale 5 \\
       --lr 0.02 --rounds 20 --faults scale_attack --fault-rate 0.25 \\
       --robust-agg coordinate_median     # model-replacement attack, defended
+  PYTHONPATH=src python -m repro_torch.launch.fl_train --data-scale 5 \\
+      --lr 0.02 --topology hierarchical --tiers 10,2   # tiered FedAvg (K1)
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from repro_torch.launch._fl_cli import (
     build_run_config,
     build_task,
     print_robustness_stats,
+    print_tier_stats,
     write_result,
 )
 
@@ -66,6 +69,7 @@ def report(res, args: argparse.Namespace) -> None:
     print(f"cohort   : mean={stats['mean_cohort']:.2f} std={stats['std_cohort']:.2f} "
           f"range [{stats['min_cohort']}, {stats['max_cohort']}]")
     print_robustness_stats(stats)
+    print_tier_stats(stats)
     if args.target_acc:
         r = rounds_to_target(res.history(), args.target_acc)
         print(f"rounds to {args.target_acc:.0%}: {r}")
@@ -77,7 +81,8 @@ def main(argv: Optional[Sequence[str]] = None):
     cfg = engine.cfg
     print(f"policy={cfg.policy} n={cfg.n_clients} k={cfg.k} m={cfg.m} "
           f"rounds={cfg.rounds} aggregator={cfg.resolved_aggregator()} "
-          f"chunk={cfg.resolved_steps_per_chunk()} device={task.device}")
+          f"chunk={cfg.resolved_steps_per_chunk()} device={task.device}"
+          + (f" topology={cfg.topology_name()}" if cfg.topology else ""))
     res = run_engine(engine, progress=True)
     report(res, args)
     write_result(args.out, res, args)

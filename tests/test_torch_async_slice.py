@@ -232,8 +232,11 @@ def test_run_result_matches(runs):
 
 
 @pytest.mark.parametrize("option", [
-    dict(mode="sync", topology="hierarchical"), dict(topology="hierarchical"),
-    dict(topology_kwargs={"tiers": (4,)}),
+    # topologies run since slice D: the first three cases pair one with an
+    # option of a later slice, which still raises
+    dict(mode="sync", topology="hierarchical", defense=True),
+    dict(topology="hierarchical", mesh_shards=0),
+    dict(topology_kwargs={"tiers": (4,)}, topology="hierarchical", shard_cohort=True),
     dict(defense_kwargs={"threshold": 0.5}), dict(defense=True), dict(mesh_shards=0),
     dict(shard_cohort=True), dict(rng_impl="rbg"),
 ])
@@ -252,7 +255,7 @@ def test_driver_runs_on_cpu_and_rejects_later_slices(capsys):
     assert "== load metric X (wall clock) ==" in out
     assert len(res.records) == 2 and np.isfinite(res.records[-1].eval_loss)
     for flags in (["--arch", "tinyllama-1.1b"],
-                  ["--topology", "hierarchical"], ["--defense"]):
+                  ["--topology", "hierarchical", "--mesh-shards", "0"], ["--defense"]):
         with pytest.raises(NotImplementedError):
             fl_async.main(["--device", "cpu", "--clients", "12", "--k", "4",
                            "--rounds", "1", "--data-scale", "0.02", *flags])

@@ -2,8 +2,8 @@
 so checkpoints cross between the packages; the port's leaves of every
 dtype (bf16 and ``torch.Generator`` states included) round-trip bit for
 bit; corruption and truncation raise ``ValueError``; and a mid-run armed
-engine (faults and re-dispatch, no topology) resumes bitwise from its
-checkpoint, random streams included.
+engine (faults, re-dispatch, a hierarchical topology and, async, a
+heartbeat) resumes bitwise from its checkpoint, random streams included.
 """
 import dataclasses
 import json
@@ -188,12 +188,16 @@ def small_task():
 def test_crash_restart_resumes_bitwise(small_task, tmp_path, mode):
     """Kill a run mid-flight and restart a fresh engine from the
     checkpointed state and random streams: the continuation is bit for bit
-    the uninterrupted run, with faults armed (and, async, the re-dispatch
-    timers, the AoI ages, the load accumulators)."""
+    the uninterrupted run, with faults armed and a hierarchical reduction
+    (and, async, heartbeat liveness, the re-dispatch timers, the AoI ages,
+    the load and per-tier accumulators), as the reference's
+    ``tests/test_faults.py::test_crash_restart_resumes_bitwise`` arms it."""
     kw = dict(n_clients=16, k=4, m=4, policy="markov", rounds=6, local_epochs=1,
-              batch_size=5, mode=mode, faults=("dropout", "corrupt"), fault_rate=0.5)
+              batch_size=5, mode=mode, faults=("dropout", "corrupt"), fault_rate=0.5,
+              topology="hierarchical", topology_kwargs={"tiers": (4,)})
     if mode == "async":
-        kw.update(buffer_size=3, profile="mobile", redispatch_timeout=20.0)
+        kw.update(buffer_size=3, profile="mobile", redispatch_timeout=20.0,
+                  topology_kwargs={"tiers": (4,), "heartbeat_timeout": 50.0})
     cfg = RunConfig(**kw)
     engine = make_engine(small_task, cfg)
     full, _ = engine.run_chunk(engine.init(), 0, 6, False)
@@ -209,3 +213,4 @@ def test_crash_restart_resumes_bitwise(small_task, tmp_path, mode):
     resumed, _ = restarted.run_chunk(restored["state"], 3, 3, False)
     _same(full, resumed)
     assert sum(float(f["injected"]) for f in full["faults"].values()) > 0
+    assert "tier_acc" in full and ("hb" in full) == (mode == "async")

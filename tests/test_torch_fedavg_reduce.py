@@ -269,3 +269,80 @@ def test_grouped_kernel_cuts_long_trees_on_gpu():
         if P.shape[1]:
             assert torch.equal(out, k1.fedavg_reduce(P, W))
             torch.testing.assert_close(out, k1.fedavg_reduce_plain(P, W), rtol=RTOL, atol=ATOL)
+
+
+# --- the segmented route: tier merges of the tiered aggregation -------------
+
+def _segmented_case(case, C=64, N=1001):
+    """(stack, weights, seg, num_segments) for one named case."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    P = rng.standard_normal((C, N)).astype(np.float32)
+    w = rng.uniform(0.1, 1.0, C).astype(np.float32)
+    E, seg = 8, rng.integers(0, 8, C)
+    if case == "one_node":
+        E, seg = 1, np.zeros(C)
+    elif case == "own_node":
+        E, seg = C, np.arange(C)
+    elif case == "nodes64":
+        E, seg = 64, rng.integers(0, 64, C)
+    elif case == "empty_node":
+        seg = np.where(seg == 5, 4, seg)
+    elif case == "padded":
+        w[C - 10:] = 0.0
+        seg[C - 10:] = 0
+    elif case == "nan_row":
+        P[7, 3] = np.nan
+    return P, w, seg.astype(np.int32), E
+
+
+SEG_CASES = ["one_node", "own_node", "nodes8", "nodes64", "empty_node", "padded",
+             "nan_row"]
+
+
+@pytest.mark.parametrize("case", SEG_CASES)
+def test_segmented_plain_keeps_rows_in_their_segment(case):
+    P, w, seg, E = _segmented_case(case)
+    out = k1.fedavg_reduce_leaves([torch.from_numpy(P)], torch.from_numpy(w),
+                                  torch.from_numpy(seg), E)[0].numpy()
+    assert out.shape == (E, P.shape[1])
+    for e in range(E):
+        rows = seg == e
+        np.testing.assert_allclose(out[e], (w[rows, None] * P[rows]).sum(0),
+                                   rtol=RTOL, atol=ATOL)
+    if case == "nan_row":
+        assert np.isnan(out).any(axis=1).tolist() == [e == seg[7] for e in range(E)]
+    if case == "empty_node":
+        assert (out[5] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SEG_CASES + ["n_mult4", "unaligned"])
+def test_segmented_kernel_matches_plain_on_gpu(case):
+    """The segmented route against its plain version (``index_add_``) within
+    K1's tolerance, NaN rows contained in their segment, empty segments
+    exactly 0, launches bitwise repeatable, one launch for the tree."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    P, w, seg, E = _segmented_case(case, N=1024 if case == "n_mult4" else 1001)
+    if case == "unaligned":
+        buf = torch.from_numpy(np.concatenate([[0.0], P.ravel()]).astype(np.float32))
+        Pd = buf.cuda()[1:].view(P.shape)
+        assert Pd.data_ptr() % 16
+    else:
+        Pd = torch.from_numpy(P).cuda()
+    small = torch.from_numpy(P[:, :5].copy()).cuda()
+    W, S = torch.from_numpy(w).cuda(), torch.from_numpy(seg).cuda()
+    before = k1.launches
+    out, out_small = k1.fedavg_reduce_leaves([Pd, small], W, S, E)
+    again = k1.fedavg_reduce_leaves([Pd, small], W, S, E)[0]
+    torch.cuda.synchronize()
+    assert k1.launches == before + 2
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+    for got, stack in ((out, Pd), (out_small, small)):
+        plain = k1.segment_reduce_plain(stack.cpu(), W.cpu(), S.cpu(), E)
+        torch.testing.assert_close(got.cpu(), plain, rtol=RTOL, atol=ATOL,
+                                   equal_nan=True)
+    if case == "nan_row":
+        assert out.isnan().any(dim=1).cpu().tolist() == [e == seg[7] for e in range(E)]
+    if case == "empty_node":
+        assert bool((out[5] == 0).all())

@@ -86,6 +86,48 @@ prints one JSON line for each:
           memory; then ``trimmed_mean`` and ``coordinate_median``
           (accumulate plus finalize) timed on (256, paper CNN) and (30,
           paper CNN) f32 stacks beside the bytes bound of one read.
+  topo_contracts  slice D's bitwise contracts on ``fault_contracts``'
+          fleet under hierarchical (4, 2) with a 5 s heartbeat: a star
+          equals no topology (sync and async), tiered ``run_chunk`` equals
+          per-step steps, crash-restart under the hierarchy, a replayed
+          tiered run equal to the CPU's.
+  async_hier  ``main`` under ``--topology hierarchical --tiers 64,8`` and a
+          heartbeat of DEADLINE_STEPS steps of ``main``'s clock: K2 once
+          and K1's segmented route twice a step, timed beside ``main``.
+  sync_hier  ``sync_main`` under ``--tiers 10,2``, 20 rounds: K1 twice a
+          round, per-node Var[X].
+  defense_contracts  slice E's contracts on ``fault_contracts``' fleet,
+          TF32 off and cuDNN deterministic inside the check (restored
+          after): defense off adds no state key and no sub-stream;
+          ``threshold=inf`` with mtd (window 2) armed equals the calm run in
+          both engines, per step and chunked; the ARMED run (threshold 0.3,
+          mtd window 2, scale_attack x -3 on a quarter of the fleet) and the
+          collusion + learned + ``fault_exposure`` run under ``collude``
+          give ``run_chunk`` == per-step steps in both engines; a crash
+          after 3 steps of an armed mtd + collusion run resumes for 3 equal
+          to 6 uninterrupted, the ``defense`` stream included; one replayed
+          armed run's discrete outputs (pops, ages, ``status``, ``level``,
+          ``win``, the counters) equal the CPU port's; under CUDA's sync
+          debug mode an mtd run makes one host read per closed window (2 in
+          4 steps) and the collusion runs none. K1 (the robust center)
+          launches.
+  async_defense  ``main``'s configuration cut to 10 steps under the pinned
+          attack (scale_attack x -3 on a quarter of the fleet, every pop)
+          with ``--defense --collusion`` (threshold 0.55, ewma 0.5) and
+          ``fault_exposure``: K2 and K1 (the robust center) one launch a
+          step, no host sync in two steps, the ``def_*`` counters, recall
+          and false-positive rate against the exposure, steady ms a step
+          beside ``main``'s, device-busy share and peak memory.
+  sync_defense  ``sync_main`` cut to 20 rounds under
+          ``benchmarks/bench_defense.py``'s pinned attack and knobs: (a) the
+          trim ladder over fedavg under scale_attack x -3 on a quarter of
+          the fleet, (b) the family ladder (10 rounds), (c) the collude
+          coalition under collusion scoring with the learned head. Each run
+          ends finite with two K1 launches a round (fedavg and the robust
+          center; more when the ``norm_clip`` rung is taken), (a)
+          quarantines and flags an exposed client; recall, false-positive
+          rate, the mtd level, the detector AUC, accuracy beside
+          ``sync_attack``'s fedavg and ms a round are printed.
   kernel_k4    K4 (``flash_attention``) against its plain version on the
           card at the serving prefill shape (B, Hk, G, S, D) =
           (4, 4, 8, 2048, 64) in bf16, contiguous and in the model's layout
@@ -169,9 +211,11 @@ prints one JSON line for each:
           CONSISTENCY_TOL and the bf16 gap and top-1 agreement reported.
 
 The main, async_oldest and sync_main phases run before the parity phases,
-which turn TF32 off; the slice C phases run after ``sync_parity``, and the
-two that are timed beside ``main`` and ``sync_main`` (``sync_attack``,
-``async_chaos``) set TF32 back to what ``main`` ran with while they run.
+which turn TF32 off; the slice C, D and E phases run after
+``sync_parity``, and those timed beside ``main`` and ``sync_main``
+(``sync_attack``, ``async_chaos``, ``async_hier``, ``sync_hier``,
+``async_defense``, ``sync_defense``) set TF32 back to what ``main`` ran
+with while they run.
 Then the ``{"kernels": [...]}`` line (K2, K1, K4, K5, K3, K6), the card's
 name and power limit as ``nvidia-smi`` reports them, and, last, the device
 line. Any failure exits non-zero; without a GPU, or outside a checkout of
@@ -1315,9 +1359,10 @@ def phase_sync_attack(torch, fedavg_reduce, tf32):
     """``benchmarks/bench_faults.py`` part (b) at the paper's widths and the
     sync main path's settings: a model-replacement attack (scale_attack
     x -3 on 25% of slots) under fedavg, trimmed_mean (trim 0.35) and
-    coordinate_median, with TF32 as ``sync_main`` ran it."""
+    coordinate_median, with TF32 as ``sync_main`` ran it. Returns each
+    aggregator's row."""
     with _TF32(torch, tf32):
-        _sync_attack(torch, fedavg_reduce, tf32)
+        return _sync_attack(torch, fedavg_reduce, tf32)
 
 
 def _sync_attack(torch, fedavg_reduce, tf32):
@@ -1367,6 +1412,7 @@ def _sync_attack(torch, fedavg_reduce, tf32):
         raise AssertionError("sync_attack: the attack never hit")
     emit({"phase": "sync_attack", "ok": True, "argv": argv, "attack": ATTACK,
           "rounds": SYNC_ATTACK_ROUNDS, "tf32": tf32, "aggregators": rows})
+    return rows
 
 
 def _order_stat_ms(torch, name, kwargs, C, params):
@@ -1745,6 +1791,451 @@ def _sync_hier(torch, fedavg_reduce, tf32):
           "tier_var_X": ls["tier_var_X"], "tier_num_samples": ls["tier_num_samples"],
           "peak_mem_gib": peak_gib, "host_syncs_in_2_rounds": 0})
     return launches
+
+
+# --- slice E: adaptive defense -------------------------------------------------
+
+DEF_STEPS = 4  # defense_contracts' steps (6 for the crash-restart)
+# tests/test_defense.py's ARMED: a low threshold and a short mtd window, so
+# a few steps quarantine and move the ladder
+DEF_ARMED = {"threshold": 0.3, "mtd": True, "mtd_window": 2, "mtd_up": 0.05,
+             "mtd_down": 0.01}
+DEF_ATTACK = dict(faults=("scale_attack",), fault_rate=1.0,
+                  fault_kwargs={"scale_attack": {"factor": -3.0, "client_frac": 0.25}})
+COLLUDE_ATTACK = dict(faults=("collude",), fault_rate=1.0,
+                      fault_kwargs={"collude": {"client_frac": 0.25, "jitter": 0.1}})
+# tests/test_collusion.py's ARMED: collusion sketches and the learned head
+# fed the exposure labels
+DEF_COLLUSION = dict(defense=True, defense_kwargs={"threshold": 0.3, "collusion": True,
+                                                   "detector": "learned",
+                                                   "clique_min_obs": 2},
+                     fault_exposure=True, **COLLUDE_ATTACK)
+ASYNC_DEFENSE_STEPS = 10
+ASYNC_DEFENSE_FLAGS = ["--faults", "scale_attack", "--fault-rate", "1", "--defense",
+                       "--collusion", "--quarantine-threshold", "0.55"]
+SYNC_DEFENSE_ROUNDS = 20
+# benchmarks/bench_defense.py's pinned knobs
+BENCH_DEFENSE = {"threshold": 0.55, "ewma": 0.5}
+BENCH_MTD = {"mtd": True, "mtd_window": 4, "mtd_trims": (0.0, 0.15, 0.25, 0.35),
+             "mtd_up": 0.1, "mtd_down": 0.02}
+BENCH_COLLUSION = {**BENCH_DEFENSE, "collusion": True, "clique_min_obs": 2,
+                   "q_decay": 1.0, "threshold": 0.60}
+FAMILIES = ("base", "trimmed_mean", "coordinate_median", "norm_clip")
+
+
+def _detection(res, fault):
+    """Recall and false-positive rate of the final suspects (status != 0)
+    against the run's fault exposure."""
+    import numpy as np
+
+    hit = res.fault_exposure[fault] > 0
+    flagged = res.defense["status"] != 0
+    return {"exposed": int(hit.sum()), "flagged": int(flagged.sum()),
+            "flagged_exposed": int((flagged & hit).sum()),
+            "recall": float((flagged & hit).sum() / max(int(hit.sum()), 1)),
+            "fpr": float((flagged & ~hit).sum() / max(int((~hit).sum()), 1)),
+            "rep_exposed_mean": float(np.mean(res.defense["reputation"][hit]))
+            if hit.any() else None}
+
+
+def _def_counters(load_stats):
+    return {key: v for key, v in load_stats.items() if key.startswith("def_")}
+
+
+def phase_defense_contracts(torch, fedavg_reduce):
+    """Slice E's bitwise contracts on the card, TF32 off and cuDNN
+    deterministic inside (both restored after): defense off adds no state
+    and no sub-stream; ``threshold=inf`` with mtd armed equals the calm run
+    (both engines, per step and chunked); the ARMED run and the collusion +
+    learned + exposure run give ``run_chunk`` == per-step in both engines;
+    a crash-restart of an armed mtd + collusion run; a replayed armed run
+    equal to the CPU port's in every discrete output; and the host-read
+    rule (one read of the mtd level per closed window, none otherwise)."""
+    with _TF32(torch, {"cudnn": False, "matmul": False}):
+        return _defense_contracts(torch, fedavg_reduce)
+
+
+def _defense_contracts(torch, fedavg_reduce):
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs.paper_cnn import MNIST_CNN
+    from repro_torch.core.draws import ReplayDraws
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.data.synthetic import load_dataset
+    from repro_torch.engine import RunConfig, make_engine
+    from repro_torch.fl import make_cnn_task
+    from repro_torch.sim import events as ev_mod
+
+    t_start = time.time()
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    k1_before = fedavg_reduce.launches
+    try:
+        n, k, steps = FAULT_N, FAULT_K, DEF_STEPS
+        train, test = load_dataset("mnist", seed=0, scale=0.02)
+        task = make_cnn_task(MNIST_CNN, train, test, n, seed=0, device="cuda")
+        base = dict(n_clients=n, k=k, m=10, policy="markov", rounds=steps,
+                    local_epochs=2, batch_size=50, lr0=0.02, seed=0)
+        asyn = dict(base, mode="async", profile="lognormal")
+        sync = dict(base, mode="sync")
+        armed = dict(defense=True, defense_kwargs=DEF_ARMED, **DEF_ATTACK)
+        out = {"phase": "defense_contracts", "n": n, "k": k, "steps": steps,
+               "cnn": "paper-cnn-mnist (full widths)", "cudnn_deterministic": True,
+               "tf32": False}
+
+        # defense off: no state key and no sub-stream
+        eng = make_engine(task, RunConfig(**asyn))
+        st, _ = eng.step(eng.init(), 0)
+        out["off_adds_no_state"] = ("defense" not in st
+                                    and list(eng.draws.get_state()) == [""])
+
+        # threshold=inf with mtd armed == calm: per step, and chunked
+        def inf_equals_calm(kw):
+            inf_kw = dict(kw, defense=True, defense_kwargs={
+                "threshold": math.inf, "mtd": True, "mtd_window": 2})
+            calm, arm = make_engine(task, RunConfig(**kw)), make_engine(task, RunConfig(**inf_kw))
+            sc, sa = calm.init(), arm.init()
+            same = True
+            for r in range(steps):
+                sc, ac = calm.step(sc, r)
+                sa, aa = arm.step(sa, r)
+                same &= torch.equal(ac["send"], aa["send"]) and torch.equal(
+                    ac["loss"].nan_to_num(-1.0), aa["loss"].nan_to_num(-1.0))
+            chunk = make_engine(task, RunConfig(**inf_kw))
+            sk, _ = chunk.run_chunk(chunk.init(), 0, steps, False)
+            return (same and not _mismatches(torch, sc["params"], sa["params"])
+                    and not _mismatches(torch, sa, sk))
+
+        out["inf_equals_calm_async"] = inf_equals_calm(asyn)
+        out["inf_equals_calm_sync"] = inf_equals_calm(sync)
+
+        # armed: run_chunk == per-step, the whole state
+        def chunk_vs_steps(kw):
+            per = make_engine(task, RunConfig(**kw))
+            st = per.init()
+            for r in range(steps):
+                st, _ = per.step(st, r)
+            ch = make_engine(task, RunConfig(**kw))
+            sc, _ = ch.run_chunk(ch.init(), 0, steps, False)
+            return st, not _mismatches(torch, st, sc)
+
+        for name, kw in (("armed_async", dict(asyn, **armed)),
+                         ("armed_sync", dict(sync, **armed)),
+                         ("collusion_learned_async", dict(asyn, **DEF_COLLUSION)),
+                         ("collusion_learned_sync", dict(sync, **DEF_COLLUSION))):
+            st, out[f"{name}_chunk_equals_per_step"] = chunk_vs_steps(kw)
+            out[f"{name}_quarantined"] = float(st["defense"]["quarantined"])
+
+        # crash-restart of an armed mtd + collusion run: 3 + 3 == 6
+        crash_kw = dict(asyn, rounds=6, defense=True,
+                        defense_kwargs={**DEF_ARMED, "collusion": True,
+                                        "clique_min_obs": 2}, **DEF_ATTACK)
+        full_eng = make_engine(task, RunConfig(**crash_kw))
+        full, _ = full_eng.run_chunk(full_eng.init(), 0, 6, False)
+        crashed = make_engine(task, RunConfig(**crash_kw))
+        half, _ = crashed.run_chunk(crashed.init(), 0, 3, False)
+        with tempfile.TemporaryDirectory() as d:
+            tree = {"state": half, "draws": crashed.draws.get_state()}
+            save_checkpoint(d, tree, step=3)
+            restored, step = load_checkpoint(d, tree)
+        restarted = make_engine(task, RunConfig(**crash_kw))
+        restarted.draws.set_state(restored["draws"])
+        resumed, _ = restarted.run_chunk(restored["state"], step, 3, False)
+        out["crash_restart_bitwise"] = not _mismatches(torch, full, resumed)
+        out["crash_restart_defense_stream"] = "defense" in tree["draws"]
+        out["crash_restart_reads"] = [restarted.defense.restore_reads,
+                                      restarted.defense.host_reads]
+
+        # one replayed armed run: the card's discrete outputs equal the CPU's
+        shapes = {p[:-2]: tuple(t.shape) for p, t in tree_paths(full["params"])
+                  if p.endswith("/w")}
+        init, per_step_draws = _replay(n, k, 10, steps, 2, task.examples_per_client,
+                                       shapes, seed=3)
+        rng = np.random.default_rng(4)
+        init["faults/scale_attack/prone"] = rng.random(n, dtype=np.float32)
+        for st_ in per_step_draws:
+            st_["faults/scale_attack/hit"] = rng.random(k, dtype=np.float32)
+            st_["defense/probation"] = rng.random(n, dtype=np.float32)
+            st_["defense/readmit"] = rng.random(n, dtype=np.float32)
+        replay_kw = dict(crash_kw, rounds=steps)
+        tasks = {"cuda": task,
+                 "cpu": make_cnn_task(MNIST_CNN, train, test, n, seed=0, device="cpu")}
+        traces = {}
+        for dev, tk in tasks.items():
+            engine = make_engine(tk, RunConfig(**replay_kw),
+                                 draws=ReplayDraws(init, per_step_draws, dev))
+            pops, orig = [], ev_mod.pop_events
+
+            def recording(ev, kk, *, use_kernel=None):
+                res = orig(ev, kk, use_kernel=use_kernel)
+                pops.append((res[1].cpu(), res[2].cpu()))
+                return res
+
+            ev_mod.pop_events = recording
+            try:
+                state, trace = engine.init(), []
+                for r in range(steps):
+                    state, aux = engine.step(state, r)
+                    dst = state["defense"]
+                    trace.append({
+                        "send": aux["send"].cpu(), "ages": state["sched"]["ages"].cpu(),
+                        "version": int(state["version"]),
+                        "defense": {key: dst[key].cpu() for key in
+                                    ("status", "level", "win", "quarantined",
+                                     "readmitted", "pressure", "win_obs", "sk_obs",
+                                     "clique_hits")},
+                        "rep": dst["rep"].cpu(),
+                        "counters": {key: float(v) for key, v in state["stats"].items()
+                                     if key in ("updates", "aggs", "stale_max")},
+                    })
+            finally:
+                ev_mod.pop_events = orig
+            traces[dev] = (trace, pops)
+        worst_rep = 0.0
+        for r in range(steps):
+            (a, (ai, av)), (b, (bi, bv)) = [(t[0][r], t[1][r]) for t in
+                                            (traces["cuda"], traces["cpu"])]
+            same = (torch.equal(a["send"], b["send"]) and torch.equal(ai, bi)
+                    and torch.equal(av, bv) and torch.equal(a["ages"], b["ages"])
+                    and a["version"] == b["version"] and a["counters"] == b["counters"]
+                    and all(torch.equal(v, b["defense"][key])
+                            for key, v in a["defense"].items()))
+            if not same:
+                raise AssertionError(f"defense_contracts: replay step {r} discrete "
+                                     "outputs differ between the card and the CPU")
+            worst_rep = max(worst_rep, float((a["rep"] - b["rep"]).abs().max()))
+        last = traces["cpu"][0][-1]["defense"]
+        out["replay_card_equals_cpu"] = True
+        out["replay_max_rep_diff"] = worst_rep
+        out["replay_defense"] = {key: v.tolist() for key, v in last.items()
+                                 if v.dim() == 0}
+        if not float(last["quarantined"]) > 0:
+            raise AssertionError(f"defense_contracts: the replayed run quarantined "
+                                 f"no one: {out['replay_defense']}")
+
+        # the host-read rule, under CUDA's sync debug mode: the mtd run reads
+        # the level once per closed window (windows close after steps 4 and
+        # 6 here), the collusion + learned runs never read
+        holder = {}
+        mtd_eng = make_engine(task, RunConfig(**dict(asyn, rounds=8, **armed)))
+        holder["st"], _ = mtd_eng.run_chunk(mtd_eng.init(), 0, 2, False)
+        reads0 = mtd_eng.defense.host_reads
+
+        def mtd_steps():
+            holder["st"], _ = mtd_eng.run_chunk(holder["st"], 2, 4, False)
+
+        out["mtd_syncs_in_4_steps"] = len(_syncs_in(torch, mtd_steps))
+        out["mtd_level_reads_in_4_steps"] = mtd_eng.defense.host_reads - reads0
+        for name, kw in (("async", asyn), ("sync", sync)):
+            eng = make_engine(task, RunConfig(**dict(kw, **DEF_COLLUSION)))
+            holder["st"], _ = eng.run_chunk(eng.init(), 0, 1, False)
+
+            def two_steps():
+                holder["st"], _ = eng.run_chunk(holder["st"], 1, 2, False)
+
+            out[f"collusion_learned_{name}_syncs_in_2_steps"] = len(_syncs_in(torch, two_steps))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    out["k1_launches"] = fedavg_reduce.launches - k1_before
+    out["seconds"] = time.time() - t_start
+    failed = [key for key in ("off_adds_no_state", "inf_equals_calm_async",
+                              "inf_equals_calm_sync", "armed_async_chunk_equals_per_step",
+                              "armed_sync_chunk_equals_per_step",
+                              "collusion_learned_async_chunk_equals_per_step",
+                              "collusion_learned_sync_chunk_equals_per_step",
+                              "crash_restart_bitwise", "crash_restart_defense_stream")
+              if not out[key]]
+    if failed:
+        raise AssertionError(f"defense_contracts: {failed} do not hold")
+    expect = {"crash_restart_reads": [1, 2], "mtd_syncs_in_4_steps": 2,
+              "mtd_level_reads_in_4_steps": 2,
+              "collusion_learned_async_syncs_in_2_steps": 0,
+              "collusion_learned_sync_syncs_in_2_steps": 0}
+    wrong = {key: out[key] for key, v in expect.items() if out[key] != v}
+    if wrong:
+        raise AssertionError(f"defense_contracts: host reads {wrong}, expected "
+                             f"{ {key: expect[key] for key in wrong} }")
+    if not out["k1_launches"] > 0:
+        raise AssertionError("defense_contracts: K1 (the robust center) never launched")
+    if not (out["armed_async_quarantined"] > 0 and out["armed_sync_quarantined"] > 0):
+        raise AssertionError(f"defense_contracts: the armed runs quarantined no one: {out}")
+    emit({**out, "ok": True})
+    return out["k1_launches"]
+
+
+def phase_async_defense(torch, event_topk, fedavg_reduce, calm):
+    """``main``'s configuration cut to ASYNC_DEFENSE_STEPS steps under the
+    pinned attack (scale_attack x -3 on a quarter of the fleet, every pop)
+    with ``--defense --collusion`` (threshold 0.55, ewma 0.5) and
+    ``fault_exposure``: the step time beside ``main``'s, with TF32 as
+    ``main`` ran it. Returns the K2 and K1 launches."""
+    with _TF32(torch, calm["tf32"]):
+        return _async_defense(torch, event_topk, fedavg_reduce, calm)
+
+
+def _async_defense(torch, event_topk, fedavg_reduce, calm):
+    import dataclasses
+
+    from repro_torch.engine import make_engine
+    from repro_torch.launch import fl_async
+
+    t_start = time.time()
+    argv = MAIN_ARGV[:-1] + [str(ASYNC_DEFENSE_STEPS)] + ASYNC_DEFENSE_FLAGS
+    args = fl_async.parse_args(argv)
+    task, engine = fl_async.build(args)
+    # the attack's factor and coalition and the EWMA have no flag
+    cfg = dataclasses.replace(engine.cfg, fault_kwargs=DEF_ATTACK["fault_kwargs"],
+                              fault_exposure=True,
+                              defense_kwargs={**engine.cfg.defense_kwargs, "ewma": 0.5})
+    engine = make_engine(task, cfg)
+    setup_s = time.time() - t_start
+    first, run_chunk = {}, engine.run_chunk
+
+    def recording(state, *rest):  # the reputations after the first step
+        out = run_chunk(state, *rest)
+        if not first:
+            first["rep"] = out[0]["defense"]["rep"].clone()
+            first["exposed"] = out[0]["faults"]["scale_attack"]["exposed"].clone()
+        return out
+
+    engine.run_chunk = recording
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    event_topk.launches = fedavg_reduce.launches = 0
+    try:
+        res, state = _run_captured(engine, progress=True)
+    finally:
+        engine.run_chunk = run_chunk
+    k2, k1 = event_topk.launches, fedavg_reduce.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    fl_async.report(res, args)
+    ls = res.load_stats
+    if (k2, k1) != (cfg.rounds, cfg.rounds):
+        raise AssertionError(f"async_defense: K2 {k2} and K1 {k1} launches in "
+                             f"{cfg.rounds} steps, expected one each a step (K1: the "
+                             "robust center)")
+    off = [p for p, t in _state_tensors(state)
+           if not (isinstance(t, torch.Tensor) and t.is_cuda)]
+    if off:
+        raise AssertionError(f"async_defense: engine state off the GPU: {off}")
+    # a cost phase: in 10 steps a client is popped about 0.16 times, and at
+    # ewma 0.5 one observation leaves even a -3x attacker below the 0.55
+    # threshold, so few or none are quarantined and fedbuff (no robust
+    # rule) may diverge under the attack; the scores must still separate
+    evals = [r.eval_loss for r in res.records]
+    rep1, hit1 = first["rep"].cpu(), first["exposed"].cpu() > 0
+    honest1 = ~hit1 & (rep1 > 0)
+    sep = {"exposed_after_step_1": int(hit1.sum()),
+           "rep_exposed_mean_after_step_1": float(rep1[hit1].mean()) if hit1.any() else None,
+           "rep_honest_scored_mean_after_step_1":
+               float(rep1[honest1].mean()) if honest1.any() else 0.0}
+    if not (ls["fault_scale_attack_injected"] > 0 and hit1.any()
+            and sep["rep_exposed_mean_after_step_1"]
+            > sep["rep_honest_scored_mean_after_step_1"]):
+        raise AssertionError(f"async_defense: the attack did not hit, or the first "
+                             f"step's reputations do not separate the attackers: {sep}")
+    state, syncs = sync_free_steps(torch, engine, state, cfg.rounds)
+    if syncs:
+        raise AssertionError(f"async_defense: a step synchronized with the host: {syncs}")
+    out = {"phase": "async_defense", "ok": True, "argv": argv, "tf32": calm["tf32"],
+           "fault_kwargs": cfg.fault_kwargs, "defense_kwargs": cfg.defense_kwargs,
+           "k2_launches": k2, "k1_launches": k1, "steps": cfg.rounds,
+           "steps_per_s": cfg.rounds / res.wall_time_s, "setup_s": setup_s,
+           "eval_loss": evals[-1], "accuracy": res.records[-1].accuracy,
+           "injected": ls["fault_scale_attack_injected"], **_def_counters(ls),
+           "detection": _detection(res, "scale_attack"), **sep,
+           "eval_losses": evals,
+           "updates_applied": res.wall_stats["updates_applied"],
+           "peak_mem_gib": peak_gib, "host_syncs_in_2_steps": 0}
+    out.update(steady_and_profile(torch, engine, state, cfg.rounds + 2,
+                                  res.wall_time_s, match="fedavg_reduce"))
+    out["main_steady_ms_per_step"] = calm["steady_ms_per_step"]
+    out["defense_over_main"] = out["steady_ms_per_step"] / calm["steady_ms_per_step"]
+    out["seconds"] = time.time() - t_start
+    emit(out)
+    return k2, k1
+
+
+def phase_sync_defense(torch, fedavg_reduce, tf32, fedavg_attack):
+    """``sync_main`` cut to SYNC_DEFENSE_ROUNDS rounds under
+    ``benchmarks/bench_defense.py``'s pinned attack and knobs, with TF32 as
+    ``sync_main`` ran it: (a) the trim ladder over fedavg under the scale
+    attack, (b) the family ladder, (c) the collude coalition under
+    collusion scoring and the learned head. ``fedavg_attack`` is
+    ``sync_attack``'s fedavg row, printed beside. Returns K1's launches."""
+    with _TF32(torch, tf32):
+        return _sync_defense(torch, fedavg_reduce, tf32, fedavg_attack)
+
+
+def _sync_defense(torch, fedavg_reduce, tf32, fedavg_attack):
+    import dataclasses
+
+    from repro_torch.engine import make_engine
+    from repro_torch.launch import fl_train
+    from repro_torch.launch._fl_cli import build_run_config, build_task
+
+    t_start = time.time()
+    argv = SYNC_ARGV[:-1] + [str(SYNC_DEFENSE_ROUNDS)]
+    args = fl_train.parse_args(argv)
+    task = build_task(args)
+    base = build_run_config(args, mode="sync", eval_div=30)
+    attack = dict(DEF_ATTACK, fault_exposure=True)
+    runs = {
+        "a_trim_ladder": (SYNC_DEFENSE_ROUNDS, "scale_attack", dict(
+            defense=True, defense_kwargs={**BENCH_DEFENSE, **BENCH_MTD}, **attack)),
+        "b_family_ladder": (10, "scale_attack", dict(
+            defense=True, defense_kwargs={**BENCH_DEFENSE, **BENCH_MTD,
+                                          "mtd_families": FAMILIES}, **attack)),
+        "c_collusion_learned": (SYNC_DEFENSE_ROUNDS, "collude", dict(
+            defense=True, defense_kwargs={**BENCH_COLLUSION, "detector": "learned"},
+            fault_exposure=True, **COLLUDE_ATTACK)),
+    }
+    rows, total_k1 = {}, 0
+    for name, (rounds, fault, kw) in runs.items():
+        cfg = dataclasses.replace(base, rounds=rounds, eval_every=max(rounds // 30, 1),
+                                  **kw)
+        engine = make_engine(task, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fedavg_reduce.launches = 0
+        res, state = _run_captured(engine)
+        launches = fedavg_reduce.launches
+        total_k1 += launches
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        steady, _ = _steady_ms(torch, engine, state, rounds, 3, cfg.eval_every)
+        last, ls = res.records[-1], res.load_stats
+        rows[name] = {
+            "rounds": rounds, "defense_kwargs": cfg.defense_kwargs,
+            "fault": fault, "fault_kwargs": cfg.fault_kwargs,
+            "eval_loss": last.eval_loss, "accuracy": last.accuracy,
+            "first_eval_loss": res.records[0].eval_loss,
+            "injected": ls[f"fault_{fault}_injected"], **_def_counters(ls),
+            "detection": _detection(res, fault), "k1_launches": launches,
+            "rounds_per_s": rounds / res.wall_time_s, "steady_ms_per_round": steady,
+            "peak_mem_gib": peak_gib,
+        }
+        print(f"  sync_defense {name}: eval_loss={last.eval_loss:.4f} "
+              f"acc={last.accuracy:.4f} {rows[name]['detection']} "
+              f"{_def_counters(ls)}", flush=True)
+        bad_k1 = launches != 2 * rounds if name != "b_family_ladder" else launches < 2 * rounds
+        if bad_k1:
+            raise AssertionError(f"sync_defense {name}: K1 launched {launches} times in "
+                                 f"{rounds} rounds, expected two a round (fedavg and "
+                                 "the robust center)")
+        if not all(math.isfinite(r.eval_loss) for r in res.records):
+            raise AssertionError(f"sync_defense {name}: eval losses "
+                                 f"{[r.eval_loss for r in res.records]}")
+    a = rows["a_trim_ladder"]
+    if not (a["def_quarantine_inflow"] > 0 and a["detection"]["flagged_exposed"] >= 1):
+        raise AssertionError(f"sync_defense: run (a) caught no attacker: {a}")
+    emit({"phase": "sync_defense", "ok": True, "argv": argv, "tf32": tf32, "runs": rows,
+          "sync_attack_fedavg": {key: fedavg_attack[key] for key in
+                                 ("eval_loss", "accuracy", "steady_ms_per_round")},
+          "seconds": time.time() - t_start})
+    return total_k1
 
 
 def _attn_inputs(torch, gen, shape, dtype, decode=False):
@@ -2703,11 +3194,17 @@ def main() -> int:
     phase_parity(torch)
     phase_sync_parity(torch, fedavg_reduce)
     phase_fault_contracts(torch, fedavg_reduce)
-    phase_sync_attack(torch, fedavg_reduce, calm["tf32"])
+    attack_rows = phase_sync_attack(torch, fedavg_reduce, calm["tf32"])
     phase_async_chaos(torch, event_topk, fedavg_reduce, calm)
     phase_topo_contracts(torch, fedavg_reduce)
     k1_entry["launches"] += phase_async_hier(torch, event_topk, fedavg_reduce, calm)
     k1_entry["launches"] += phase_sync_hier(torch, fedavg_reduce, calm["tf32"])
+    phase_defense_contracts(torch, fedavg_reduce)
+    k2, k1 = phase_async_defense(torch, event_topk, fedavg_reduce, calm)
+    entry["launches"] += k2
+    k1_entry["launches"] += k1
+    k1_entry["launches"] += phase_sync_defense(torch, fedavg_reduce, calm["tf32"],
+                                               attack_rows["fedavg"])
     k4_entry = phase_kernel_k4(torch, flash_attention)
     k5_entry = phase_kernel_k5(torch, flash_decode)
     k4_entry["launches"], k5_entry["launches"] = phase_serve_main(

@@ -34,7 +34,7 @@ tier off the calm stream: a fault coin drawn from the run's stream would
 shift every later ``local_perm`` draw, so a rate-0 armed run would stop
 being the calm run. The reference keeps them apart the same way, on
 dedicated key folds (104 for the hop latency, 105 and its sub-folds 0/1/2,
-106/107 for re-dispatch,
+106/107 for re-dispatch, 108 and its sub-folds 0/1 for the defense,
 ``fold_in(k_run, 2**31)`` or ``fold_in(key, 7)`` at init). Sites of the
 sub-streams, as ``ReplayDraws`` names them:
 
@@ -50,7 +50,10 @@ sub-streams, as ``ReplayDraws`` names them:
   tier-0 link, ``(n,)``; hop ``i`` >= 1 the ``(E,)`` draws of the tier
   above, or of gossip round ``i - 1``; the reference's ``i``-th split of
   its fold-104 key) and ``redispatch/hop/<i>/...`` (the same for a
-  re-dispatch, its fold 107).
+  re-dispatch, its fold 107); ``defense/probation`` and ``defense/readmit``
+  (the quarantine chain's coins: uniform ``(n,)``, both drawn every step
+  the defense is armed, in that order; the reference's fold-108 sub-folds
+  0 and 1).
 
 A replayed Bernoulli coin is the reference's ``uniform(key, shape) < p``
 (that is how ``jax.random.bernoulli`` draws), so the port compares the

@@ -224,6 +224,50 @@ def _kahan_add(sum_, comp, x):
     return t, (t - sum_) - y
 
 
+def scatter_targets(idx, n: int):
+    """JAX's index rules for a gather and a ``mode="drop"`` scatter over an
+    axis of length ``n``: a negative index wraps once (``-1`` is ``n - 1``);
+    then a gather clamps what is still out of range, and a scatter drops it.
+    Returns ``(gather index, in-range mask)``."""
+    import torch
+
+    j = torch.where(idx < 0, idx + n, idx)
+    return torch.clamp(j, 0, n - 1), (j >= 0) & (j < n)
+
+
+def ewma_scatter_update(vec, idx, values, mask, alpha):
+    """Masked scatter-EWMA over an (n,) per-client statistic.
+
+    ``vec[idx[j]] <- (1 - alpha) * vec[idx[j]] + alpha * values[j]`` for
+    every slot with ``mask[j]``; other slots (padding, failed cohort
+    members) add an exact 0.0, and a slot whose index is out of range
+    writes nothing (it adds -0.0, the exact identity, at a clamped
+    target), so an all-False mask is bitwise identity. Duplicate masked-in
+    slots each add their step, as the reference's ``.at[].add`` does. The
+    add is ``index_add_``: on the card it adds with atomics, which is exact
+    in any order when each target gets at most one nonzero term — the
+    engines' case (a step's valid clients are distinct).
+    """
+    import torch
+
+    g, inb = scatter_targets(idx, vec.shape[0])
+    delta = torch.where(mask, alpha * (values - vec[g]), 0.0).to(vec.dtype)
+    delta = torch.where(inb, delta, -0.0)
+    return vec.index_add(0, g, delta)
+
+
+def ewma_scatter_update_rows(mat, idx, rows, mask, alpha):
+    """Row-wise :func:`ewma_scatter_update` over an (n, d) per-client matrix:
+    ``mat[idx[j]] <- (1 - alpha) * mat[idx[j]] + alpha * rows[j]`` for every
+    slot with ``mask[j]``, under the same index and exactness rules."""
+    import torch
+
+    g, inb = scatter_targets(idx, mat.shape[0])
+    delta = torch.where(mask[:, None], alpha * (rows - mat[g]), 0.0).to(mat.dtype)
+    delta = torch.where(inb[:, None], delta, -0.0)
+    return mat.index_add(0, g, delta)
+
+
 def init_selection_accum(n: int, expected_cohort: int = 0, device="cpu"):
     """Fresh accumulator dict for an ``n``-client fleet on ``device``.
 

@@ -10,17 +10,29 @@ the last ``max_versions`` global models) -> aggregator
 ``weigh/init/accumulate/finalize`` over the buffered deltas -> clock/
 version advance.
 
-This is ``repro.engine.async_engine`` without defense (``RunConfig``
-rejects it). The robustness tier and the aggregation topology ride the
-step as in the reference, under the same structural rule: faults, the
-deadline re-dispatch, a multi-tier topology and a heartbeat, when armed,
-add their state to the engine state and draw from their own sub-streams of
-the run's source (``faults``, ``redispatch``, ``hop``); absent, no state
-key, no draw and no op exists, so the engine is the calm one, and a star
-topology is no topology bit for bit. Every tensor of the state lives on
-the task's device and no step syncs with the host: masked scatters go
-through ``sim.events.scatter_set``, and the only host pulls are the
-per-chunk aux transfer and ``finalize``.
+This is ``repro.engine.async_engine`` on one device (meshes wait for
+slice F). The robustness tier, the aggregation topology and the adaptive
+defense ride the step as in the reference, under the same structural
+rule: faults, the deadline re-dispatch, a multi-tier topology, a heartbeat
+and the defense, when armed, add their state to the engine state and draw
+from their own sub-streams of the run's source (``faults``,
+``redispatch``, ``hop``, ``defense``); absent, no state key, no draw and no
+op exists, so the engine is the calm one, and a star topology is no
+topology bit for bit. Every tensor of the state lives on the task's device
+and no step syncs with the host: masked scatters go through
+``sim.events.scatter_set``, and the only host pulls are the per-chunk aux
+transfer, ``finalize`` and the moving-target defense's level.
+
+**Host reads of the mtd level.** The reference picks the mtd rung inside
+its jitted step from the level on the device. Here the rung is chosen in
+Python, and the rule is: ``observe`` advances the window counter ``win``
+by one every step and changes ``level`` only on the step that closes a
+window, so the host tracks ``win`` itself (read once from a state the
+engine did not make: a restored checkpoint) and reads ``level`` from the
+device once, on each step that closes a window, after ``observe`` and
+before the aggregation that uses it. An mtd run therefore makes one host
+read per ``mtd_window`` steps; a run without mtd makes none
+(``Defense.step_level``).
 
 The load metric is reported on two clocks: X in decision epochs (the
 paper's round-indexed Var[X]) and X in simulated seconds (wall-clock
@@ -113,9 +125,16 @@ class AsyncEngine:
                                                                     task.device)
         self.topo = cfg.resolved_topology()
         self.fault_set = cfg.resolved_faults()
+        self.defense_cfg = cfg.resolved_defense()
+        if self.defense_cfg is not None:
+            from repro_torch.defense import make_defense
+
+            self.defense = make_defense(cfg.n_clients, self.defense_cfg)
+        else:
+            self.defense = None
         self._init_state, core = _make_async_step(
             task, cfg, self.policy, self.aggregator, self.profile,
-            topo=self.topo, faults=self.fault_set,
+            topo=self.topo, faults=self.fault_set, defense=self.defense,
         )
         self._chunk = ChunkRunner(
             core, aux_keys=("loss", "clock", "version", "buffer_fill")
@@ -205,6 +224,15 @@ class AsyncEngine:
             load_stats["rd_expired"] = int(st["rd_expired"])
         for s in self.aggregator.stat_names:
             load_stats[f"agg_{s}"] = float(st[f"agg_{s}"])
+        if "defense" in state:
+            load_stats.update(self.defense.report(state["defense"]))
+            if "tier_acc" in state:
+                from repro_torch.topo.reduce import tier_suspect_counts
+
+                load_stats["tier_suspects"] = tier_suspect_counts(
+                    self.topo, self.cfg.n_clients,
+                    state["defense"]["status"].cpu().numpy(),
+                )
         fault_exposure = None
         if "faults" in state and self.cfg.fault_exposure:
             fault_exposure = self.fault_set.exposure(state["faults"])
@@ -217,12 +245,14 @@ class AsyncEngine:
             params=state["params"],
             wall_time_s=wall_time_s,
             fault_exposure=fault_exposure,
+            defense=(self.defense.arrays(state["defense"])
+                     if "defense" in state else None),
         )
 
 
 def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
                      agg: Aggregator, profile: lat_mod.LatencyProfile,
-                     aggregate=None, topo=None, faults=None):
+                     aggregate=None, topo=None, faults=None, defense=None):
     """Builds ``(init_state, step)`` with ``step(state, draws) -> (state,
     aux)``, the function ``ChunkRunner`` loops over; ``draws`` is the
     source of this step's draws.
@@ -248,6 +278,18 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
     sub-streams (``faults``: the reference's fold 105 with sub-folds
     0 dispatch / 1 pop / 2 corruption noise; ``redispatch``: its folds
     106/107); absent, no state key, no draw and no op exists.
+
+    ``defense`` (a ``repro_torch.defense.Defense``) closes the detect ->
+    quarantine -> adapt loop inside this same step under the same rule:
+    armed, it adds its ``(n,)`` reputation/status state, draws its
+    probation/readmit coins from the ``defense`` sub-stream (the
+    reference's fold 108), vetoes quarantined clients at the admission seam
+    (``send &= ~blocked``; they still age), scores every update that
+    arrived (probation clients included), excludes post-transition suspects
+    at the aggregation seam (``succ &= ~suspect`` — the seam heartbeat dark
+    clients use), discounts clique members' weights (``w *= w_scale``) with
+    collusion armed, and with mtd swaps the aggregate hook for the
+    moving-target wrapper at the level ``Defense.step_level`` gives.
     """
     n = cfg.n_clients
     B = cfg.resolved_buffer_size()
@@ -263,6 +305,15 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
     replay_on = have_faults and faults.has("replay")
     if have_faults:
         from repro_torch.faults.inject import collude_updates, corrupt_updates
+    have_def = defense is not None
+    col_on = have_def and defense.collusion
+    mtd_on = have_def and defense.mtd
+    # supervised labels for the learned detector head: only when the run
+    # opted into exposure ground truth AND some fault actually pops
+    sup_on = (have_def and defense.wants_labels and have_faults
+              and faults.has_pop and cfg.fault_exposure)
+    if sup_on:
+        from repro_torch.faults.inject import effects_hit
     if tiered:
         from repro_torch.core.load_metric import (
             init_tier_accum,
@@ -284,6 +335,13 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
             def aggregate(g, updates, bases, w, idx=None):
                 acc = agg.accumulate(agg.init(g), updates, bases, w)
                 return agg.finalize(g, acc), acc_stats(acc)
+    if mtd_on:
+        # config rejects mtd under tiered topologies, so the wrapped hook
+        # is always the inline default; level 0 returns its params as is
+        from repro_torch.defense.adaptive import adaptive_aggregate
+
+        aggregate_mtd = adaptive_aggregate(aggregate, defense.cfg.mtd_trims,
+                                           families=defense.cfg.mtd_families)
     local_update = make_local_update(
         task.loss_fn, cfg.local_epochs, cfg.batch_size, task.examples_per_client
     )
@@ -311,6 +369,8 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
             state["tier_acc"] = init_tier_accum(n, int(topo.tier_sizes[0]), dev)
         if have_faults:
             state["faults"] = faults.init(draws.sub("faults"))
+        if have_def:
+            state["defense"] = defense.init(dev)  # deterministic zeros
         if rd_on:
             state["rd"] = {
                 "t_disp": torch.zeros((n,), dtype=torch.float32, device=dev),
@@ -328,6 +388,12 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
         available = ev["next_avail"] <= clock
         want, sched = policy.step(sched, draws)
         send = want & idle & available
+        if have_def:
+            # quarantined clients are vetoed at the admission seam (they
+            # still age); probation clients stay selectable so they keep
+            # generating evidence for re-admission
+            dstate = state["defense"]
+            send = send & ~defense.blocked(dstate)
         # only actual dispatches reset the AoI clock; everyone else ages
         sched = {**sched, "ages": age_update(prev_ages, send)}
         ep_sx, ep_sx2, ep_cnt = peak_age_accumulate(
@@ -442,11 +508,33 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
             arrived = valid & ~eff.kill if kill_on else valid
             hb = hb_mod.beat_at(hb, idx, arrived, t_ev)
         staleness = torch.clamp(version - disp_ver, min=0)
+        if have_def:
+            # every update that arrived (pre-exclusion succ) is scored —
+            # probation clients included — then post-transition suspects
+            # leave the reduction through the seam heartbeat dark clients
+            # use, closing the detect->quarantine loop within the step
+            new_dstate, suspect, w_scale = defense.observe(
+                dstate, draws.sub("defense"),
+                updated, disp_params, idx, succ, staleness,
+                losses=losses, ages=sched["ages"][idx],
+                labels=effects_hit(eff) if sup_on else None,
+            )
+            succ = succ & ~suspect[idx]
         w = agg.weigh(succ, staleness)
+        if col_on:
+            # clique members keep a (discounted) vote rather than a
+            # binary exclusion: w_scale is exact 1.0 on clique-free
+            # slots, so a calm armed run multiplies by ones
+            w = w * w_scale
         wsum = w.sum()
         has = wsum > 0
         denom = torch.clamp(wsum, min=1e-9)
-        params, agg_tel = aggregate(state["params"], updated, disp_params, w, idx)
+        if mtd_on:
+            params, agg_tel = aggregate_mtd(
+                state["params"], updated, disp_params, w, idx,
+                defense.step_level(dstate, new_dstate))
+        else:
+            params, agg_tel = aggregate(state["params"], updated, disp_params, w, idx)
         version = version + has.to(torch.int32)
         wslot = (version % H).long().view(1)
         hist = tree_map(lambda h, p: h.index_copy(0, wslot, p[None]),
@@ -500,6 +588,8 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
             new_state["hb"] = hb
         if have_faults:
             new_state["faults"] = fstate
+        if have_def:
+            new_state["defense"] = new_dstate
         if rd_on:
             new_state["rd"] = rd
         if tiered:

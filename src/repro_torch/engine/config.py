@@ -7,12 +7,15 @@ into chunks that never straddle an eval step.
 
 The port runs the synchronous and asynchronous paths (ROADMAP queue 1,
 slices A and B) with the robustness tier (slice C: faults, robust
-aggregators, deadline re-dispatch and ``fault_exposure``) and aggregation
+aggregators, deadline re-dispatch and ``fault_exposure``), aggregation
 topologies (slice D: ``topology``/``topology_kwargs``, resolved eagerly
-through ``repro_torch.topo.graph``), validated as the reference validates
-them. A config that asks for anything else — defense, a device mesh or a
-JAX PRNG implementation — raises ``NotImplementedError`` naming the slice
-that brings it, in either mode; no option is silently ignored.
+through ``repro_torch.topo.graph``) and the adaptive defense (slice E:
+``defense``/``defense_kwargs``, resolved eagerly through
+``repro_torch.defense.config``), validated as the reference validates
+them. A config that asks for anything else — a device mesh, cohort
+sharding or a JAX PRNG implementation — raises ``NotImplementedError``
+naming the slice that brings it, in either mode; no option is silently
+ignored.
 
 This module is dependency-free (dataclasses + numpy only).
 """
@@ -106,7 +109,13 @@ class RunConfig:
     redispatch_timeout: Optional[float] = None
     redispatch_retries: int = 1
     shard_cohort: bool = False  # slice F
-    defense: bool = False  # slice E
+    # --- adaptive defense (repro_torch.defense) ---
+    # False -> no defense state, no sub-stream, no ops: the engines are
+    # structurally the calm run. True arms per-client reputation +
+    # quarantine (and, via defense_kwargs={"mtd": True}, moving-target
+    # aggregation); the state rides the engine state like fault state, so
+    # it works per-step and chunked, and checkpoints/restores bitwise.
+    defense: bool = False
     defense_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
     # surface per-client fault-exposure counts ((n,) per armed fault) in
     # RunResult.fault_exposure
@@ -168,6 +177,25 @@ class RunConfig:
                 "fault_exposure=True records per-client fault hits, but "
                 "no faults are configured — arm faults or drop the flag"
             )
+        if self.defense:
+            # resolve eagerly (torch-free DefenseConfig) so a bad knob
+            # fails at config construction, like topology resolution.
+            # The reference's shard_cohort checks are not repeated:
+            # _slice_guard rejects shard_cohort first
+            dcfg = self.resolved_defense()
+            if dcfg.mtd:
+                topo = self.resolved_topology()
+                if topo is not None and not topo.is_star:
+                    raise ValueError(
+                        "moving-target defense (mtd) swaps in an "
+                        "order-statistic trimmed mean, which is not "
+                        "additive: it cannot ride a tiered topology's "
+                        "segment-sum reduction — disable mtd or use the "
+                        "star topology (reputation/quarantine alone work "
+                        "everywhere)"
+                    )
+        elif self.defense_kwargs:
+            raise ValueError("defense_kwargs given without defense=True")
         if self.redispatch_timeout is not None:
             if self.mode != "async":
                 raise ValueError(
@@ -259,12 +287,29 @@ class RunConfig:
             for nm in names
         )
 
+    def resolved_defense(self):
+        """The ``repro_torch.defense.DefenseConfig`` this run arms, or None
+        (``repro_torch.defense.config`` is a plain dataclass module, so
+        eager validation in ``__post_init__`` imports no torch)."""
+        if not self.defense:
+            return None
+        from repro_torch.defense.config import DefenseConfig
+
+        accepted = tuple(f.name for f in dataclasses.fields(DefenseConfig))
+        stray = sorted(set(self.defense_kwargs) - set(accepted))
+        if stray:
+            raise ValueError(
+                f"unknown defense_kwargs key(s) "
+                f"{', '.join(repr(s) for s in stray)}; accepted: "
+                f"{', '.join(accepted)}"
+            )
+        return DefenseConfig(**dict(self.defense_kwargs))
+
 
 def _slice_guard(cfg: "RunConfig") -> None:
     """Reject every option of the reference that the port does not run yet,
     naming the ROADMAP queue-1 slice that brings it."""
     later = (
-        ("defense", cfg.defense or bool(cfg.defense_kwargs), "slice E (defense)"),
         ("mesh_shards", cfg.mesh_shards is not None, "slice F (multi-GPU)"),
         ("shard_cohort", cfg.shard_cohort, "slice F (multi-GPU)"),
     )

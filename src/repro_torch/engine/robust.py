@@ -20,7 +20,10 @@ global params arbitrarily far. These aggregators bound that influence:
 
 The order statistics sort the cohort axis with ``torch.sort`` (the
 reference sorts with ``jnp.sort``, outside any Pallas kernel), invalid
-slots pushed to ``+inf``; the valid count stays on the device. All three
+slots pushed to ``+inf``; the valid count stays on the device. The sort
+and the two reductions (``sorted_valid_deltas``, ``trimmed_mean_sorted``,
+``median_sorted``) also serve the moving-target ladder's order-statistic
+rungs (``defense/adaptive.py``). All three
 are delta aggregators (``finalize`` adds the robust mean delta to the
 global params); ``trimmed_mean``/``coordinate_median`` treat weights as
 validity only (order statistics are unweighted — counted per slot in the
@@ -106,6 +109,42 @@ def make_norm_clip(clip: float = 10.0, staleness_mode: str = "poly",
                       accumulate_nodes=accumulate_nodes)
 
 
+def sorted_valid_deltas(u, b, valid):
+    """The f32 deltas ``u - b`` of one leaf sorted over the cohort axis, the
+    invalid slots pushed to ``+inf`` at the top, and the rank of each row
+    (shaped to broadcast against them)."""
+    ws = (-1,) + (1,) * (u.dim() - 1)
+    d = torch.where(valid.view(ws), (u - b).to(torch.float32), torch.inf)
+    d_sorted = torch.sort(d, dim=0, stable=True).values
+    ranks = torch.arange(d.shape[0], device=d.device).view(ws)
+    return d_sorted, ranks
+
+
+def trimmed_mean_sorted(d_sorted, ranks, c, trim):
+    """Mean of the ``c`` valid sorted values without the ``floor(c * trim)``
+    lowest and highest (at most ``(c - 1) // 2`` each side)."""
+    t = torch.floor(c.to(torch.float32) * trim).to(c.dtype)
+    t = torch.minimum(torch.clamp(t, min=0), torch.clamp((c - 1) // 2, min=0))
+    keep = (ranks >= t) & (ranks < c - t)
+    kept = torch.where(keep, d_sorted, 0.0)
+    return kept.sum(dim=0) / torch.clamp(c - 2 * t, min=1)
+
+
+def median_sorted(d_sorted, ranks, c):
+    """Median of the ``c`` valid sorted values (0.0 when ``c`` is 0)."""
+    lo = torch.clamp((c - 1) // 2, min=0)
+    hi = torch.clamp(c // 2, min=0)
+    pick = torch.where(c > 0, (ranks == lo).to(torch.float32)
+                       + (ranks == hi).to(torch.float32), 0.0)
+    # lo == hi for odd c: pick sums to 2 either way, so /2 is the
+    # median (odd) or the midpoint of the two middle values (even);
+    # the other terms are exact zeros, so any summation order gives
+    # the reference's bits
+    return torch.where(
+        c > 0, torch.sum(torch.where(pick > 0, d_sorted * pick, 0.0),
+                         dim=0) / 2.0, 0.0)
+
+
 def _order_stat_aggregator(name: str, reduce_sorted) -> Aggregator:
     """Shared chassis of the order-statistic aggregators: per-coordinate
     sort of the valid deltas (invalid slots pushed to +inf at the top),
@@ -124,15 +163,8 @@ def _order_stat_aggregator(name: str, reduce_sorted) -> Aggregator:
         valid = w > 0
         c = valid.to(torch.int32).sum()  # stays on the device
 
-        def one(u, b):
-            ws = (-1,) + (1,) * (u.dim() - 1)
-            d = torch.where(valid.view(ws), (u - b).to(torch.float32),
-                            torch.inf)
-            d_sorted = torch.sort(d, dim=0, stable=True).values
-            ranks = torch.arange(d.shape[0], device=d.device).view(ws)
-            return reduce_sorted(d_sorted, ranks, c)
-
-        delta = tree_map(one, updates, bases)
+        delta = tree_map(lambda u, b: reduce_sorted(*sorted_valid_deltas(u, b, valid), c),
+                         updates, bases)
         cf = c.to(torch.float32)
         return {
             "delta": tree_map(torch.add, acc["delta"], delta),
@@ -174,14 +206,9 @@ def make_trimmed_mean(trim: float = 0.2, staleness_mode=None,
     if not 0.0 <= trim < 0.5:
         raise ValueError(f"trimmed_mean: trim must be in [0, 0.5), got {trim}")
 
-    def reduce_sorted(d_sorted, ranks, c):
-        t = torch.floor(c.to(torch.float32) * trim).to(c.dtype)
-        t = torch.minimum(torch.clamp(t, min=0), torch.clamp((c - 1) // 2, min=0))
-        keep = (ranks >= t) & (ranks < c - t)
-        kept = torch.where(keep, d_sorted, 0.0)
-        return kept.sum(dim=0) / torch.clamp(c - 2 * t, min=1)
-
-    return _order_stat_aggregator("trimmed_mean", reduce_sorted)
+    return _order_stat_aggregator(
+        "trimmed_mean",
+        lambda d_sorted, ranks, c: trimmed_mean_sorted(d_sorted, ranks, c, trim))
 
 
 @register_aggregator("coordinate_median")
@@ -191,17 +218,4 @@ def make_coordinate_median(staleness_mode=None,
     ``trimmed_mean`` (even counts average the two middle values)."""
     _reject_staleness("coordinate_median", staleness_mode, staleness_exp)
 
-    def reduce_sorted(d_sorted, ranks, c):
-        lo = torch.clamp((c - 1) // 2, min=0)
-        hi = torch.clamp(c // 2, min=0)
-        pick = torch.where(c > 0, (ranks == lo).to(torch.float32)
-                           + (ranks == hi).to(torch.float32), 0.0)
-        # lo == hi for odd c: pick sums to 2 either way, so /2 is the
-        # median (odd) or the midpoint of the two middle values (even);
-        # the other terms are exact zeros, so any summation order gives
-        # the reference's bits
-        return torch.where(
-            c > 0, torch.sum(torch.where(pick > 0, d_sorted * pick, 0.0),
-                             dim=0) / 2.0, 0.0)
-
-    return _order_stat_aggregator("coordinate_median", reduce_sorted)
+    return _order_stat_aggregator("coordinate_median", median_sorted)

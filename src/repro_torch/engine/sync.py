@@ -7,8 +7,8 @@ every slot from the current global params -> aggregator
 ``fedavg`` aggregator the cohort sum is the ``fedavg_reduce`` kernel
 (K1).
 
-This is ``repro.engine.sync`` without defense or cohort sharding
-(``RunConfig`` rejects those). A multi-tier topology routes the round's
+This is ``repro.engine.sync`` without cohort sharding (``RunConfig``
+rejects it; slice F). A multi-tier topology routes the round's
 aggregation through ``topo.reduce.tiered_apply`` (with the unstacked
 global tree as bases) and adds the per-tier load accumulators
 (``tier_acc``); a heartbeat is rejected, as in the reference (sync rounds
@@ -17,7 +17,15 @@ fault set's state is part of the engine state, its draws come from the
 ``faults`` sub-stream of the run's source (so a rate-0 armed run is
 bitwise the calm run), and the popped cohort goes through ``on_pop``, then
 ``corrupt_updates``, then ``collude_updates``, then the kill mask on the
-weights. Robust aggregators' telemetry (``stat_names``) accumulates in
+weights. The adaptive defense rides the round as in the reference: its
+state is part of the engine state, its coins come from the ``defense``
+sub-stream, quarantined clients are masked out of ``selected`` right after
+the policy step (they still age), every surviving slot is scored with
+staleness zero, post-transition suspects lose their weight, clique members'
+weights are discounted, and with mtd the moving-target wrapper aggregates
+at the level ``Defense.step_level`` gives: one host read of the level per
+closed mtd window, none otherwise (the rule of ``engine/async_engine.py``).
+Robust aggregators' telemetry (``stat_names``) accumulates in
 ``agg_stats``. The global params are not materialized ``width`` times per
 round: the cohort sees them as stride-0 views
 (``fl.server.broadcast_to_cohort``), the first SGD step writes the
@@ -98,6 +106,13 @@ class SyncEngine:
                     "wall clock / version ring; sync rounds have neither — "
                     "drop them or use mode='async'"
                 )
+        self.defense_cfg = cfg.resolved_defense()
+        if self.defense_cfg is not None:
+            from repro_torch.defense import make_defense
+
+            self.defense = make_defense(cfg.n_clients, self.defense_cfg)
+        else:
+            self.defense = None
         tiered = self.topo is not None and not self.topo.is_star
         aggregate = None
         blocks = None
@@ -108,20 +123,25 @@ class SyncEngine:
                                      stacked_bases=False)
             blocks = tier_blocks(self.topo.assign(cfg.n_clients), task.device)
         core = _make_round_core(task, cfg, self.policy, self.aggregator,
-                                aggregate=aggregate, faults=self.fault_set)
+                                aggregate=aggregate, faults=self.fault_set,
+                                defense=self.defense)
         have_faults = self.fault_set is not None
+        have_def = self.defense is not None
         stat_names = self.aggregator.stat_names
 
         def step(state, draws):
-            params, sched, selected, loss, fstate, tel = core(
+            params, sched, selected, loss, fstate, dstate, tel = core(
                 state["params"], state["sched"], draws,
-                state["faults"] if have_faults else None)
+                state["faults"] if have_faults else None,
+                state["defense"] if have_def else None)
             out = {"params": params, "sched": sched}
             if blocks is not None:
                 out["tier_acc"] = update_tier_accum(state["tier_acc"], selected,
                                                     blocks)
             if have_faults:
                 out["faults"] = fstate
+            if have_def:
+                out["defense"] = dstate
             if stat_names:
                 out["agg_stats"] = {s: state["agg_stats"][s] + tel[s]
                                     for s in stat_names}
@@ -143,6 +163,8 @@ class SyncEngine:
         if self.fault_set is not None:
             # the faults sub-stream: the calm stream's draws never move
             state["faults"] = self.fault_set.init(d.sub("faults"))
+        if self.defense is not None:
+            state["defense"] = self.defense.init(dev)  # deterministic zeros
         if self.aggregator.stat_names:
             state["agg_stats"] = {
                 s: torch.zeros((), dtype=torch.float32, device=dev)
@@ -194,6 +216,15 @@ class SyncEngine:
         if "agg_stats" in state:
             for s in self.aggregator.stat_names:
                 load_stats[f"agg_{s}"] = float(state["agg_stats"][s])
+        if "defense" in state:
+            load_stats.update(self.defense.report(state["defense"]))
+            if "tier_acc" in state:
+                from repro_torch.topo.reduce import tier_suspect_counts
+
+                load_stats["tier_suspects"] = tier_suspect_counts(
+                    self.topo, self.cfg.n_clients,
+                    state["defense"]["status"].cpu().numpy(),
+                )
         fault_exposure = None
         if "faults" in state and self.cfg.fault_exposure:
             fault_exposure = self.fault_set.exposure(state["faults"])
@@ -206,14 +237,16 @@ class SyncEngine:
             params=state["params"],
             wall_time_s=wall_time_s,
             fault_exposure=fault_exposure,
+            defense=(self.defense.arrays(state["defense"])
+                     if "defense" in state else None),
         )
 
 
 def _make_round_core(task: FLTask, cfg: RunConfig, policy: Policy,
-                     agg: Aggregator, aggregate=None, faults=None):
+                     agg: Aggregator, aggregate=None, faults=None, defense=None):
     """The per-round function ``round_fn(params, sched_state, draws,
-    fstate=None) -> (params, sched_state, selected, mean_loss, fstate,
-    agg_telemetry)``, shared by the engine's chunk loop and the legacy
+    fstate=None, dstate=None) -> (params, sched_state, selected, mean_loss,
+    fstate, dstate, agg_telemetry)``, shared by the engine's chunk loop and the legacy
     ``fl.rounds.make_round_fn``.
 
     ``draws`` is the round's source: the policy draws at ``select``, the
@@ -230,6 +263,12 @@ def _make_round_core(task: FLTask, cfg: RunConfig, policy: Policy,
     ``aggregate(params, updates, bases, w, idx) -> (params, stats)``
     replaces the inline ``init/accumulate/finalize`` chain (the engine
     passes ``topo.reduce.tiered_apply`` under a multi-tier topology).
+
+    ``defense`` (a ``repro_torch.defense.Defense``) mirrors the async seams,
+    drawing from ``draws.sub("defense")`` (the reference's fold 108 off
+    ``k_sel``): quarantined clients are masked out of ``selected`` right
+    after the policy step, every surviving slot is scored with staleness
+    identically zero, and post-transition suspects lose their weight.
     """
     width = cfg.cohort_width() if not policy.exact_k else cfg.k
     local_update = make_local_update(
@@ -246,9 +285,23 @@ def _make_round_core(task: FLTask, cfg: RunConfig, policy: Policy,
         def aggregate(g, updates, bases, w, idx=None):
             acc = agg.accumulate(agg.init(g), updates, bases, w)
             return agg.finalize(g, acc), acc_stats(acc)
+    have_def = defense is not None
+    mtd_on = have_def and defense.mtd
+    if mtd_on:
+        from repro_torch.defense.adaptive import adaptive_aggregate
 
-    def round_fn(params, sched_state, draws, fstate=None):
+        aggregate_mtd = adaptive_aggregate(aggregate, defense.cfg.mtd_trims,
+                                           families=defense.cfg.mtd_families)
+    col_on = have_def and defense.collusion
+    sup_on = (have_def and defense.wants_labels and have_faults
+              and faults.has_pop and cfg.fault_exposure)
+    if sup_on:
+        from repro_torch.faults.inject import effects_hit
+
+    def round_fn(params, sched_state, draws, fstate=None, dstate=None):
         selected, sched_state = policy.step(sched_state, draws)
+        if have_def:
+            selected = selected & ~defense.blocked(dstate)
         idx, mask = cohort_indices(selected, width)
         if have_faults:
             fdraws = draws.sub("faults")
@@ -268,14 +321,33 @@ def _make_round_core(task: FLTask, cfg: RunConfig, policy: Policy,
         if kill_on:
             # a dropped client's update never reaches the server: weight 0
             valid = valid & ~eff.kill
+        if have_def:
+            # staleness is identically zero in a sync round
+            ages = sched_state["ages"][idx] if "ages" in sched_state else None
+            new_dstate, suspect, w_scale = defense.observe(
+                dstate, draws.sub("defense"),
+                updated, params, idx, valid, torch.zeros_like(idx),
+                losses=losses, ages=ages,
+                labels=effects_hit(eff) if sup_on else None,
+            )
+            valid = valid & ~suspect[idx]
         # sync cohorts are never stale: staleness is identically zero
         w = agg.weigh(valid, torch.zeros_like(idx))
-        params, tel = aggregate(params, updated, params, w, idx)
+        if col_on:
+            # exact 1.0 on clique-free slots: calm armed rounds multiply
+            # the weights by ones
+            w = w * w_scale
+        if mtd_on:
+            params, tel = aggregate_mtd(params, updated, params, w, idx,
+                                        defense.step_level(dstate, new_dstate))
+        else:
+            params, tel = aggregate(params, updated, params, w, idx)
         wsum = w.sum()
         # NaN, not a fake near-0 datapoint, when nobody was selected
         mean_loss = torch.where(wsum > 0,
                                 torch.sum(losses * w) / torch.clamp(wsum, min=1.0),
                                 torch.full_like(wsum, float("nan")))
-        return params, sched_state, selected, mean_loss, fstate, tel
+        return (params, sched_state, selected, mean_loss, fstate,
+                new_dstate if have_def else dstate, tel)
 
     return round_fn

@@ -4,14 +4,17 @@ The flags are those of ``repro.launch._fl_cli`` (plus ``--device``), so a
 command line moves between the packages unchanged. The robustness tier's
 flags (``--faults``, ``--fault-rate``, ``--robust-agg``,
 ``--redispatch-timeout``, ``--redispatch-retries``) and the topology flags
-(``--topology``, ``--tiers``, ``--heartbeat-timeout``) run as in the
-reference. Flags of options the port does not run yet (defense, device
-meshes) reach ``RunConfig``, which raises ``NotImplementedError`` naming
-the ROADMAP slice that brings them.
+(``--topology``, ``--tiers``, ``--heartbeat-timeout``) and the defense
+flags (``--defense``, ``--quarantine-threshold``, ``--mtd-window``,
+``--detector``, ``--collusion``) run as in the reference. Flags of options
+the port does not run yet (device meshes, cohort sharding) reach
+``RunConfig``, which raises ``NotImplementedError`` naming the ROADMAP
+slice that brings them.
 """
 from __future__ import annotations
 
 import argparse
+import math
 from typing import Any, Dict, Optional
 
 from repro_torch.engine import RunConfig, dump_json, policy_names
@@ -88,15 +91,38 @@ def add_common_args(ap: argparse.ArgumentParser, defaults: Dict[str, Any]) -> No
                     help="simulated-seconds liveness timeout: updates from "
                          "clients dark for longer are excluded from their "
                          "tier's reduction (async engine only)")
+    # --- adaptive defense tier (repro_torch.defense) ---
+    ap.add_argument("--defense", action="store_true",
+                    help="arm the adaptive defense tier: per-client EWMA "
+                         "reputation scoring, quarantine with a probation "
+                         "Markov chain, and exclusion of flagged clients "
+                         "from selection and aggregation. Omitting the "
+                         "flag is bit-for-bit identical to a defense-free "
+                         "run.")
+    ap.add_argument("--quarantine-threshold", type=float, default=None,
+                    metavar="T",
+                    help="reputation score above which a client is "
+                         "quarantined (default 0.55; 'inf' arms the "
+                         "scoring pipeline without ever quarantining)")
+    ap.add_argument("--mtd-window", type=int, default=None, metavar="STEPS",
+                    help="arm moving-target aggregation: re-decide the "
+                         "trimmed-mean trim fraction from windowed attack "
+                         "pressure every STEPS aggregations (needs "
+                         "--defense; star topology only)")
+    ap.add_argument("--detector", default=None, metavar="NAME",
+                    help="per-slot anomaly detector (zscore | learned). "
+                         "'learned' trains a logistic head online over the "
+                         "defense telemetry and reports its running AUC "
+                         "(needs --defense; default zscore)")
+    ap.add_argument("--collusion", action="store_true",
+                    help="arm collusion-aware scoring: per-client historical "
+                         "update-direction sketches plus similarity-clique "
+                         "detection of coordinated (norm-invisible) "
+                         "coalitions (needs --defense)")
     # options of later slices: accepted, then rejected by RunConfig
     ap.add_argument("--rng-impl", default=None)
     ap.add_argument("--mesh-shards", type=int, default=None, metavar="D")
     ap.add_argument("--shard-cohort", action="store_true")
-    ap.add_argument("--defense", action="store_true")
-    ap.add_argument("--quarantine-threshold", type=float, default=None)
-    ap.add_argument("--mtd-window", type=int, default=None)
-    ap.add_argument("--detector", default=None)
-    ap.add_argument("--collusion", action="store_true")
 
 
 def build_task(args: argparse.Namespace) -> FLTask:
@@ -172,19 +198,34 @@ def fault_args(args: argparse.Namespace) -> Dict[str, Any]:
     return kw
 
 
-def _later_slice_args(args: argparse.Namespace) -> Dict[str, Any]:
-    """RunConfig fields of the flags of later slices, so that RunConfig
-    rejects them by name."""
+def defense_args(args: argparse.Namespace) -> Dict[str, Any]:
+    """``defense``/``defense_kwargs`` RunConfig fields from the shared
+    ``--defense``/``--quarantine-threshold``/``--mtd-window``/
+    ``--detector``/``--collusion`` flags."""
+    if not args.defense:
+        if (args.quarantine_threshold is not None or args.mtd_window is not None
+                or args.detector is not None or args.collusion):
+            raise SystemExit(
+                "--quarantine-threshold/--mtd-window/--detector/--collusion "
+                "need --defense"
+            )
+        return {}
     kw: Dict[str, Any] = {}
-    if (args.defense or args.quarantine_threshold is not None
-            or args.mtd_window is not None or args.detector or args.collusion):
-        kw["defense"] = True
-    return kw
+    if args.quarantine_threshold is not None:
+        kw["threshold"] = args.quarantine_threshold
+    if args.mtd_window is not None:
+        kw["mtd"] = True
+        kw["mtd_window"] = args.mtd_window
+    if args.detector is not None:
+        kw["detector"] = args.detector
+    if args.collusion:
+        kw["collusion"] = True
+    return {"defense": True, "defense_kwargs": kw}
 
 
 def build_run_config(args: argparse.Namespace, mode: str, eval_div: int,
                      **extra) -> RunConfig:
-    extra = {**topology_args(args), **fault_args(args), **_later_slice_args(args),
+    extra = {**topology_args(args), **fault_args(args), **defense_args(args),
              **extra}
     return RunConfig(
         mode=mode,
@@ -220,6 +261,31 @@ def print_robustness_stats(load_stats) -> None:
     if agg_stats:
         print("robust aggregation: " + ", ".join(
             f"{nm}={int(v)}" for nm, v in agg_stats.items()))
+
+
+def print_defense_stats(load_stats: Optional[Dict[str, Any]]) -> None:
+    """Defense-tier report (present when ``--defense`` ran): quarantine
+    flow, current suspect census, and the moving-target trim level."""
+    ls = load_stats or {}
+    if "def_quarantined_now" not in ls:
+        return
+    line = (f"defense: quarantined={int(ls['def_quarantined_now'])} "
+            f"probation={int(ls['def_probation_now'])} "
+            f"(inflow {int(ls['def_quarantine_inflow'])}, "
+            f"readmitted {int(ls['def_readmitted'])})")
+    if "def_mtd_level" in ls:
+        line += f" mtd_level={int(ls['def_mtd_level'])}"
+    if "def_clique_hits" in ls:
+        line += f" clique_hits={int(ls['def_clique_hits'])}"
+    if "def_detector_auc" in ls:
+        auc = float(ls["def_detector_auc"])
+        line += (" detector_auc=n/a" if math.isnan(auc)
+                 else f" detector_auc={auc:.3f}")
+    print(line)
+    if "tier_suspects" in ls:
+        counts = ls["tier_suspects"]
+        print("  suspects by tier-0 node: "
+              + ", ".join(f"{i}:{int(c)}" for i, c in enumerate(counts)))
 
 
 def print_tier_stats(load_stats: Optional[Dict[str, Any]]) -> None:

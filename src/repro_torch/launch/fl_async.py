@@ -22,6 +22,9 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.fl_async --topology hierarchical \\
       --tiers 64,8 --heartbeat-timeout 300 --clients 16384 --k 256 \\
       --data-scale 5 --rounds 20      # edge -> regional -> global, K1 tiers
+  PYTHONPATH=src python -m repro_torch.launch.fl_async --faults scale_attack \
+      --fault-rate 0.25 --defense --quarantine-threshold 0.55 \
+      --mtd-window 8 --collusion      # reputation, quarantine, moving target
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from repro_torch.launch._fl_cli import (
     add_common_args,
     build_run_config,
     build_task,
+    print_defense_stats,
     print_robustness_stats,
     print_tier_stats,
     write_result,
@@ -103,6 +107,7 @@ def report(res, args: argparse.Namespace) -> None:
         print(f"X_round: E[X]={es['mean_X']:.3f} Var[X]={es['var_X']:.3f} "
               f"(samples {es['num_samples']}, "
               f"{'history' if res.selection is not None else 'accumulators'})")
+    print_defense_stats(res.load_stats)
     print_tier_stats(res.load_stats)
     if res.records:
         last = res.records[-1]

@@ -21,6 +21,9 @@ Examples:
       --robust-agg coordinate_median     # model-replacement attack, defended
   PYTHONPATH=src python -m repro_torch.launch.fl_train --data-scale 5 \\
       --lr 0.02 --topology hierarchical --tiers 10,2   # tiered FedAvg (K1)
+  PYTHONPATH=src python -m repro_torch.launch.fl_train --data-scale 5 \
+      --lr 0.02 --rounds 20 --faults scale_attack --fault-rate 0.25 \
+      --defense --mtd-window 2 --detector learned   # the adaptive defense
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from repro_torch.launch._fl_cli import (
     add_common_args,
     build_run_config,
     build_task,
+    print_defense_stats,
     print_robustness_stats,
     print_tier_stats,
     write_result,
@@ -69,6 +73,7 @@ def report(res, args: argparse.Namespace) -> None:
     print(f"cohort   : mean={stats['mean_cohort']:.2f} std={stats['std_cohort']:.2f} "
           f"range [{stats['min_cohort']}, {stats['max_cohort']}]")
     print_robustness_stats(stats)
+    print_defense_stats(stats)
     print_tier_stats(stats)
     if args.target_acc:
         r = rounds_to_target(res.history(), args.target_acc)

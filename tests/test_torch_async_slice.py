@@ -232,16 +232,21 @@ def test_run_result_matches(runs):
 
 
 @pytest.mark.parametrize("option", [
-    # topologies run since slice D: the first three cases pair one with an
-    # option of a later slice, which still raises
-    dict(mode="sync", topology="hierarchical", defense=True),
+    # topologies run since slice D and defense since slice E: these cases
+    # pair them with an option of a later slice, which still raises
+    dict(mode="sync", topology="hierarchical", defense=True, shard_cohort=True),
     dict(topology="hierarchical", mesh_shards=0),
     dict(topology_kwargs={"tiers": (4,)}, topology="hierarchical", shard_cohort=True),
-    dict(defense_kwargs={"threshold": 0.5}), dict(defense=True), dict(mesh_shards=0),
-    dict(shard_cohort=True), dict(rng_impl="rbg"),
+    dict(defense_kwargs={"threshold": 0.5}), dict(defense=True, mesh_shards=0),
+    dict(mesh_shards=0), dict(shard_cohort=True), dict(rng_impl="rbg"),
 ])
 def test_out_of_slice_options_raise(option):
     cfg = {**CFG, **option}
+    if "defense" not in option and "defense_kwargs" in option:
+        # defense_kwargs without defense=True: the reference's ValueError
+        with pytest.raises(ValueError, match="^defense_kwargs given without defense=True$"):
+            RunConfig(**cfg)
+        return
     with pytest.raises(NotImplementedError, match="slice|torch.Generator"):
         RunConfig(**cfg)
 
@@ -255,7 +260,8 @@ def test_driver_runs_on_cpu_and_rejects_later_slices(capsys):
     assert "== load metric X (wall clock) ==" in out
     assert len(res.records) == 2 and np.isfinite(res.records[-1].eval_loss)
     for flags in (["--arch", "tinyllama-1.1b"],
-                  ["--topology", "hierarchical", "--mesh-shards", "0"], ["--defense"]):
+                  ["--topology", "hierarchical", "--mesh-shards", "0"],
+                  ["--defense", "--mesh-shards", "0"]):
         with pytest.raises(NotImplementedError):
             fl_async.main(["--device", "cpu", "--clients", "12", "--k", "4",
                            "--rounds", "1", "--data-scale", "0.02", *flags])

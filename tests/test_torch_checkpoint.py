@@ -3,7 +3,12 @@ so checkpoints cross between the packages; the port's leaves of every
 dtype (bf16 and ``torch.Generator`` states included) round-trip bit for
 bit; corruption and truncation raise ``ValueError``; and a mid-run armed
 engine (faults, re-dispatch, a hierarchical topology and, async, a
-heartbeat) resumes bitwise from its checkpoint, random streams included.
+heartbeat; or the defense with mtd and collusion) resumes bitwise from its
+checkpoint, random streams included. On the card (``cuda`` marker), the
+defense's sketch route repeats bitwise (the reference is imported inside
+the tests that use it, so the file also runs where JAX is absent):
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_checkpoint.py
 """
 import dataclasses
 import json
@@ -13,13 +18,6 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax  # noqa: E402
-import jax.numpy as jnp  # noqa: E402
-
-from repro.checkpoint import load_checkpoint as ref_load  # noqa: E402
-from repro.checkpoint import save_checkpoint as ref_save  # noqa: E402
-from repro.configs.paper_cnn import MNIST_CNN as REF_MNIST  # noqa: E402
-from repro.models.cnn import init_params as ref_init_params  # noqa: E402
 from repro_torch.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 from repro_torch.configs.paper_cnn import MNIST_CNN  # noqa: E402
 from repro_torch.convert import params_from_jax, params_to_jax  # noqa: E402
@@ -125,12 +123,28 @@ def test_detects_corruption_and_truncation(tmp_path):
         load_checkpoint(d, tree)
 
 
+def _reference():
+    """``(jax, jax.numpy, repro.checkpoint)``, imported inside the tests that
+    use them, so the file's ``cuda`` tests also run where JAX is absent."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from repro import checkpoint
+
+    return jax, jnp, checkpoint
+
+
 def _ref_params():
+    jax, _, _ = _reference()
+    from repro.configs.paper_cnn import MNIST_CNN as REF_MNIST
+    from repro.models.cnn import init_params as ref_init_params
+
     return jax.tree.map(np.asarray, ref_init_params(
         jax.random.PRNGKey(0), dataclasses.replace(REF_MNIST, **SMALL)))
 
 
 def test_port_checkpoint_loads_in_the_reference(tmp_path):
+    jax, jnp, ref = _reference()
     params = params_from_jax(_ref_params(), "cpu")
     tree = {"params": params, "half": params["fc2"]["w"].to(torch.bfloat16),
             "ages": torch.arange(6, dtype=torch.int32)}
@@ -138,7 +152,7 @@ def test_port_checkpoint_loads_in_the_reference(tmp_path):
     like = jax.tree.map(lambda t: jax.ShapeDtypeStruct(
         tuple(t.shape), {torch.bfloat16: jnp.bfloat16}.get(t.dtype, np.dtype(
             str(t.dtype).removeprefix("torch.")))), tree)
-    restored, step = ref_load(str(tmp_path / "p"), like)
+    restored, step = ref.load_checkpoint(str(tmp_path / "p"), like)
     assert step == 4
     for (p, got), (_, exp) in zip(tree_paths(jax.tree.map(np.asarray, restored)),
                                   tree_paths(params_to_jax(tree))):
@@ -146,10 +160,11 @@ def test_port_checkpoint_loads_in_the_reference(tmp_path):
 
 
 def test_reference_checkpoint_loads_in_the_port(tmp_path):
+    jax, jnp, ref = _reference()
     params = _ref_params()
     tree = {"params": params, "half": jnp.asarray(params["fc2"]["w"], jnp.bfloat16),
             "ages": jnp.arange(6, dtype=jnp.int32)}
-    ref_save(str(tmp_path / "r"), tree, step=9)
+    ref.save_checkpoint(str(tmp_path / "r"), tree, step=9)
     like = {"params": params_from_jax(params, "cpu"),
             "half": torch.zeros(params["fc2"]["w"].shape, dtype=torch.bfloat16),
             "ages": torch.zeros(6, dtype=torch.int32)}
@@ -214,3 +229,73 @@ def test_crash_restart_resumes_bitwise(small_task, tmp_path, mode):
     _same(full, resumed)
     assert sum(float(f["injected"]) for f in full["faults"].values()) > 0
     assert "tier_acc" in full and ("hb" in full) == (mode == "async")
+
+
+DEFENSE = dict(defense=True, defense_kwargs={"threshold": 0.3, "mtd": True,
+                                             "mtd_window": 2, "mtd_up": 0.05,
+                                             "mtd_down": 0.01, "collusion": True,
+                                             "clique_min_obs": 2},
+               faults=("scale_attack",), fault_rate=1.0,
+               fault_kwargs={"scale_attack": {"factor": -3.0, "client_frac": 0.25}})
+
+
+@pytest.mark.parametrize("mode", ["async", "sync"])
+def test_crash_restart_resumes_bitwise_with_defense(small_task, tmp_path, mode):
+    """The same crash and restart with the defense armed (mtd and
+    collusion): reputations, statuses, sketches, the mtd window counters
+    and the ``defense`` sub-stream resume bit for bit. The crash falls
+    inside an mtd window, so the restarted engine reads the restored
+    window counter once and then reads the level once per closed window."""
+    kw = dict(n_clients=16, k=4, m=4, policy="markov", rounds=6, local_epochs=1,
+              batch_size=5, mode=mode, **DEFENSE)
+    if mode == "async":
+        kw.update(buffer_size=3, profile="mobile")
+    cfg = RunConfig(**kw)
+    engine = make_engine(small_task, cfg)
+    full, _ = engine.run_chunk(engine.init(), 0, 6, False)
+
+    crashed = make_engine(small_task, cfg)
+    half, _ = crashed.run_chunk(crashed.init(), 0, 3, False)
+    tree = {"state": half, "draws": crashed.draws.get_state()}
+    assert "defense" in tree["draws"]
+    save_checkpoint(str(tmp_path / "crash"), tree, step=3)
+    restarted = make_engine(small_task, cfg)
+    restored, step = load_checkpoint(str(tmp_path / "crash"), tree)
+    restarted.draws.set_state(restored["draws"])
+    resumed, _ = restarted.run_chunk(restored["state"], step, 3, False)
+    _same(full, resumed)
+    assert float(full["defense"]["quarantined"]) > 0
+    assert {"sketch", "sk_obs", "level", "win"} <= set(full["defense"])
+    # windows close after steps 4 and 6; the restored state is read once
+    assert (restarted.defense.restore_reads, restarted.defense.host_reads) == (1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stacked", [True, False], ids=["stacked", "unstacked"])
+@pytest.mark.parametrize("b,d_sketch", [(8, 16), (256, 64)])
+def test_sketch_route_repeats_bitwise_on_the_card(stacked, b, d_sketch):
+    """The collusion sketch's fixed-order bucket sum on the card: two calls
+    are bitwise equal (no atomics), and the rows are within f32 rounding
+    of the CPU route on the same deltas, at the paper CNN's leaf shapes."""
+    from repro_torch.defense.collusion import project_deltas
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    draws = GeneratorDraws(4, "cpu")
+    g = init_params(draws, MNIST_CNN)
+    gen = torch.Generator().manual_seed(b)
+    updated = {k: {n: v[None] + 0.01 * torch.randn((b,) + v.shape, generator=gen)
+                   for n, v in layer.items()} for k, layer in g.items()}
+    bases = ({k: {n: v[None].expand((b,) + v.shape).contiguous()
+                  for n, v in layer.items()} for k, layer in g.items()}
+             if stacked else g)
+
+    def to(tree, dev):
+        return {k: {n: v.to(dev) for n, v in layer.items()} for k, layer in tree.items()}
+
+    first = project_deltas(to(updated, "cuda"), to(bases, "cuda"), d_sketch)
+    again = project_deltas(to(updated, "cuda"), to(bases, "cuda"), d_sketch)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), again.view(torch.int32))
+    cpu = project_deltas(updated, bases, d_sketch)
+    np.testing.assert_allclose(first.cpu().numpy(), cpu.numpy(), rtol=1e-5, atol=1e-6)

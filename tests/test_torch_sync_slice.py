@@ -419,11 +419,20 @@ def test_legacy_async_wrapper_is_the_engine_run(small_task):
 
 
 @pytest.mark.parametrize("option", [
-    # topologies run since slice D: paired with defense, which still raises
-    dict(topology="hierarchical", defense=True), dict(defense_kwargs={"threshold": 0.5}),
-    dict(defense=True), dict(mesh_shards=0), dict(shard_cohort=True),
+    # topologies run since slice D and defense since slice E: paired with
+    # cohort sharding or a mesh, which still raise
+    dict(topology="hierarchical", defense=True, shard_cohort=True),
+    dict(defense_kwargs={"threshold": 0.5}),
+    dict(defense=True, mesh_shards=0), dict(mesh_shards=0), dict(shard_cohort=True),
 ])
 def test_later_slice_options_raise_under_sync(option):
+    if "defense" not in option:
+        if "defense_kwargs" in option:
+            # defense_kwargs without defense=True: the reference's ValueError
+            with pytest.raises(ValueError,
+                               match="^defense_kwargs given without defense=True$"):
+                RunConfig(**{**CFG, **option})
+            return
     with pytest.raises(NotImplementedError, match="slice"):
         RunConfig(**{**CFG, **option})
 
@@ -442,8 +451,9 @@ def test_fl_train_driver_runs_on_cpu(capsys):
     assert res.config.eval_every == 1  # rounds // 30, at least 1
     assert len(res.records) == 3 and np.isfinite(res.records[-1].eval_loss)
     assert k1.launches == before  # on the CPU, K1's plain version
-    for flags in (["--mesh-shards", "0"], ["--topology", "hierarchical", "--defense"],
-                  ["--defense"], ["--arch", "tinyllama-1.1b"]):
+    for flags in (["--mesh-shards", "0"],
+                  ["--topology", "hierarchical", "--defense", "--mesh-shards", "0"],
+                  ["--defense", "--arch", "tinyllama-1.1b"], ["--arch", "tinyllama-1.1b"]):
         with pytest.raises(NotImplementedError):
             fl_train.main(["--device", "cpu", "--clients", "12", "--k", "4",
                            "--rounds", "1", "--data-scale", "0.02", *flags])

@@ -128,6 +128,26 @@ prints one JSON line for each:
           quarantines and flags an exposed client; recall, false-positive
           rate, the mtd level, the detector AUC, accuracy beside
           ``sync_attack``'s fedavg and ms a round are printed.
+  shard_contracts  slice F's contracts on ``fault_contracts``' fleet, cuDNN
+          deterministic inside (restored after): a world of one on NCCL in
+          this process — ``ShardedAsyncEngine`` equals ``AsyncEngine``
+          bitwise per step and chunked for markov, oldest_age and
+          round_robin under fedbuff and fedavg, under hierarchical (4, 2)
+          with a heartbeat and under the armed defense with collusion — and a
+          world of two through gloo, both ranks spawned on cuda:0
+          (``launch/ranks.py``): sharded == one device bitwise, the
+          cohort-parallel async and sync runs allclose to the replicated
+          runs at the CPU tests' tolerance. Each check prints its backend.
+  sharded_main ``main``'s configuration under ``--mesh-shards 1`` on NCCL
+          (TF32 as ``main`` ran it): final params and selection history
+          bitwise ``main``'s, K2 once a step (the rank's local pop), the host
+          syncs of two steps, the collectives of one step and their bytes,
+          the steady ms a step beside ``main``'s with a profiler window as
+          ``main``'s, the state bytes the rank holds beside ``main``'s and
+          peak memory; then
+          ``oldest_age_step_sharded`` at 1M clients, k = 150 000, on the
+          world of one: one K3 launch, its mask the ``oldest_age`` policy's
+          on the same scores, and its time.
   kernel_k4    K4 (``flash_attention``) against its plain version on the
           card at the serving prefill shape (B, Hk, G, S, D) =
           (4, 4, 8, 2048, 64) in bf16, contiguous and in the model's layout
@@ -211,11 +231,11 @@ prints one JSON line for each:
           CONSISTENCY_TOL and the bf16 gap and top-1 agreement reported.
 
 The main, async_oldest and sync_main phases run before the parity phases,
-which turn TF32 off; the slice C, D and E phases run after
+which turn TF32 off; the slice C, D, E and F phases run after
 ``sync_parity``, and those timed beside ``main`` and ``sync_main``
 (``sync_attack``, ``async_chaos``, ``async_hier``, ``sync_hier``,
-``async_defense``, ``sync_defense``) set TF32 back to what ``main`` ran
-with while they run.
+``async_defense``, ``sync_defense``, ``sharded_main``) set TF32 back to
+what ``main`` ran with while they run.
 Then the ``{"kernels": [...]}`` line (K2, K1, K4, K5, K3, K6), the card's
 name and power limit as ``nvidia-smi`` reports them, and, last, the device
 line. Any failure exits non-zero; without a GPU, or outside a checkout of
@@ -461,6 +481,7 @@ def _state_tensors(tree, path=""):
 
 def phase_main(torch, event_topk):
     from repro_torch.core import load_metric
+    from repro_torch.engine.sharded import per_device_state_bytes
     from repro_torch.launch import fl_async
 
     args = fl_async.parse_args(MAIN_ARGV)
@@ -469,6 +490,7 @@ def phase_main(torch, event_topk):
     setup_s = time.time() - t0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2**30  # the task, before the run
     event_topk.launches = 0
     res, state = _run_captured(engine, progress=True)
     launches = event_topk.launches
@@ -507,7 +529,7 @@ def phase_main(torch, event_topk):
         "random_selection_var": load_metric.random_selection_var(cfg.n_clients, cfg.k),
         "optimal_var": load_metric.optimal_var(cfg.n_clients, cfg.k, cfg.m),
         "mean_staleness": ws["mean_staleness"],
-        "peak_mem_gib": peak_gib,
+        "peak_mem_gib": peak_gib, "base_mem_gib": base_gib,
         "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
                  "matmul": torch.backends.cuda.matmul.allow_tf32},
     }
@@ -519,7 +541,10 @@ def phase_main(torch, event_topk):
                                   res.wall_time_s))
     emit(out)
     calm = {"steady_ms_per_step": out["steady_ms_per_step"],
-            "clock_per_step": ws["sim_time"] / cfg.rounds, "tf32": out["tf32"]}
+            "clock_per_step": ws["sim_time"] / cfg.rounds, "tf32": out["tf32"],
+            "params": res.params, "selection": res.selection,
+            "state_bytes": per_device_state_bytes(state),
+            "peak_mem_gib": peak_gib, "base_mem_gib": base_gib}
     return launches, calm
 
 
@@ -2238,6 +2263,216 @@ def _sync_defense(torch, fedavg_reduce, tf32, fedavg_attack):
     return total_k1
 
 
+# --- slice F: fleet sharding ----------------------------------------------------
+
+SHARD_POLICIES = ("markov", "oldest_age", "round_robin")
+SHARD_TASK = {"n": FAULT_N, "scale": 0.02, "device": "cuda:0"}  # full-width CNN
+SHARD_CFG = dict(n_clients=FAULT_N, k=FAULT_K, m=10, policy="markov",
+                 rounds=FAULT_STEPS, local_epochs=2, batch_size=50, lr0=0.02,
+                 seed=0, mode="async", profile="lognormal")
+SHARD_HIER = dict(topology="hierarchical",
+                  topology_kwargs={"tiers": (4, 2), "heartbeat_timeout": TOPO_HB})
+SHARD_DEFENSE = dict(DEF_COLLUSION, **COLLUDE_ATTACK)
+COHORT_TOL = (5e-4, 1e-5)  # the CPU tests' shard_cohort tolerance (rtol, atol)
+SHARDED_ARGV = MAIN_ARGV + ["--mesh-shards", "1"]
+
+
+def _host_bits_equal(a, b) -> bool:
+    """Two host result trees (``launch.ranks.run_case``'s) equal bit for
+    bit."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_host_bits_equal(a[k], b[k]) for k in a)
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def _host_close(a, b, tol) -> bool:
+    import numpy as np
+
+    if isinstance(a, dict):
+        return all(_host_close(a[k], b[k], tol) for k in a)
+    return bool(np.allclose(np.asarray(a, np.float64), np.asarray(b, np.float64),
+                            rtol=tol[0], atol=tol[1], equal_nan=True))
+
+
+def phase_shard_contracts(torch, fedavg_reduce):
+    """Slice F's contracts on ``fault_contracts``' fleet (48 clients, the
+    paper CNN at full widths, k = B = 8), cuDNN deterministic inside
+    (restored after): a world of one on NCCL in this process, the sharded
+    engine bitwise the one-device engine per step and chunked, three
+    policies x two aggregators, under hierarchical (4, 2) with a heartbeat
+    and under the armed defense with collusion; then a world of two through
+    gloo, both ranks spawned on cuda:0 (``launch/ranks.py``), TF32 off in
+    the ranks: sharded == one device bitwise, cohort-parallel async and
+    sync allclose to the replicated runs at the CPU tests' tolerance.
+    Checks and times nothing else."""
+    import tempfile
+
+    from repro_torch.launch import ranks
+
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    t0 = time.time()
+    try:
+        def case(name, drive="per_step", **kw):
+            return {"name": name, "task": SHARD_TASK, "drive": drive,
+                    "deterministic": True,
+                    "cfg": {**SHARD_CFG, "mesh_shards": 0, **kw}}
+
+        one = [case(f"{p}-{a}-{d}", d, policy=p, aggregator=a)
+               for p in SHARD_POLICIES for a in ("fedbuff", "fedavg")
+               for d in ("per_step", "chunked")]
+        one += [case("hier", **SHARD_HIER), case("defense", "chunked", **SHARD_DEFENSE)]
+        checks = {}
+        for c in one:
+            got = ranks.run_case(c, ranks.case_engine(c))
+            want = ranks.run_case(c, ranks.case_engine(ranks.single_case(c)))
+            checks[c["name"]] = {"backend": str(torch.distributed.get_backend()),
+                                 "world": torch.distributed.get_world_size(),
+                                 "equal": all(_host_bits_equal(got[k], want[k])
+                                              for k in ("send", "loss", "state"))}
+        # the ranks start with torch's TF32 defaults: the allclose checks
+        # run with TF32 off, as the parity phases do
+        two = [dict(c, tf32=False) for c in (
+            case("markov-fedbuff-2"),
+            case("cohort-async", "run_engine", shard_cohort=True),
+            case("cohort-sync", "run_engine", shard_cohort=True, mode="sync",
+                 aggregator="fedavg", profile="lognormal"))]
+        with tempfile.TemporaryDirectory() as tmp:
+            res = ranks.run_cases_on_ranks(
+                two + [ranks.single_case(c) for c in two], 2, tmp, backend="gloo",
+                devices=["cuda:0", "cuda:0"], timeout=300)
+        a, b = res[:3], res[3:]
+        checks["markov-fedbuff-2"] = {
+            "backend": "gloo", "world": 2,
+            "equal": all(_host_bits_equal(a[0][k], b[0][k])
+                         for k in ("send", "loss", "state"))}
+        for i, name in ((1, "cohort-async"), (2, "cohort-sync")):
+            checks[name] = {
+                "backend": "gloo", "world": 2, "tolerance": COHORT_TOL,
+                "selection_equal": _host_bits_equal(a[i]["selection"], b[i]["selection"]),
+                "params_close": _host_close(a[i]["params"], b[i]["params"], COHORT_TOL)}
+        bad = [n for n, c in checks.items()
+               if not all(v for k, v in c.items() if k in ("equal", "selection_equal",
+                                                          "params_close"))]
+        if bad:
+            raise AssertionError(f"shard_contracts: failed {bad}: {checks}")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    emit({"phase": "shard_contracts", "ok": True, "n": FAULT_N, "k": FAULT_K,
+          "steps": FAULT_STEPS, "cnn": "paper-cnn-mnist (full widths)",
+          "cudnn_deterministic": True, "checks": checks,
+          "seconds": time.time() - t0})
+
+
+def phase_sharded_main(torch, event_topk, k3, calm):
+    """``main``'s configuration under ``--mesh-shards 1`` on NCCL, with TF32
+    as ``main`` ran it: the final params and selection history bitwise
+    ``main``'s, K2 once a step (each rank's local pop), the steady ms a step
+    beside ``main``'s, the state bytes this rank holds and peak memory;
+    then ``oldest_age_step_sharded`` at ``_policy_1m``'s shape on the world
+    of one: one K3 launch, its mask the port's ``oldest_age`` policy mask
+    on the same scores."""
+    with _TF32(torch, calm["tf32"]):
+        return _sharded_main(torch, event_topk, k3, calm)
+
+
+def _sharded_main(torch, event_topk, k3, calm):
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import selection
+    from repro_torch.core.draws import GeneratorDraws
+    from repro_torch.engine.sharded import ShardedAsyncEngine
+    from repro_torch.launch import fl_async
+
+    args = fl_async.parse_args(SHARDED_ARGV)
+    t0 = time.time()
+    task, engine = fl_async.build(args)
+    setup_s = time.time() - t0
+    if not isinstance(engine, ShardedAsyncEngine):
+        raise AssertionError(f"sharded_main: built {type(engine).__name__}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2**30  # earlier phases' and the task's
+    event_topk.launches = 0
+    res, state = _run_captured(engine, progress=True)
+    k2 = event_topk.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    cfg = res.config
+    if k2 != cfg.rounds:
+        raise AssertionError(f"sharded_main: K2 launched {k2} times in {cfg.rounds} steps")
+    same_sel = bool((res.selection == calm["selection"]).all())
+    bad = _mismatches(torch, res.params, calm["params"])
+    if not same_sel or bad:
+        raise AssertionError(f"sharded_main: differs from main: selection equal "
+                             f"{same_sel}, params differing {bad}")
+    out = {"phase": "sharded_main", "ok": True, "argv": SHARDED_ARGV,
+           "backend": engine.mesh.backend, "world": engine.mesh_shards,
+           "tf32": calm["tf32"], "k2_launches": k2, "steps": cfg.rounds,
+           "selection_equal_main": same_sel, "params_equal_main": True,
+           "steps_per_s": cfg.rounds / res.wall_time_s, "setup_s": setup_s,
+           "eval_loss": res.records[-1].eval_loss,
+           "per_device_state_bytes": engine.per_device_state_bytes(state),
+           "fleet_state_bytes": engine.fleet_state_bytes(state),
+           "main_state_bytes": calm["state_bytes"], "peak_mem_gib": peak_gib,
+           "base_mem_gib": base_gib, "main_peak_mem_gib": calm["peak_mem_gib"],
+           "main_base_mem_gib": calm["base_mem_gib"],
+           # what each run added over what was allocated when it started
+           "run_mem_gib": peak_gib - base_gib,
+           "main_run_mem_gib": calm["peak_mem_gib"] - calm["base_mem_gib"]}
+    state, syncs = sync_free_steps(torch, engine, state, cfg.rounds)
+    out["host_syncs_in_2_steps"] = len(syncs)  # reported: no contract yet
+    out["host_syncs_first"] = syncs[:3]
+    # the collectives of one step: every one is an all_gather
+    gather, calls = dist.all_gather, []
+
+    def counting(x, mesh):
+        calls.append(x.numel() * x.element_size())
+        return gather(x, mesh)
+
+    dist.all_gather = counting
+    try:
+        state, _ = engine.run_chunk(state, cfg.rounds + 2, 1, False)
+    finally:
+        dist.all_gather = gather
+    out["collectives_per_step"] = len(calls)
+    out["gathered_bytes_per_step_per_rank"] = sum(calls)
+    out.update(steady_and_profile(torch, engine, state, cfg.rounds + 3, res.wall_time_s,
+                                  match="nccl"))
+    out["main_steady_ms_per_step"] = calm["steady_ms_per_step"]
+    out["sharded_over_main"] = out["steady_ms_per_step"] / calm["steady_ms_per_step"]
+    del state, engine, task
+    torch.cuda.empty_cache()
+
+    # the centralized comparator at 1M clients on the world of one
+    n, k = 1_000_000, 150_000
+    policy = selection.make_policy("oldest_age", n, k)
+    pstate = policy.init(GeneratorDraws(5, "cuda"), n)
+    mask, _ = policy.step(pstate, GeneratorDraws(6, "cuda"))
+    score = pstate["ages"].to(torch.float32) + GeneratorDraws(6, "cuda").uniform(
+        "select", (n,), 0.0, 0.5)
+    step = dist.oldest_age_step_sharded(dist.fleet_mesh(1, device="cuda"), k)
+    torch.cuda.synchronize()
+    k3.launches = 0
+    sel, _, chosen = step(score)
+    torch.cuda.synchronize()
+    k3_launches = k3.launches
+    if k3_launches != 1 or not torch.equal(sel, mask) or int(sel.sum()) != k:
+        raise AssertionError(f"sharded_main: oldest_age_step_sharded launched K3 "
+                             f"{k3_launches} times, mask equal {torch.equal(sel, mask)}")
+    t1 = time.perf_counter()
+    for _ in range(5):
+        step(score)
+    torch.cuda.synchronize()
+    out["oldest_age_1m"] = {"n": n, "k": k, "k3_launches": k3_launches,
+                            "mask_equal_policy": True, "chosen": int(chosen.numel()),
+                            "ms": (time.perf_counter() - t1) * 1e3 / 5,
+                            "comm_bytes": dist.scheduler_comm_bytes(n, k, 1)}
+    emit(out)
+    return k2, k3_launches
+
+
 def _attn_inputs(torch, gen, shape, dtype, decode=False):
     """q, k, v on the card from ``gen``; for decode, k/v are views of a
     (B, L, Hk, D) cache, the model's layout."""
@@ -3205,6 +3440,14 @@ def main() -> int:
     k1_entry["launches"] += k1
     k1_entry["launches"] += phase_sync_defense(torch, fedavg_reduce, calm["tf32"],
                                                attack_rows["fedavg"])
+    from repro_torch.core.distributed import world_of_one
+
+    with world_of_one("cuda"):  # slice F's NCCL world of one, ended after
+        phase_shard_contracts(torch, fedavg_reduce)
+        k2, k3 = phase_sharded_main(torch, event_topk, aoi_topk, calm)
+    entry["launches"] += k2
+    k3_entry["launches"] += k3
+    del calm["params"]
     k4_entry = phase_kernel_k4(torch, flash_attention)
     k5_entry = phase_kernel_k5(torch, flash_decode)
     k4_entry["launches"], k5_entry["launches"] = phase_serve_main(

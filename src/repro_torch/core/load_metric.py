@@ -235,7 +235,7 @@ def scatter_targets(idx, n: int):
     return torch.clamp(j, 0, n - 1), (j >= 0) & (j < n)
 
 
-def ewma_scatter_update(vec, idx, values, mask, alpha):
+def ewma_scatter_update(vec, idx, values, mask, alpha, layout=None):
     """Masked scatter-EWMA over an (n,) per-client statistic.
 
     ``vec[idx[j]] <- (1 - alpha) * vec[idx[j]] + alpha * values[j]`` for
@@ -246,26 +246,38 @@ def ewma_scatter_update(vec, idx, values, mask, alpha):
     slots each add their step, as the reference's ``.at[].add`` does. The
     add is ``index_add_``: on the card it adds with atomics, which is exact
     in any order when each target gets at most one nonzero term — the
-    engines' case (a step's valid clients are distinct).
+    engines' case (a step's valid clients are distinct). Under a sharded
+    ``layout`` (``core.fleet``) ``vec`` is this rank's block, the indices
+    are global, the current values come through the layout's gather and
+    only the owner adds.
     """
     import torch
 
-    g, inb = scatter_targets(idx, vec.shape[0])
-    delta = torch.where(mask, alpha * (values - vec[g]), 0.0).to(vec.dtype)
+    from repro_torch.core.fleet import whole
+
+    lay = whole(layout, vec.shape[0])
+    g, inb = scatter_targets(idx, lay.n)
+    delta = torch.where(mask, alpha * (values - lay.gather(vec, g)),
+                        0.0).to(vec.dtype)
     delta = torch.where(inb, delta, -0.0)
-    return vec.index_add(0, g, delta)
+    return lay.index_add(vec, g, delta)
 
 
-def ewma_scatter_update_rows(mat, idx, rows, mask, alpha):
+def ewma_scatter_update_rows(mat, idx, rows, mask, alpha, layout=None):
     """Row-wise :func:`ewma_scatter_update` over an (n, d) per-client matrix:
     ``mat[idx[j]] <- (1 - alpha) * mat[idx[j]] + alpha * rows[j]`` for every
-    slot with ``mask[j]``, under the same index and exactness rules."""
+    slot with ``mask[j]``, under the same index, exactness and layout
+    rules."""
     import torch
 
-    g, inb = scatter_targets(idx, mat.shape[0])
-    delta = torch.where(mask[:, None], alpha * (rows - mat[g]), 0.0).to(mat.dtype)
+    from repro_torch.core.fleet import whole
+
+    lay = whole(layout, mat.shape[0])
+    g, inb = scatter_targets(idx, lay.n)
+    delta = torch.where(mask[:, None], alpha * (rows - lay.gather(mat, g)),
+                        0.0).to(mat.dtype)
     delta = torch.where(inb[:, None], delta, -0.0)
-    return mat.index_add(0, g, delta)
+    return lay.index_add(mat, g, delta)
 
 
 def init_selection_accum(n: int, expected_cohort: int = 0, device="cpu"):
@@ -295,14 +307,19 @@ def init_selection_accum(n: int, expected_cohort: int = 0, device="cpu"):
     return acc
 
 
-def update_selection_accum(acc, selected):
-    """Fold one round's (n,) bool selection vector into the accumulator."""
+def update_selection_accum(acc, selected, layout=None):
+    """Fold one round's (n,) bool selection vector into the accumulator
+    (this rank's block of it under a sharded ``layout``, whose block sums
+    are summed over ranks: exact, they are integer-valued)."""
     import torch
 
+    from repro_torch.core.fleet import whole
+
+    psum = whole(layout, selected.shape[0]).psum
     r = acc["steps"]
     has_gap = selected & (acc["last_sel"] >= 0)
     gap = torch.where(has_gap, r - acc["last_sel"], 0).to(torch.float32)
-    size = torch.sum(selected.to(torch.int32), dtype=torch.int32)
+    size = psum(torch.sum(selected.to(torch.int32), dtype=torch.int32))
     dev = (size - acc["size_shift"]).to(torch.float32)
     out = {
         "last_sel": torch.where(selected, r, acc["last_sel"]),
@@ -312,9 +329,9 @@ def update_selection_accum(acc, selected):
         "steps": r + 1,
     }
     increments = {
-        "gap_sum": torch.sum(gap),
-        "gap_sumsq": torch.sum(gap * gap),
-        "gap_cnt": torch.sum(has_gap.to(torch.float32)),
+        "gap_sum": psum(torch.sum(gap)),
+        "gap_sumsq": psum(torch.sum(gap * gap)),
+        "gap_cnt": psum(torch.sum(has_gap.to(torch.float32))),
         "size_sum": dev,
         "size_sumsq": dev * dev,
     }
@@ -372,15 +389,18 @@ def selection_stats_from_accum(acc) -> dict:
 _TIER_MOMENTS = ("gap_sum", "gap_sumsq", "gap_cnt")
 
 
-def tier_blocks(group_of_client, device="cpu"):
+def tier_blocks(group_of_client, device="cpu", num_groups=None):
     """The (E, L) gather table of a contiguous client -> node map: row ``e``
     lists node ``e``'s clients in order, padded with ``n`` (an index past
-    the fleet that ``block_sums`` points at a zero)."""
+    the fleet that ``block_sums`` points at a zero). ``num_groups`` fixes E
+    (a rank's block of the map need not reach the last nodes)."""
     import torch
 
     g = np.asarray(group_of_client)
     n = g.shape[0]
     e = int(g.max()) + 1 if n else 0
+    if num_groups is not None:
+        e = int(num_groups)
     if np.any(np.diff(g) < 0):
         raise ValueError("tier_blocks needs a contiguous (non-decreasing) map")
     starts = np.searchsorted(g, np.arange(e), side="left")
@@ -417,19 +437,24 @@ def init_tier_accum(n: int, n_groups: int, device="cpu"):
     return acc
 
 
-def update_tier_accum(acc, selected, blocks):
+def update_tier_accum(acc, selected, blocks, layout=None):
     """Fold one round's (n,) bool selection into the per-tier moments;
     ``blocks`` is ``tier_blocks(Topology.assign(n))`` on the fleet's
-    device."""
+    device. Under a sharded ``layout`` ``selected`` is this rank's block,
+    ``blocks`` the table of the block's map (``num_groups`` = E), and the
+    per-node sums are summed over ranks (exact: integer-valued)."""
     import torch
 
+    from repro_torch.core.fleet import whole
+
+    psum = whole(layout, selected.shape[0]).psum
     r = acc["steps"]
     has_gap = selected & (acc["last_sel"] >= 0)
     gap = torch.where(has_gap, r - acc["last_sel"], 0).to(torch.float32)
     increments = {
-        "gap_sum": block_sums(gap, blocks),
-        "gap_sumsq": block_sums(gap * gap, blocks),
-        "gap_cnt": block_sums(has_gap.to(torch.float32), blocks),
+        "gap_sum": psum(block_sums(gap, blocks)),
+        "gap_sumsq": psum(block_sums(gap * gap, blocks)),
+        "gap_cnt": psum(block_sums(has_gap.to(torch.float32), blocks)),
     }
     out = {
         "last_sel": torch.where(selected, r, acc["last_sel"]),

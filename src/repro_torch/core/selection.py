@@ -6,6 +6,12 @@ policy protocol of the engine API:
     state  = policy.init(draws, n)
     sel, state = policy.step(state, draws)     # sel: (n,) bool
 
+Under fleet sharding the engines call ``policy.step(state, draws,
+layout=...)`` with a sharded ``core.fleet`` layout: the state's ``ages``
+are this rank's block, every ``(n,)`` draw is made at its full shape and
+the rank keeps its block, a top-k runs through the layout's sharded merge,
+and ``sel`` is this rank's block of the selection.
+
 ``draws`` is a ``repro_torch.core.draws`` source (a ``torch.Generator`` in
 real runs, replayed reference draws in parity tests); policies draw at the
 sites ``policy_init`` and ``select``. State is an explicit dict of tensors
@@ -40,6 +46,7 @@ import torch
 
 from repro_torch.core import load_metric
 from repro_torch.core.aoi import age_update
+from repro_torch.core.fleet import whole
 from repro_torch.kernels import aoi_topk, ops
 
 
@@ -103,9 +110,9 @@ def make_random(n: int, k: int) -> Policy:
     def init(draws, n_=n):
         return _base_state(n_, draws.device)
 
-    def step(state, draws):
+    def step(state, draws, layout=None):
         perm = draws.permutation("select", n)
-        sel = _mask(n, perm[:k])
+        sel = whole(layout, n).mask(perm[:k])
         return sel, _advance(state, sel)
 
     return Policy("random", init, step, exact_k=True)
@@ -145,11 +152,11 @@ def make_markov(
             state["ages"] = ages.to(torch.int32)
         return state
 
-    def step(state, draws):
+    def step(state, draws, layout=None):
         ages = state["ages"]
         chain = torch.clamp(ages, max=m).long()
         send_p = p_dev(ages.device)[chain]
-        sel = draws.uniform("select", (n,)) < send_p
+        sel = whole(layout, n).block(draws.uniform("select", (n,))) < send_p
         return sel, _advance(state, sel)
 
     return Policy("markov", init, step, exact_k=False)
@@ -180,11 +187,13 @@ def make_markov_hetero(
             state["ages"] = ages.to(torch.int32)
         return state
 
-    def step(state, draws):
+    def step(state, draws, layout=None):
+        lay = whole(layout, n)
         ages = state["ages"]
         chain = torch.clamp(ages, max=m).long()
-        send_p = torch.gather(table_dev(ages.device), 1, chain[:, None])[:, 0]
-        sel = draws.uniform("select", (n,)) < send_p
+        send_p = torch.gather(lay.block(table_dev(ages.device)), 1,
+                              chain[:, None])[:, 0]
+        sel = lay.block(draws.uniform("select", (n,))) < send_p
         return sel, _advance(state, sel)
 
     return Policy("markov_hetero", init, step, exact_k=False)
@@ -203,11 +212,12 @@ def make_oldest_age(n: int, k: int) -> Policy:
         state["ages"] = (perm % max(2 * (n_ // max(k, 1)), 2)).to(torch.int32)
         return state
 
-    def step(state, draws):
+    def step(state, draws, layout=None):
+        lay = whole(layout, n)
         # random tie-break: add sub-integer uniform noise to ages
-        noise = draws.uniform("select", (n,), 0.0, 0.5)
+        noise = lay.block(draws.uniform("select", (n,), 0.0, 0.5))
         score = state["ages"].to(torch.float32) + noise
-        sel = _mask(n, _topk_idx(score, k))
+        sel = lay.mask(lay.topk_idx(score, k))
         return sel, _advance(state, sel)
 
     return Policy("oldest_age", init, step, exact_k=True)
@@ -222,10 +232,10 @@ def make_round_robin(n: int, k: int) -> Policy:
     def init(draws, n_=n):
         return _base_state(n_, draws.device)
 
-    def step(state, draws):
+    def step(state, draws, layout=None):
         start = (state["round"] * k) % n
         idx = (start + torch.arange(k, device=start.device)) % n
-        sel = _mask(n, idx.long())
+        sel = whole(layout, n).mask(idx.long())
         return sel, _advance(state, sel)
 
     return Policy("round_robin", init, step, exact_k=True)
@@ -240,10 +250,11 @@ def make_gumbel_age(n: int, k: int, beta: float = 1.0) -> Policy:
     def init(draws, n_=n):
         return _base_state(n_, draws.device)
 
-    def step(state, draws):
-        g = draws.gumbel("select", (n,))
+    def step(state, draws, layout=None):
+        lay = whole(layout, n)
+        g = lay.block(draws.gumbel("select", (n,)))
         score = beta * state["ages"].to(torch.float32) + g
-        sel = _mask(n, _topk_idx(score, k))
+        sel = lay.mask(lay.topk_idx(score, k))
         return sel, _advance(state, sel)
 
     return Policy(f"gumbel_age(beta={beta})", init, step, exact_k=True)

@@ -33,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.fleet import whole
 from repro_torch.core.load_metric import ewma_scatter_update_rows, scatter_targets
 from repro_torch.core.tree import tree_paths
 from repro_torch.defense.config import DefenseConfig
@@ -180,7 +181,7 @@ def clique_scores(hists, obs, valid, idx, cfg: DefenseConfig):
 
 
 def collusion_observe(dstate, updated, bases, idx, valid,
-                      cfg: DefenseConfig, deltas=None):
+                      cfg: DefenseConfig, deltas=None, layout=None):
     """Update the sketches with this cohort and score it (``deltas`` as
     for :func:`project_deltas`).
 
@@ -188,15 +189,20 @@ def collusion_observe(dstate, updated, bases, idx, valid,
     into both a reputation term and the aggregation-weight discount
     ``1 - s_clique`` (exact 1.0 for every clique-free slot, so a calm
     armed run multiplies weights by exact ones). The observation counts
-    add 0/1 with ``index_add``, exact in any order.
+    add 0/1 with ``index_add``, exact in any order. Under a sharded
+    ``layout`` (``core.fleet``) the ``(n, d_sketch)`` sketches and the
+    counts are this rank's blocks, read through the layout's gather and
+    written on their owner.
     """
+    lay = whole(layout, dstate["sk_obs"].shape[0])
     rows = project_deltas(updated, bases, cfg.d_sketch, deltas)
     sketch = ewma_scatter_update_rows(
-        dstate["sketch"], idx, rows, valid, cfg.sketch_ewma)
-    g, inb = scatter_targets(idx, dstate["sk_obs"].shape[0])
-    sk_obs = dstate["sk_obs"].index_add(0, g, torch.where(valid & inb, 1.0, 0.0))
-    hists = sketch[g]
-    obs = sk_obs[g]
+        dstate["sketch"], idx, rows, valid, cfg.sketch_ewma, layout)
+    g, inb = scatter_targets(idx, lay.n)
+    sk_obs = lay.index_add(dstate["sk_obs"], g,
+                           torch.where(valid & inb, 1.0, 0.0))
+    hists = lay.gather(sketch, g)
+    obs = lay.gather(sk_obs, g)
     s_clique, s_flip = clique_scores(hists, obs, valid, idx, cfg)
     hits = torch.sum(torch.where(valid & (s_clique > 0.5), 1.0, 0.0))
     dstate = {**dstate, "sketch": sketch, "sk_obs": sk_obs,

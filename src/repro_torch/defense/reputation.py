@@ -42,6 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.fleet import whole
 from repro_torch.core.load_metric import ewma_scatter_update
 from repro_torch.core.tree import tree_paths
 from repro_torch.defense.collusion import collusion_observe
@@ -195,7 +196,7 @@ class Defense:
         return dstate["status"] == 1
 
     def observe(self, dstate, draws, updated, bases, idx, valid, staleness,
-                losses=None, ages=None, labels=None):
+                losses=None, ages=None, labels=None, layout=None):
         """Score the cohort, update reputation, run the quarantine
         chain, and advance the mtd pressure window.
 
@@ -208,8 +209,15 @@ class Defense:
         learned head's feature vector; ``labels`` is the per-slot fault-hit
         ground truth when ``fault_exposure`` arms evaluation mode (None ->
         the head self-supervises against its own quarantine outcomes).
+
+        Under a sharded ``layout`` (``core.fleet``) the ``(n,)`` state is
+        this rank's block: reads at ``idx`` go through the layout's gather,
+        writes through its owner-only adds, the ``(n,)`` coins are drawn at
+        full width and blocked, and the fleet counts are summed over ranks
+        (exact: 0/1 values). ``excluded`` is then this rank's block.
         """
         cfg = self.cfg
+        lay = whole(layout, self.n)
         w_scale = None
         if not self.collusion and not self.learned:
             scores = _slot_scores(updated, bases, valid, staleness, cfg)
@@ -218,7 +226,7 @@ class Defense:
             s_norm, s_dir, norm = _slot_channels(updated, bases, valid, deltas)
             if self.collusion:
                 dstate, s_clique, s_flip = collusion_observe(
-                    dstate, updated, bases, idx, valid, cfg, deltas)
+                    dstate, updated, bases, idx, valid, cfg, deltas, layout)
                 w_scale = 1.0 - s_clique
             else:
                 s_clique = torch.zeros_like(s_norm)
@@ -228,8 +236,8 @@ class Defense:
                                        staleness, ages, losses, valid)
                 if labels is None:
                     # deployment mode: self-supervise against outcomes
-                    labels = ((dstate["rep"][idx] > cfg.threshold)
-                              | (dstate["status"][idx] != 0))
+                    labels = ((lay.gather(dstate["rep"], idx) > cfg.threshold)
+                              | (lay.gather(dstate["status"], idx) != 0))
                 dstate, scores = learned_observe(dstate, feats, valid, labels, cfg)
                 # staleness already sits in the feature vector; the
                 # hard norm clip stays as a non-negotiable override
@@ -244,10 +252,10 @@ class Defense:
         # passive decay while benched, then fresh evidence (probation
         # clients can be observed; invalid slots add an exact 0.0)
         rep = torch.where(status != 0, dstate["rep"] * cfg.q_decay, dstate["rep"])
-        rep = ewma_scatter_update(rep, idx, scores, valid, cfg.ewma)
+        rep = ewma_scatter_update(rep, idx, scores, valid, cfg.ewma, layout)
 
-        u_prob = draws.uniform("probation", (self.n,))
-        u_read = draws.uniform("readmit", (self.n,))
+        u_prob = lay.block(draws.uniform("probation", (self.n,)))
+        u_read = lay.block(draws.uniform("readmit", (self.n,)))
         hot = rep > cfg.threshold
         to_quar = (status == 0) & hot
         relapse = (status == 2) & hot
@@ -256,8 +264,8 @@ class Defense:
         status = torch.where(
             to_quar | relapse, 1,
             torch.where(to_prob, 2, torch.where(to_active, 0, status)))
-        inflow = (to_quar | relapse).sum(dtype=torch.float32)
-        readmits = to_active.sum(dtype=torch.float32)
+        inflow = lay.psum((to_quar | relapse).sum(dtype=torch.float32))
+        readmits = lay.psum(to_active.sum(dtype=torch.float32))
 
         out = {
             **dstate, "rep": rep, "status": status,

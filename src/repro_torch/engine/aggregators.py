@@ -52,7 +52,7 @@ class Aggregator:
     plain sum over cohort members (``init`` is the zero element, and the
     accumulators of two disjoint cohort slices add up to the full
     cohort's): what a tier merge (``topo.reduce.tiered_apply``) and a
-    cohort-sharded merge (ROADMAP queue 1, slice F) need. Every aggregator
+    cohort-sharded merge (``cohort_sharded_apply``) need. Every aggregator
     opts in explicitly; the order-statistic robust aggregators do not.
     """
 
@@ -97,6 +97,45 @@ def acc_stats(acc) -> dict:
     """The scalar telemetry dict a finished accumulator carries (empty for
     aggregators that declare no ``stat_names``)."""
     return acc.get("stats", {}) if isinstance(acc, dict) else {}
+
+
+def cohort_sharded_apply(agg: Aggregator, mesh) -> Callable:
+    """The aggregator seam's rank-local path for cohort-parallel execution:
+    ``apply(global_params, updates, bases, w, idx=None) -> (new params,
+    stats)`` where ``updates``/``w`` (and ``bases`` when stacked) are this
+    rank's slice of the cohort over ``mesh`` (a
+    ``core.distributed.FleetMesh``); ``stats`` is the merged accumulator's
+    scalar telemetry (``acc_stats``).
+
+    Each rank runs ``agg.init``/``agg.accumulate`` over its own ``B/D``
+    slots (K1 for fedavg), the accumulators are merged by the rank-order
+    ``psum`` (an all-gather, then a sum in rank order: every rank gets the
+    same bits, and runs repeat bitwise) — O(params) traffic instead of the
+    ``B x params`` update stack — and every rank runs ``finalize`` on the
+    merged accumulator. Requires ``agg.additive``; engines pad the cohort
+    with zero-weight slots to a multiple of the mesh. Allclose, not
+    bitwise, to the one-device reduction: the cohort sum is split in D
+    partial sums. ``bases`` is the slice's stacked bases, or the sync
+    engine's unstacked global tree (``accumulate`` broadcasts it).
+    """
+    from repro_torch.core.distributed import psum
+
+    if not agg.additive:
+        raise ValueError(
+            f"aggregator {agg.name!r} is not additive: its accumulator "
+            "cannot be merged by psum, so it cannot run cohort-sharded "
+            "(drop shard_cohort for this aggregator)"
+        )
+
+    def apply(g, updates, bases, w, idx=None):
+        # ``idx`` (the cohort -> client map) is part of the engines'
+        # aggregate-hook signature for topology-aware reductions; the
+        # star-shaped single-server reduction has no use for it
+        acc = agg.accumulate(agg.init(g), updates, bases, w)
+        merged = tree_map(lambda a: psum(a, mesh), acc)
+        return agg.finalize(g, merged), acc_stats(merged)
+
+    return apply
 
 
 def staleness_weight(s: torch.Tensor, mode: str = "poly",

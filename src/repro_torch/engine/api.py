@@ -56,11 +56,15 @@ class Engine(Protocol):
 
 def make_engine(task, cfg: RunConfig, policy=None, aggregator=None,
                 draws=None) -> Engine:
-    """Instantiate the engine matching ``cfg`` on the task's device: the
-    calm ``SyncEngine`` or ``AsyncEngine``; ``RunConfig`` already rejected
-    every option of a later slice."""
+    """Instantiate the engine matching ``cfg`` on the task's device:
+    ``SyncEngine``, ``AsyncEngine``, or — for async runs with
+    ``mesh_shards`` set — the fleet-sharded ``ShardedAsyncEngine`` (a
+    world of one is made when no process group exists and the shard count
+    resolves to 1)."""
     if cfg.mode == "sync":
         from repro_torch.engine.sync import SyncEngine as engine_cls
+    elif cfg.mesh_shards is not None:
+        from repro_torch.engine.sharded import ShardedAsyncEngine as engine_cls
     else:
         from repro_torch.engine.async_engine import AsyncEngine as engine_cls
     return engine_cls(task, cfg, policy=policy, aggregator=aggregator,

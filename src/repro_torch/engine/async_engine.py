@@ -10,9 +10,10 @@ the last ``max_versions`` global models) -> aggregator
 ``weigh/init/accumulate/finalize`` over the buffered deltas -> clock/
 version advance.
 
-This is ``repro.engine.async_engine`` on one device (meshes wait for
-slice F). The robustness tier, the aggregation topology and the adaptive
-defense ride the step as in the reference, under the same structural
+This is ``repro.engine.async_engine``; ``engine.sharded`` runs the same
+step over a fleet mesh of ranks through its fleet seam. The robustness
+tier, the aggregation topology and the adaptive defense ride the step as
+in the reference, under the same structural
 rule: faults, the deadline re-dispatch, a multi-tier topology, a heartbeat
 and the defense, when armed, add their state to the engine state and draw
 from their own sub-streams of the run's source (``faults``,
@@ -46,6 +47,7 @@ import torch
 
 from repro_torch.core.aoi import age_update, peak_age_accumulate
 from repro_torch.core.draws import GeneratorDraws
+from repro_torch.core.fleet import whole
 from repro_torch.core.load_metric import (
     empirical_load_stats,
     init_selection_accum,
@@ -132,13 +134,23 @@ class AsyncEngine:
             self.defense = make_defense(cfg.n_clients, self.defense_cfg)
         else:
             self.defense = None
-        self._init_state, core = _make_async_step(
-            task, cfg, self.policy, self.aggregator, self.profile,
+        self._init_state, core = self._build_step()
+        self._chunk = ChunkRunner(
+            core, aux_keys=("loss", "clock", "version", "buffer_fill"),
+            layout=self._layout(),
+        )
+
+    def _build_step(self):
+        """``(init_state, step)`` of this engine (``engine.sharded``
+        passes its fleet seam)."""
+        return _make_async_step(
+            self.task, self.cfg, self.policy, self.aggregator, self.profile,
             topo=self.topo, faults=self.fault_set, defense=self.defense,
         )
-        self._chunk = ChunkRunner(
-            core, aux_keys=("loss", "clock", "version", "buffer_fill")
-        )
+
+    def _layout(self):
+        """The fleet layout of the state's ``(n,)`` leaves (None: whole)."""
+        return None
 
     def init(self) -> Dict:
         cfg, d = self.cfg, self.draws
@@ -252,10 +264,32 @@ class AsyncEngine:
 
 def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
                      agg: Aggregator, profile: lat_mod.LatencyProfile,
-                     aggregate=None, topo=None, faults=None, defense=None):
+                     aggregate=None, topo=None, faults=None, defense=None,
+                     layout=None, cohort=None):
     """Builds ``(init_state, step)`` with ``step(state, draws) -> (state,
     aux)``, the function ``ChunkRunner`` loops over; ``draws`` is the
     source of this step's draws.
+
+    ``layout`` (a ``core.fleet`` layout; None: the one-device
+    ``WholeFleet``) is the fleet seam, the port's form of the reference's
+    hooks ``pop`` and ``constrain_state``: every read or write of an
+    ``(n,)`` leaf — the policy step, the fleet-wide draws, the pop, the
+    gathers at the popped indices, the masked scatters and the fleet sums —
+    goes through it. Under ``engine.sharded``'s ``BlockFleet`` each rank
+    holds its block of those leaves and everything cohort-sized is
+    replicated, so the step is the single engine's bit for bit.
+
+    ``cohort`` (an ``engine.sharded.CohortSplit``, the cohort-parallel mode
+    of ``RunConfig.shard_cohort``; the reference's ``cohort_layout`` and
+    ``cohort_pad``) splits the training and the aggregation over the mesh:
+    the cohort is padded with zero-weight slots to a multiple of the mesh,
+    this rank trains its slice of it, and ``aggregate`` receives the slice
+    (``aggregators.cohort_sharded_apply`` or ``tiered_apply(mesh=...)``
+    merge the slices' accumulators). Everything else — the pop, the fault
+    coins, the weights, the telemetry — stays B wide, so the run draws what
+    the replicated run draws; the slot outputs that a later stage reads
+    whole (the losses; the updates and their bases under corrupting faults
+    or the defense) are all-gathered.
 
     ``aggregate(params, updates, bases, w, idx) -> (params, stats)``
     replaces the inline ``init/accumulate/finalize`` chain (``idx`` is the
@@ -295,6 +329,10 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
     B = cfg.resolved_buffer_size()
     H = cfg.max_versions
     dev = task.device
+    lay = whole(layout, n)
+    # the policy takes the layout only when sharded, so a plugin policy
+    # with the two-argument step runs on one device as before
+    pol_kw = {"layout": layout} if lay.sharded else {}
     tiered = topo is not None and not topo.is_star
     hb_timeout = float(topo.heartbeat_timeout) if topo is not None else 0.0
     have_faults = faults is not None
@@ -322,7 +360,11 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
         )
         from repro_torch.topo.reduce import make_hop_latency, tiered_apply
 
-        blocks = tier_blocks(topo.assign(n), dev)
+        assign = topo.assign(n)
+        # this rank's block of the client -> tier-0 map (the whole map on
+        # one device), its table over all E nodes
+        blocks = tier_blocks(assign[lay.lo:lay.lo + lay.local_n], dev,
+                             num_groups=int(topo.tier_sizes[0]))
         hop_fn = make_hop_latency(topo, n)
     if hb_timeout > 0 or rd_on:
         # re-dispatch deadlines reuse the heartbeat liveness predicate:
@@ -347,6 +389,9 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
     )
     lr_fn = exponential_decay(cfg.lr0, cfg.lr_decay)
     neg_inf = torch.tensor(float("-inf"), device=dev)
+    # cohort-parallel: stages that read every slot's update see the whole
+    # cohort, all-gathered from the slices
+    whole_updates = cohort is not None and (corrupt_on or collude_on or have_def)
 
     def init_state(params, sched_state, draws):
         state = {
@@ -386,7 +431,7 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
         prev_ages = sched["ages"]
         idle = torch.isinf(ev["t_done"])
         available = ev["next_avail"] <= clock
-        want, sched = policy.step(sched, draws)
+        want, sched = policy.step(sched, draws, **pol_kw)
         send = want & idle & available
         if have_def:
             # quarantined clients are vetoed at the admission seam (they
@@ -397,24 +442,24 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
         # only actual dispatches reset the AoI clock; everyone else ages
         sched = {**sched, "ages": age_update(prev_ages, send)}
         ep_sx, ep_sx2, ep_cnt = peak_age_accumulate(
-            prev_ages, send, stats["ep_sx"], stats["ep_sx2"], stats["ep_cnt"]
-        )
+            prev_ages, send, stats["ep_sx"], stats["ep_sx2"], stats["ep_cnt"],
+            layout)
 
         # --- dispatch: sample wall-clock latencies, mark in flight
-        latency = lat_mod.sample_latency(draws, profile, state["speed"])
+        latency = lat_mod.sample_latency(draws, profile, state["speed"], layout)
         if tiered:
             # per-hop DAG latency, only when a multi-tier topology is armed
-            latency = latency + hop_fn(draws.sub("hop"))
+            latency = latency + lay.block(hop_fn(draws.sub("hop")))
         if have_faults:
             fstate = state["faults"]
             fdraws = draws.sub("faults")
             if faults.has_dispatch:
                 fstate, latency = faults.on_dispatch(fstate, fdraws, send,
-                                                     latency)
+                                                     latency, layout)
         if hb_timeout > 0:
             # dispatch is a heartbeat: the client pulled the model now
             hb = hb_mod.beat(state["hb"], send, clock)
-        dropped = lat_mod.sample_dropout(draws, profile, n)
+        dropped = lat_mod.sample_dropout(draws, profile, n, layout)
         ev = ev_mod.schedule_completions(ev, send, clock, latency, version, dropped)
 
         # --- deadline-based re-dispatch of expired in-flight dispatches:
@@ -434,9 +479,10 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
             retry = exp & (rd_cnt < cfg.redispatch_retries)
             give_up = exp & ~retry
             rd_draws = draws.sub("redispatch")
-            rd_lat = lat_mod.sample_latency(rd_draws, profile, state["speed"])
+            rd_lat = lat_mod.sample_latency(rd_draws, profile, state["speed"],
+                                            layout)
             if tiered:
-                rd_lat = rd_lat + hop_fn(rd_draws.sub("hop"))
+                rd_lat = rd_lat + lay.block(hop_fn(rd_draws.sub("hop")))
             ev = {
                 **ev,
                 "t_done": torch.where(
@@ -449,13 +495,13 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
                 "t_disp": torch.where(retry, clock, rd_t),
                 "retries": rd_cnt + retry.to(torch.int32),
             }
-            rd_retried = retry.to(torch.float32).sum()
-            rd_expired = exp.to(torch.float32).sum()
+            rd_retried = lay.psum(retry.to(torch.float32).sum())
+            rd_expired = lay.psum(exp.to(torch.float32).sum())
 
         # --- pop the next B completions, advance the simulated clock
-        t_ev, idx, valid, ev = ev_mod.pop_events(ev, B, use_kernel=cfg.use_kernel)
+        t_ev, idx, valid, ev = lay.pop(ev, B, use_kernel=cfg.use_kernel)
         if have_faults and faults.has_pop:
-            fstate, eff = faults.on_pop(fstate, fdraws, idx, valid)
+            fstate, eff = faults.on_pop(fstate, fdraws, idx, valid, layout)
         new_clock = torch.maximum(
             clock, torch.max(torch.where(valid, t_ev, neg_inf))
         )
@@ -464,11 +510,11 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
         # window opening so availability can recover next step
         new_clock = torch.where(
             valid.any(), new_clock,
-            torch.maximum(new_clock, torch.min(ev["next_avail"])),
+            torch.maximum(new_clock, lay.pmin(torch.min(ev["next_avail"]))),
         )
 
         # --- local training from each client's dispatch-time model
-        disp_ver = ev["disp_ver"][idx]
+        disp_ver = lay.gather(ev["disp_ver"], idx)
         # versions older than the ring are trained from the oldest retained
         # model; staleness for weighting still uses the true dispatch version
         oldest = torch.clamp(version - (H - 1), min=0)
@@ -480,10 +526,24 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
             # dispatch version — precisely the attack
             read_ver = torch.maximum(read_ver - eff.replay_shift, oldest)
         slot = (read_ver % H).long()
-        disp_params = tree_map(lambda h: h[slot], state["hist"])
-        shards = {k: a[idx] for k, a in task.client_data.items()}
+        shards = {k: lay.gather(a, idx) for k, a in task.client_data.items()}
         lr = lr_fn(torch.clamp(disp_ver, min=0))
-        updated, losses = local_update(disp_params, shards, draws, lr)
+        if cohort is None:
+            disp_params = tree_map(lambda h: h[slot], state["hist"])
+            updated, losses = local_update(disp_params, shards, draws, lr)
+        else:
+            # this rank trains its slice of the padded cohort (a padded
+            # slot repeats the last real one; its weight is 0)
+            rows = cohort.rows
+            disp_params = tree_map(lambda h: h[slot[rows]], state["hist"])
+            updated, losses = local_update(
+                disp_params, {k: a[rows] for k, a in shards.items()}, draws,
+                lr[rows], perm_rows=(B, rows))
+            slice_updated, slice_bases = updated, disp_params
+            losses = cohort.gather(losses)
+            if whole_updates:
+                updated = tree_map(cohort.gather, updated)
+                disp_params = tree_map(lambda h: h[slot], state["hist"])
         if corrupt_on:
             # missed slots keep their exact values (per-slot where inside
             # corrupt_updates), so a rate-0 set is bitwise identity
@@ -495,7 +555,7 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
             updated = collude_updates(updated, disp_params, eff)
 
         # --- buffered aggregation of deltas through the aggregator seam
-        succ = valid & ~ev["dropped"][idx]
+        succ = valid & ~lay.gather(ev["dropped"], idx)
         if kill_on:
             # mid-round dropout: the update never arrived
             succ = succ & ~eff.kill
@@ -503,10 +563,11 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
             # an update landing more than the timeout after its client's
             # last contact looks dead to its tier coordinator: excluded
             # like a dropped slot. Every arrival still counts as contact
-            dark = succ & hb_mod.expired(hb["last_beat"][idx], t_ev, hb_timeout)
+            dark = succ & hb_mod.expired(lay.gather(hb["last_beat"], idx), t_ev,
+                                         hb_timeout)
             succ = succ & ~dark
             arrived = valid & ~eff.kill if kill_on else valid
-            hb = hb_mod.beat_at(hb, idx, arrived, t_ev)
+            hb = hb_mod.beat_at(hb, idx, arrived, t_ev, layout)
         staleness = torch.clamp(version - disp_ver, min=0)
         if have_def:
             # every update that arrived (pre-exclusion succ) is scored —
@@ -516,10 +577,10 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
             new_dstate, suspect, w_scale = defense.observe(
                 dstate, draws.sub("defense"),
                 updated, disp_params, idx, succ, staleness,
-                losses=losses, ages=sched["ages"][idx],
-                labels=effects_hit(eff) if sup_on else None,
+                losses=losses, ages=lay.gather(sched["ages"], idx),
+                labels=effects_hit(eff) if sup_on else None, layout=layout,
             )
-            succ = succ & ~suspect[idx]
+            succ = succ & ~lay.gather(suspect, idx)
         w = agg.weigh(succ, staleness)
         if col_on:
             # clique members keep a (discounted) vote rather than a
@@ -529,7 +590,15 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
         wsum = w.sum()
         has = wsum > 0
         denom = torch.clamp(wsum, min=1e-9)
-        if mtd_on:
+        if cohort is not None:
+            # the aggregate hook merges this rank's slice with the others'
+            if whole_updates:
+                slice_updated = tree_map(lambda u: u[cohort.rows], updated)
+                slice_bases = tree_map(lambda b: b[cohort.rows], disp_params)
+            params, agg_tel = aggregate(state["params"], slice_updated,
+                                        slice_bases, cohort.slot_weights(w),
+                                        idx[cohort.rows])
+        elif mtd_on:
             params, agg_tel = aggregate_mtd(
                 state["params"], updated, disp_params, w, idx,
                 defense.step_level(dstate, new_dstate))
@@ -546,12 +615,12 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
         # --- completed clients go idle; wall-clock AoI samples
         # gaps are i.i.d. — draw only the B popped clients' worth
         gaps = lat_mod.sample_avail_gap(draws, profile, B)
-        ev = {**ev, "next_avail": ev_mod.scatter_set(
+        ev = {**ev, "next_avail": lay.scatter_set(
             ev["next_avail"], idx, valid, new_clock + gaps)}
-        last_done = ev["last_done"][idx]
+        last_done = lay.gather(ev["last_done"], idx)
         x_wall = t_ev - last_done
         wall_ok = succ & (last_done >= 0.0)
-        ev = {**ev, "last_done": ev_mod.scatter_set(
+        ev = {**ev, "last_done": lay.scatter_set(
             ev["last_done"], idx, succ, t_ev)}
 
         zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -593,7 +662,8 @@ def _make_async_step(task: FLTask, cfg: RunConfig, policy: Policy,
         if rd_on:
             new_state["rd"] = rd
         if tiered:
-            new_state["tier_acc"] = update_tier_accum(state["tier_acc"], send, blocks)
+            new_state["tier_acc"] = update_tier_accum(state["tier_acc"], send,
+                                                      blocks, layout)
         aux = {
             "send": send,
             "loss": mean_loss,

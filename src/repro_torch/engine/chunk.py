@@ -30,9 +30,12 @@ class ChunkRunner:
     history.
     """
 
-    def __init__(self, step_fn: Callable, aux_keys: Tuple[str, ...]):
+    def __init__(self, step_fn: Callable, aux_keys: Tuple[str, ...],
+                 layout=None):
         self._step_fn = step_fn
         self._aux_keys = aux_keys
+        # a sharded ``core.fleet`` layout: ``send`` is this rank's block
+        self._layout = layout
 
     def __call__(self, state: Dict, draws, r0: int, length: int,
                  with_history: bool):
@@ -45,7 +48,8 @@ class ChunkRunner:
             inner, aux = self._step_fn(inner, draws.step(r))
             state = {**inner,
                      "load_acc": update_selection_accum(state["load_acc"],
-                                                        aux["send"])}
+                                                        aux["send"],
+                                                        self._layout)}
             for k in ys:
                 ys[k].append(aux[k])
         return state, {k: torch.stack(v) for k, v in ys.items()}

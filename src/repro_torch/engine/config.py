@@ -12,9 +12,9 @@ topologies (slice D: ``topology``/``topology_kwargs``, resolved eagerly
 through ``repro_torch.topo.graph``) and the adaptive defense (slice E:
 ``defense``/``defense_kwargs``, resolved eagerly through
 ``repro_torch.defense.config``), validated as the reference validates
-them. A config that asks for anything else — a device mesh, cohort
-sharding or a JAX PRNG implementation — raises ``NotImplementedError``
-naming the slice that brings it, in either mode; no option is silently
+them, and fleet sharding (slice F: ``mesh_shards``/``shard_cohort``,
+validated with the reference's messages). A config that asks for a JAX
+PRNG implementation raises ``NotImplementedError``; no option is silently
 ignored.
 
 This module is dependency-free (dataclasses + numpy only).
@@ -37,7 +37,7 @@ MAX_AUTO_CHUNK = 64
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
     """Everything needed to reproduce one federated run (the reference's
-    fields; the options of later slices raise, see ``_slice_guard``)."""
+    fields; ``rng_impl`` raises, see ``_slice_guard``)."""
 
     # --- fleet + schedule (paper Sec. IV defaults) ---
     n_clients: int = 100
@@ -78,8 +78,12 @@ class RunConfig:
     profile: Any = "lognormal"  # name or sim.latency.LatencyProfile
     use_kernel: Optional[bool] = None  # None: kernel when fleet is large
 
-    # --- options of later slices (each raises NotImplementedError) ---
-    mesh_shards: Optional[int] = None  # slice F
+    # --- fleet sharding (repro_torch.engine.sharded) ---
+    # None -> one device. D > 0 splits the async fleet state over D ranks
+    # of a torch.distributed group (0 = auto-detect: the largest divisor
+    # of n_clients at most the group's size); with shard_cohort the cohort
+    # axis is split over them instead of replicated (sync or async).
+    mesh_shards: Optional[int] = None
     # --- aggregation topology (repro_torch.topo) ---
     # None / "star" -> the single-server reduction, bit-for-bit unchanged.
     # A registered topology name ("hierarchical", "gossip", or anything
@@ -108,7 +112,7 @@ class RunConfig:
     # expiry check and its (n,) state are absent entirely.
     redispatch_timeout: Optional[float] = None
     redispatch_retries: int = 1
-    shard_cohort: bool = False  # slice F
+    shard_cohort: bool = False
     # --- adaptive defense (repro_torch.defense) ---
     # False -> no defense state, no sub-stream, no ops: the engines are
     # structurally the calm run. True arms per-client reputation +
@@ -138,6 +142,32 @@ class RunConfig:
         if self.steps_per_chunk is not None and self.steps_per_chunk < 1:
             raise ValueError(
                 f"steps_per_chunk must be >= 1, got {self.steps_per_chunk}"
+            )
+        if self.mesh_shards is not None:
+            if self.mode != "async" and not self.shard_cohort:
+                raise ValueError(
+                    "mesh_shards requires mode='async' (fleet sharding is "
+                    "an async-engine feature) or shard_cohort=True (the "
+                    "mesh then shards the sync cohort axis), got "
+                    f"mode={self.mode!r}"
+                )
+            if self.mesh_shards < 0:
+                raise ValueError(
+                    f"mesh_shards must be >= 0 (0 = auto-detect devices), "
+                    f"got {self.mesh_shards}"
+                )
+            if (self.mode == "async" and self.mesh_shards > 0
+                    and self.n_clients % self.mesh_shards):
+                raise ValueError(
+                    f"mesh_shards={self.mesh_shards} must divide "
+                    f"n_clients={self.n_clients} (every device owns an "
+                    "equal client block); use 0 to auto-detect"
+                )
+        if self.shard_cohort and self.mesh_shards is None:
+            raise ValueError(
+                "shard_cohort=True needs a device mesh: set mesh_shards "
+                "(0 = auto-detect) — without one the cohort would silently "
+                "stay replicated"
             )
         if self.topology is not None:
             # resolve eagerly so a typo'd name or an invalid tier shape
@@ -179,10 +209,20 @@ class RunConfig:
             )
         if self.defense:
             # resolve eagerly (torch-free DefenseConfig) so a bad knob
-            # fails at config construction, like topology resolution.
-            # The reference's shard_cohort checks are not repeated:
-            # _slice_guard rejects shard_cohort first
+            # fails at config construction, like topology resolution
             dcfg = self.resolved_defense()
+            if self.shard_cohort and (dcfg.collusion
+                                      or dcfg.detector != "zscore"):
+                raise ValueError(
+                    "collusion scoring and the learned detector keep "
+                    "whole-cohort state (pairwise similarity, one "
+                    "logistic head) that is not psum-mergeable under "
+                    "shard_cohort — drop shard_cohort (fleet sharding "
+                    "via --mesh-shards *without* --shard-cohort works: "
+                    "the (n, d_sketch) sketches shard over the fleet "
+                    "axis like every other per-client leaf), or keep "
+                    "the default detector='zscore' without collusion"
+                )
             if dcfg.mtd:
                 topo = self.resolved_topology()
                 if topo is not None and not topo.is_star:
@@ -193,6 +233,14 @@ class RunConfig:
                         "segment-sum reduction — disable mtd or use the "
                         "star topology (reputation/quarantine alone work "
                         "everywhere)"
+                    )
+                if self.shard_cohort:
+                    raise ValueError(
+                        "moving-target defense (mtd) swaps in an "
+                        "order-statistic trimmed mean, which is not "
+                        "additive: it cannot be psum-merged under "
+                        "shard_cohort — disable mtd or shard_cohort "
+                        "(reputation/quarantine alone work everywhere)"
                     )
         elif self.defense_kwargs:
             raise ValueError("defense_kwargs given without defense=True")
@@ -307,18 +355,7 @@ class RunConfig:
 
 
 def _slice_guard(cfg: "RunConfig") -> None:
-    """Reject every option of the reference that the port does not run yet,
-    naming the ROADMAP queue-1 slice that brings it."""
-    later = (
-        ("mesh_shards", cfg.mesh_shards is not None, "slice F (multi-GPU)"),
-        ("shard_cohort", cfg.shard_cohort, "slice F (multi-GPU)"),
-    )
-    for name, asked, where in later:
-        if asked:
-            raise NotImplementedError(
-                f"{name} is not ported to repro_torch yet: it arrives with "
-                f"ROADMAP queue 1, {where}"
-            )
+    """Reject the reference's option that has no meaning in the port."""
     if cfg.rng_impl is not None:
         raise NotImplementedError(
             f"rng_impl={cfg.rng_impl!r} names a JAX PRNG implementation; "

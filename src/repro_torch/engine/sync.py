@@ -7,8 +7,14 @@ every slot from the current global params -> aggregator
 ``fedavg`` aggregator the cohort sum is the ``fedavg_reduce`` kernel
 (K1).
 
-This is ``repro.engine.sync`` without cohort sharding (``RunConfig``
-rejects it; slice F). A multi-tier topology routes the round's
+This is ``repro.engine.sync``. With ``shard_cohort`` (and a mesh of
+``mesh_shards`` ranks over ``torch.distributed``) the cohort axis is padded
+with zero-weight slots to a multiple of the mesh and split over the ranks:
+each rank trains its slice from replicated client data, the aggregation
+merges the slices' accumulators (``aggregators.cohort_sharded_apply``, or
+``topo.reduce.tiered_apply`` over the mesh) and the eval examples are split
+too (``engine.sharded.make_sharded_eval``); allclose, not bitwise, to the
+replicated round. A multi-tier topology routes the round's
 aggregation through ``topo.reduce.tiered_apply`` (with the unstacked
 global tree as bases) and adds the per-tier load accumulators
 (``tier_acc``); a heartbeat is rejected, as in the reference (sync rounds
@@ -51,6 +57,7 @@ from repro_torch.core.load_metric import (
     update_tier_accum,
 )
 from repro_torch.core.selection import Policy
+from repro_torch.core.tree import tree_map
 from repro_torch.engine.aggregators import Aggregator, acc_stats
 from repro_torch.engine.chunk import ChunkRunner, step_once
 from repro_torch.engine.config import RoundRecord, RunConfig, RunResult
@@ -116,15 +123,37 @@ class SyncEngine:
         tiered = self.topo is not None and not self.topo.is_star
         aggregate = None
         blocks = None
+        cohort = None
+        self._sharded_eval = None
+        mesh = None
+        if cfg.shard_cohort:
+            # cohort-parallel sync rounds: sync has no per-client device
+            # state, so the mesh splits the *cohort* axis only
+            from repro_torch.core import distributed as dist
+            from repro_torch.engine.aggregators import cohort_sharded_apply
+            from repro_torch.engine.sharded import (
+                CohortSplit,
+                make_sharded_eval,
+                require_cohort_mesh,
+            )
+
+            shards = cfg.mesh_shards or dist.available_ranks(task.device)
+            require_cohort_mesh(shards, f"mesh_shards={cfg.mesh_shards}")
+            mesh = dist.fleet_mesh(shards, device=task.device)
+            self.mesh, self.mesh_shards = mesh, shards
+            width = cfg.cohort_width() if not self.policy.exact_k else cfg.k
+            cohort = CohortSplit(width, mesh, task.device)
+            aggregate = cohort_sharded_apply(self.aggregator, mesh)
+            self._sharded_eval = make_sharded_eval(task, mesh)
         if tiered:
             from repro_torch.topo.reduce import tiered_apply
 
             aggregate = tiered_apply(self.aggregator, self.topo, cfg.n_clients,
-                                     stacked_bases=False)
+                                     mesh=mesh, stacked_bases=False)
             blocks = tier_blocks(self.topo.assign(cfg.n_clients), task.device)
         core = _make_round_core(task, cfg, self.policy, self.aggregator,
                                 aggregate=aggregate, faults=self.fault_set,
-                                defense=self.defense)
+                                defense=self.defense, cohort=cohort)
         have_faults = self.fault_set is not None
         have_def = self.defense is not None
         stat_names = self.aggregator.stat_names
@@ -182,6 +211,8 @@ class SyncEngine:
         return state["params"]
 
     def evaluate(self, state: Dict) -> Dict:
+        if self._sharded_eval is not None:
+            return self._sharded_eval(self.eval_params(state))
         return self.task.eval_fn(self.eval_params(state))
 
     def record(self, r: int, aux: Dict, ev: Dict) -> RoundRecord:
@@ -243,7 +274,8 @@ class SyncEngine:
 
 
 def _make_round_core(task: FLTask, cfg: RunConfig, policy: Policy,
-                     agg: Aggregator, aggregate=None, faults=None, defense=None):
+                     agg: Aggregator, aggregate=None, faults=None, defense=None,
+                     cohort=None):
     """The per-round function ``round_fn(params, sched_state, draws,
     fstate=None, dstate=None) -> (params, sched_state, selected, mean_loss,
     fstate, dstate, agg_telemetry)``, shared by the engine's chunk loop and the legacy
@@ -269,6 +301,16 @@ def _make_round_core(task: FLTask, cfg: RunConfig, policy: Policy,
     ``k_sel``): quarantined clients are masked out of ``selected`` right
     after the policy step, every surviving slot is scored with staleness
     identically zero, and post-transition suspects lose their weight.
+
+    ``cohort`` (an ``engine.sharded.CohortSplit``) is the cohort-parallel
+    seam (the reference's ``cohort_layout``/``cohort_shards``): the cohort
+    is padded with weight-0 slots to a multiple of the mesh, this rank
+    trains its slice (the ``local_perm`` draws stay the unpadded cohort's),
+    the losses — and, under corrupting faults or the defense, the updates —
+    are all-gathered, and ``aggregate`` receives the slice. The fault coins
+    and everything else stay ``width`` wide, so the round draws what the
+    replicated round draws (the reference draws its fault coins for the
+    padded cohort).
     """
     width = cfg.cohort_width() if not policy.exact_k else cfg.k
     local_update = make_local_update(
@@ -298,6 +340,8 @@ def _make_round_core(task: FLTask, cfg: RunConfig, policy: Policy,
     if sup_on:
         from repro_torch.faults.inject import effects_hit
 
+    whole_updates = cohort is not None and (corrupt_on or collude_on or have_def)
+
     def round_fn(params, sched_state, draws, fstate=None, dstate=None):
         selected, sched_state = policy.step(sched_state, draws)
         if have_def:
@@ -308,9 +352,21 @@ def _make_round_core(task: FLTask, cfg: RunConfig, policy: Policy,
             fstate, eff = faults.on_pop(fstate, fdraws, idx, mask > 0)
         shards = {k: a[idx] for k, a in task.client_data.items()}
         lr = lr_fn(sched_state["round"] - 1).expand(width)
-        updated, losses = local_update(
-            broadcast_to_cohort(params, width), shards, draws, lr
-        )
+        if cohort is None:
+            updated, losses = local_update(
+                broadcast_to_cohort(params, width), shards, draws, lr
+            )
+        else:
+            # this rank trains its slice of the padded cohort
+            rows = cohort.rows
+            updated, losses = local_update(
+                broadcast_to_cohort(params, rows.shape[0]),
+                {k: a[rows] for k, a in shards.items()}, draws, lr[rows],
+                perm_rows=(width, rows))
+            slice_updated = updated
+            losses = cohort.gather(losses)
+            if whole_updates:
+                updated = tree_map(cohort.gather, updated)
         if corrupt_on:
             updated = corrupt_updates(updated, params, eff, fdraws,
                                       faults.has("scale"), faults.has("noise"))
@@ -337,7 +393,13 @@ def _make_round_core(task: FLTask, cfg: RunConfig, policy: Policy,
             # exact 1.0 on clique-free slots: calm armed rounds multiply
             # the weights by ones
             w = w * w_scale
-        if mtd_on:
+        if cohort is not None:
+            # the aggregate hook merges this rank's slice with the others'
+            if whole_updates:
+                slice_updated = tree_map(lambda u: u[cohort.rows], updated)
+            params, tel = aggregate(params, slice_updated, params,
+                                    cohort.slot_weights(w), idx[cohort.rows])
+        elif mtd_on:
             params, tel = aggregate_mtd(params, updated, params, w, idx,
                                         defense.step_level(dstate, new_dstate))
         else:

@@ -153,21 +153,23 @@ class FaultSet:
     def init(self, draws) -> Dict[str, Dict]:
         return {f.name: f.init(draws.sub(f.name)) for f in self.faults}
 
-    def on_dispatch(self, fstate, draws, send, latency):
+    def on_dispatch(self, fstate, draws, send, latency, layout=None):
+        kw = {} if layout is None else {"layout": layout}
         for f in self.faults:
             if f.on_dispatch is None:
                 continue
             sub, latency = f.on_dispatch(fstate[f.name], draws.sub(f.name),
-                                         send, latency)
+                                         send, latency, **kw)
             fstate = {**fstate, f.name: sub}
         return fstate, latency
 
-    def on_pop(self, fstate, draws, idx, valid):
+    def on_pop(self, fstate, draws, idx, valid, layout=None):
+        kw = {} if layout is None else {"layout": layout}
         eff = identity_effects(idx.shape, idx.device)
         for f in self.faults:
             if f.on_pop is None:
                 continue
-            sub, e = f.on_pop(fstate[f.name], draws.sub(f.name), idx, valid)
+            sub, e = f.on_pop(fstate[f.name], draws.sub(f.name), idx, valid, **kw)
             fstate = {**fstate, f.name: sub}
             eff = merge_effects(eff, e)
         return fstate, eff
@@ -315,27 +317,34 @@ def _check_rate(name: str, rate: float) -> None:
         raise ValueError(f"{name}: rate must be in [0, 1], got {rate}")
 
 
-def _cohort_hit(fst, draws, idx, valid, rate):
+def _cohort_hit(fst, draws, idx, valid, rate, layout=None):
     """Per-slot injection coin among prone, valid cohort members."""
-    hit = fst["prone"][idx] & valid
+    prone = fst["prone"]
+    hit = (prone[idx] if layout is None else layout.gather(prone, idx)) & valid
     if rate < 1.0:
         hit = hit & (draws.uniform("hit", tuple(idx.shape)) < rate)
     return hit
 
 
-def _count(fst, hit, idx=None):
+def _count(fst, hit, idx=None, layout=None):
     """Bump the scalar injection counter and the per-client exposure
     tally. ``idx`` given means ``hit`` is cohort-shaped: an ``index_add``
     at the cohort's client indices, where a missed or padded slot adds an
     exact 0 (the values are 0/1, so the sum is exact in any order, as the
     reference's ``.at[idx].add(h, mode="drop")``); ``idx=None`` means
-    ``hit`` is already fleet-shaped (dispatch-side faults)."""
+    ``hit`` is already fleet-shaped (dispatch-side faults): under a sharded
+    ``layout`` (``core.fleet``) this rank's block, whose count is summed
+    over ranks (exact: 0/1 values); a cohort's ``idx`` adds only on its
+    owner."""
     h = hit.to(torch.float32)
     if idx is None:
         exposed = fst["exposed"] + h
+        total = h.sum() if layout is None else layout.psum(h.sum())
     else:
-        exposed = fst["exposed"].index_add(0, idx, h)
-    return {**fst, "injected": fst["injected"] + h.sum(), "exposed": exposed}
+        exposed = (fst["exposed"].index_add(0, idx, h) if layout is None
+                   else layout.index_add(fst["exposed"], idx, h))
+        total = h.sum()
+    return {**fst, "injected": fst["injected"] + total, "exposed": exposed}
 
 
 def _where_hit(hit, value, identity):
@@ -351,10 +360,10 @@ def make_dropout(n: int, rate: float, client_frac: float = 1.0) -> Fault:
     — the slot is excluded from aggregation like a dropped buffer slot."""
     _check_rate("dropout", rate)
 
-    def on_pop(fst, draws, idx, valid):
-        hit = _cohort_hit(fst, draws, idx, valid, rate)
+    def on_pop(fst, draws, idx, valid, layout=None):
+        hit = _cohort_hit(fst, draws, idx, valid, rate, layout)
         eff = identity_effects(idx.shape, idx.device)._replace(kill=hit)
-        return _count(fst, hit, idx), eff
+        return _count(fst, hit, idx, layout), eff
 
     return Fault("dropout", channels=("kill",), rate=rate,
                  init=_prone_init(n, client_frac), on_pop=on_pop)
@@ -370,12 +379,13 @@ def make_straggler(n: int, rate: float, stall: float = 10.0,
     if stall <= 0:
         raise ValueError(f"straggler: stall must be > 0, got {stall}")
 
-    def on_dispatch(fst, draws, send, latency):
+    def on_dispatch(fst, draws, send, latency, layout=None):
         hit = fst["prone"] & send
         if rate < 1.0:
-            hit = hit & (draws.uniform("hit", (n,)) < rate)
+            coin = draws.uniform("hit", (n,))
+            hit = hit & ((coin if layout is None else layout.block(coin)) < rate)
         latency = torch.where(hit, latency * stall, latency)
-        return _count(fst, hit), latency
+        return _count(fst, hit, layout=layout), latency
 
     return Fault("straggler", channels=("latency",), rate=rate,
                  async_only=True, init=_prone_init(n, client_frac),
@@ -394,12 +404,12 @@ def make_stale_replay(n: int, rate: float, shift: int = MAX_REPLAY,
     if shift < 1:
         raise ValueError(f"stale_replay: shift must be >= 1, got {shift}")
 
-    def on_pop(fst, draws, idx, valid):
-        hit = _cohort_hit(fst, draws, idx, valid, rate)
+    def on_pop(fst, draws, idx, valid, layout=None):
+        hit = _cohort_hit(fst, draws, idx, valid, rate, layout)
         eff = identity_effects(idx.shape, idx.device)._replace(
             replay_shift=hit.to(torch.int32) * shift
         )
-        return _count(fst, hit, idx), eff
+        return _count(fst, hit, idx, layout), eff
 
     return Fault("stale_replay", channels=("replay",), rate=rate,
                  async_only=True, init=_prone_init(n, client_frac),
@@ -415,12 +425,12 @@ def make_corrupt(n: int, rate: float, sigma: float = 1.0,
     if sigma <= 0:
         raise ValueError(f"corrupt: sigma must be > 0, got {sigma}")
 
-    def on_pop(fst, draws, idx, valid):
-        hit = _cohort_hit(fst, draws, idx, valid, rate)
+    def on_pop(fst, draws, idx, valid, layout=None):
+        hit = _cohort_hit(fst, draws, idx, valid, rate, layout)
         eff = identity_effects(idx.shape, idx.device)._replace(
             noise_sigma=_where_hit(hit, sigma, 0.0)
         )
-        return _count(fst, hit, idx), eff
+        return _count(fst, hit, idx, layout), eff
 
     return Fault("corrupt", channels=("noise",), rate=rate,
                  init=_prone_init(n, client_frac), on_pop=on_pop)
@@ -432,12 +442,12 @@ def make_sign_flip(n: int, rate: float, client_frac: float = 1.0) -> Fault:
     aggregate away from its own descent direction."""
     _check_rate("sign_flip", rate)
 
-    def on_pop(fst, draws, idx, valid):
-        hit = _cohort_hit(fst, draws, idx, valid, rate)
+    def on_pop(fst, draws, idx, valid, layout=None):
+        hit = _cohort_hit(fst, draws, idx, valid, rate, layout)
         eff = identity_effects(idx.shape, idx.device)._replace(
             delta_scale=_where_hit(hit, -1.0, 1.0)
         )
-        return _count(fst, hit, idx), eff
+        return _count(fst, hit, idx, layout), eff
 
     return Fault("sign_flip", channels=("scale",), rate=rate,
                  init=_prone_init(n, client_frac), on_pop=on_pop)
@@ -452,12 +462,12 @@ def make_scale_attack(n: int, rate: float, factor: float = 10.0,
     if factor == 1.0:
         raise ValueError("scale_attack: factor=1.0 is a no-op")
 
-    def on_pop(fst, draws, idx, valid):
-        hit = _cohort_hit(fst, draws, idx, valid, rate)
+    def on_pop(fst, draws, idx, valid, layout=None):
+        hit = _cohort_hit(fst, draws, idx, valid, rate, layout)
         eff = identity_effects(idx.shape, idx.device)._replace(
             delta_scale=_where_hit(hit, factor, 1.0)
         )
-        return _count(fst, hit, idx), eff
+        return _count(fst, hit, idx, layout), eff
 
     return Fault("scale_attack", channels=("scale",), rate=rate,
                  init=_prone_init(n, client_frac), on_pop=on_pop)
@@ -476,12 +486,12 @@ def make_collude(n: int, rate: float, client_frac: float = 0.25,
     if jitter < 0:
         raise ValueError(f"collude: jitter must be >= 0, got {jitter}")
 
-    def on_pop(fst, draws, idx, valid):
-        hit = _cohort_hit(fst, draws, idx, valid, rate)
+    def on_pop(fst, draws, idx, valid, layout=None):
+        hit = _cohort_hit(fst, draws, idx, valid, rate, layout)
         mult = torch.exp(jitter * draws.normal("jitter", tuple(idx.shape)))
         eff = identity_effects(idx.shape, idx.device)._replace(
             collude=torch.where(hit, mult, torch.zeros_like(mult)))
-        return _count(fst, hit, idx), eff
+        return _count(fst, hit, idx, layout), eff
 
     return Fault("collude", channels=("collude",), rate=rate,
                  init=_prone_init(n, client_frac), on_pop=on_pop)

@@ -28,14 +28,25 @@ def make_local_update(
     runs ``nb = max(examples // batch_size, 1)`` SGD steps of batch
     ``bs = min(batch_size, examples)`` (paper: E=5, B=50). The loss is the
     mean over the steps.
+
+    ``perm_rows = (width, rows)`` trains a slice of a wider cohort: the
+    permutations are drawn for all ``width`` slots (so the draws are the
+    whole cohort's) and slot ``j`` uses row ``rows[j]`` (a (B,) index
+    tensor) — the cohort-parallel engines' slice of the padded cohort.
     """
     nb = max(examples // batch_size, 1)
     bs = min(batch_size, examples)
     step_grad = vmap(grad_and_value(loss_fn))
 
-    def local_update(params: Dict, shards: Dict, draws, lr: torch.Tensor):
+    def local_update(params: Dict, shards: Dict, draws, lr: torch.Tensor,
+                     perm_rows=None):
         B = lr.shape[0]
-        perms = draws.permutation("local_perm", examples, batch=(B, epochs))
+        if perm_rows is None:
+            perms = draws.permutation("local_perm", examples, batch=(B, epochs))
+        else:
+            width, rows = perm_rows
+            perms = draws.permutation("local_perm", examples,
+                                      batch=(width, epochs))[rows]
         perms = perms[..., : nb * bs].reshape(B, epochs * nb, bs)
         rows = torch.arange(B, device=lr.device)[:, None]
         losses = []

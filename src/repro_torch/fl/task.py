@@ -29,6 +29,14 @@ class FLTask:
     client_data: Dict  # tensors on ``device``, leading axis = n_clients
     examples_per_client: int
     device: torch.device
+    # batched eval over held-out data (``eval_batch_fn(params, eval_data)``
+    # -> the *summed* metrics of those examples), so a cohort-parallel
+    # engine can split the eval examples over ranks and merge the sums.
+    # ``eval_data``'s leading axis is the usable eval prefix ``eval_fn``
+    # scores (it drops the last partial batch). Tasks without these fields
+    # fall back to the replicated ``eval_fn`` everywhere.
+    eval_data: Optional[Dict] = None  # tensors, leading axis = eval examples
+    eval_batch_fn: Optional[Callable] = None  # (params, eval_data) -> dict
 
 
 def make_cnn_task(
@@ -56,22 +64,27 @@ def make_cnn_task(
     def loss_fn(params, batch):
         return cnn_mod.cross_entropy(cnn_mod.forward(params, batch["x"]), batch["y"])
 
-    @torch.no_grad()
-    def eval_fn(params):
-        # batched eval to bound memory; drops the last partial batch, as
-        # the reference does
-        bs = min(EVAL_BATCH, int(tx.shape[0]))
-        nb = max(tx.shape[0] // bs, 1)
+    bs = min(EVAL_BATCH, int(tx.shape[0]))
+    nb = max(tx.shape[0] // bs, 1)
+    n_used = nb * bs
+
+    def eval_sums(params, x, y):
+        # batched to bound memory: summed NLL and correct count
         correct = torch.zeros((), dtype=torch.int64, device=dev)
         loss = torch.zeros((), dtype=torch.float32, device=dev)
-        for i in range(nb):
-            xb, yb = tx[i * bs:(i + 1) * bs], ty[i * bs:(i + 1) * bs]
+        for i in range(0, x.shape[0], bs):
+            xb, yb = x[i:i + bs], y[i:i + bs]
             logits = cnn_mod.forward(params, xb)
             logp = torch.log_softmax(logits, dim=-1)
             loss = loss - torch.gather(logp, -1, yb[:, None]).sum()
             correct = correct + (logits.argmax(-1) == yb).sum()
-        ntot = nb * bs
-        return {"accuracy": correct / ntot, "loss": loss / ntot}
+        return {"accuracy": correct.to(torch.float32), "loss": loss}
+
+    @torch.no_grad()
+    def eval_fn(params):
+        # drops the last partial batch, as the reference does
+        sums = eval_sums(params, tx[:n_used], ty[:n_used])
+        return {"accuracy": sums["accuracy"] / n_used, "loss": sums["loss"] / n_used}
 
     return FLTask(
         name=cfg.name,
@@ -81,4 +94,6 @@ def make_cnn_task(
         client_data={"x": cx, "y": cy},
         examples_per_client=int(cx.shape[1]),
         device=dev,
+        eval_data={"x": tx[:n_used], "y": ty[:n_used]},
+        eval_batch_fn=lambda params, data: eval_sums(params, data["x"], data["y"]),
     )

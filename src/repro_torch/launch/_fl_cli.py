@@ -6,10 +6,11 @@ flags (``--faults``, ``--fault-rate``, ``--robust-agg``,
 ``--redispatch-timeout``, ``--redispatch-retries``) and the topology flags
 (``--topology``, ``--tiers``, ``--heartbeat-timeout``) and the defense
 flags (``--defense``, ``--quarantine-threshold``, ``--mtd-window``,
-``--detector``, ``--collusion``) run as in the reference. Flags of options
-the port does not run yet (device meshes, cohort sharding) reach
-``RunConfig``, which raises ``NotImplementedError`` naming the ROADMAP
-slice that brings them.
+``--detector``, ``--collusion``) run as in the reference, and so do
+``--mesh-shards``/``--shard-cohort``: with D > 1 shards and no process
+group, ``spawn_ranks`` starts D ranks of the driver (one per GPU over NCCL
+on CUDA, gloo on the CPU) and rank 0 prints and returns the result.
+``--rng-impl`` reaches ``RunConfig``, which raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -119,10 +120,96 @@ def add_common_args(ap: argparse.ArgumentParser, defaults: Dict[str, Any]) -> No
                          "update-direction sketches plus similarity-clique "
                          "detection of coordinated (norm-invisible) "
                          "coalitions (needs --defense)")
-    # options of later slices: accepted, then rejected by RunConfig
+    # --- fleet sharding (repro_torch.engine.sharded) ---
+    ap.add_argument("--mesh-shards", type=int, default=None, metavar="D",
+                    help="split the async fleet state over D ranks (0 = "
+                         "auto-detect); with --shard-cohort the cohort axis "
+                         "(sync or async). D > 1 starts D ranks: one per "
+                         "GPU on CUDA, gloo ranks on the CPU")
+    ap.add_argument("--shard-cohort", action="store_true",
+                    help="cohort-parallel execution: each rank trains and "
+                         "accumulates its slice of the cohort (needs "
+                         "--mesh-shards)")
+    # the reference's JAX PRNG choice: accepted, then rejected by RunConfig
     ap.add_argument("--rng-impl", default=None)
-    ap.add_argument("--mesh-shards", type=int, default=None, metavar="D")
-    ap.add_argument("--shard-cohort", action="store_true")
+
+
+def _driver_rank(rank: int, world: int, module: str, argv, out_path: str,
+                 device: str) -> None:
+    """One rank of a driver started by ``spawn_ranks``: the driver's
+    ``main`` on this rank's device; rank 0 prints and saves the result."""
+    import contextlib
+    import importlib
+    import io
+
+    import torch
+
+    from repro_torch.core.tree import tree_map
+
+    argv = list(argv) + ["--device", f"cuda:{rank}" if device == "cuda" else device]
+    mod = importlib.import_module(module)
+    if rank == 0:
+        res = mod.main(argv)
+        res.params = tree_map(lambda v: v.cpu(), res.params)
+        torch.save(res, out_path)
+    else:
+        with contextlib.redirect_stdout(io.StringIO()):
+            mod.main(argv)
+
+
+def spawn_ranks(module: str, argv, args: argparse.Namespace):
+    """Start the driver ``module`` on ``--mesh-shards`` ranks when D > 1
+    and this process is not already one of D ranks; returns rank 0's
+    ``RunResult``, or None when the run stays in this process (no mesh,
+    D <= 1, or already a rank). On CUDA, D above the visible GPU count
+    raises."""
+    import os
+    import sys
+    import tempfile
+
+    import torch
+
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import ranks
+
+    if args.mesh_shards is None:
+        return None
+    device = resolve_device(args.device).type
+    gpus = torch.cuda.device_count() if device == "cuda" else 0
+    shards = args.mesh_shards or (gpus if device == "cuda" else 1)
+    dist = torch.distributed
+    if shards <= 1 or (dist.is_initialized() and dist.get_world_size() == shards):
+        return None
+    if device == "cuda" and shards > gpus:
+        raise ValueError(
+            f"--mesh-shards {shards} runs one rank per GPU, but only {gpus} "
+            "GPU(s) are visible"
+        )
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if "--device" in argv:
+        i = argv.index("--device")
+        del argv[i:i + 2]
+    with tempfile.TemporaryDirectory(prefix="driver_") as tmp:
+        out = os.path.join(tmp, "result.pt")
+        ranks.spawn(_driver_rank, shards, (module, argv, out, device),
+                    backend="nccl" if device == "cuda" else "gloo",
+                    devices=[f"cuda:{r}" for r in range(shards)]
+                    if device == "cuda" else None)
+        return torch.load(out, weights_only=False)
+
+
+def run_world(args: argparse.Namespace):
+    """The process group of a run in this process: with ``--mesh-shards``
+    and no group yet, a world of one, ended when the run is
+    (``core.distributed.world_of_one``); no group without the flag."""
+    import contextlib
+
+    from repro_torch.core.distributed import world_of_one
+    from repro_torch.device import resolve_device
+
+    if args.mesh_shards is None:
+        return contextlib.nullcontext()
+    return world_of_one(resolve_device(args.device))
 
 
 def build_task(args: argparse.Namespace) -> FLTask:

@@ -40,6 +40,8 @@ from repro_torch.launch._fl_cli import (
     print_defense_stats,
     print_robustness_stats,
     print_tier_stats,
+    run_world,
+    spawn_ranks,
     write_result,
 )
 from repro_torch.sim import PROFILES
@@ -66,7 +68,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def build(args: argparse.Namespace):
-    """The task and engine the driver runs, from parsed flags."""
+    """The task and engine the driver runs, from parsed flags. The task is
+    the engine's own: a sharded engine's holds only this rank's block of
+    the client data, so the whole fleet's is freed here."""
     task = build_task(args)
     cfg = build_run_config(
         args, mode="async", eval_div=20,
@@ -79,7 +83,8 @@ def build(args: argparse.Namespace):
         max_versions=args.max_versions,
         profile=args.latency_profile,
     )
-    return task, make_engine(task, cfg)
+    engine = make_engine(task, cfg)
+    return engine.task, engine
 
 
 def report(res, args: argparse.Namespace) -> None:
@@ -117,19 +122,23 @@ def report(res, args: argparse.Namespace) -> None:
 
 def main(argv: Optional[Sequence[str]] = None):
     args = parse_args(argv)
-    task, engine = build(args)
-    cfg = engine.cfg
-    print(
-        f"async policy={cfg.policy} profile={args.latency_profile} "
-        f"n={cfg.n_clients} k={cfg.k} m={cfg.m} buffer={cfg.resolved_buffer_size()} "
-        f"steps={cfg.rounds} aggregator={cfg.resolved_aggregator()} "
-        f"staleness=(1+s)^-{args.staleness_weight} "
-        f"chunk={cfg.resolved_steps_per_chunk()} device={task.device}"
-        + (f" topology={cfg.topology_name()}" if cfg.topology else "")
-    )
-    res = run_engine(engine, progress=True)
-    report(res, args)
-    write_result(args.out, res, args)
+    spawned = spawn_ranks("repro_torch.launch.fl_async", argv, args)
+    if spawned is not None:
+        return spawned
+    with run_world(args):
+        task, engine = build(args)
+        cfg = engine.cfg
+        print(
+            f"async policy={cfg.policy} profile={args.latency_profile} "
+            f"n={cfg.n_clients} k={cfg.k} m={cfg.m} buffer={cfg.resolved_buffer_size()} "
+            f"steps={cfg.rounds} aggregator={cfg.resolved_aggregator()} "
+            f"staleness=(1+s)^-{args.staleness_weight} "
+            f"chunk={cfg.resolved_steps_per_chunk()} device={task.device}"
+            + (f" topology={cfg.topology_name()}" if cfg.topology else "")
+        )
+        res = run_engine(engine, progress=True)
+        report(res, args)
+        write_result(args.out, res, args)
     return res
 
 

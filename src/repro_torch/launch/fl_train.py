@@ -40,6 +40,8 @@ from repro_torch.launch._fl_cli import (
     print_defense_stats,
     print_robustness_stats,
     print_tier_stats,
+    run_world,
+    spawn_ranks,
     write_result,
 )
 
@@ -82,15 +84,19 @@ def report(res, args: argparse.Namespace) -> None:
 
 def main(argv: Optional[Sequence[str]] = None):
     args = parse_args(argv)
-    task, engine = build(args)
-    cfg = engine.cfg
-    print(f"policy={cfg.policy} n={cfg.n_clients} k={cfg.k} m={cfg.m} "
-          f"rounds={cfg.rounds} aggregator={cfg.resolved_aggregator()} "
-          f"chunk={cfg.resolved_steps_per_chunk()} device={task.device}"
-          + (f" topology={cfg.topology_name()}" if cfg.topology else ""))
-    res = run_engine(engine, progress=True)
-    report(res, args)
-    write_result(args.out, res, args)
+    spawned = spawn_ranks("repro_torch.launch.fl_train", argv, args)
+    if spawned is not None:
+        return spawned
+    with run_world(args):
+        task, engine = build(args)
+        cfg = engine.cfg
+        print(f"policy={cfg.policy} n={cfg.n_clients} k={cfg.k} m={cfg.m} "
+              f"rounds={cfg.rounds} aggregator={cfg.resolved_aggregator()} "
+              f"chunk={cfg.resolved_steps_per_chunk()} device={task.device}"
+              + (f" topology={cfg.topology_name()}" if cfg.topology else ""))
+        res = run_engine(engine, progress=True)
+        report(res, args)
+        write_result(args.out, res, args)
     return res
 
 

@@ -2,8 +2,9 @@
 
 Port of ``repro.models.mlp`` with the same parameter layouts (``w_in``,
 ``w_gate`` (d_model, d_ff), ``w_out`` (d_ff, d_model)). The reference's
-explicit tensor-parallel branch comes with the multi-GPU slice (ROADMAP
-queue 1, slice F).
+explicit tensor-parallel branch (``explicit_tp``, built on
+``models/pshard.py``) is model parallelism of the LM, not fleet sharding: it
+comes with ``sharding.py`` and ``pshard.py`` in ROADMAP queue 1, slice I.
 """
 from __future__ import annotations
 

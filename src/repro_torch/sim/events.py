@@ -85,13 +85,18 @@ def pop_events(
     return apply_pop(ev, t, idx)
 
 
-def apply_pop(ev: Dict[str, torch.Tensor], t: torch.Tensor, idx: torch.Tensor):
+def apply_pop(ev: Dict[str, torch.Tensor], t: torch.Tensor, idx: torch.Tensor,
+              layout=None):
     """Bookkeeping shared by every pop path: mask invalid slots, return
     popped clients to idle. ``(t, idx)`` is any next-k extraction over
-    ``ev["t_done"]``."""
+    ``ev["t_done"]``; under a sharded ``layout`` (``core.fleet``) the global
+    ``idx`` writes only on its owner."""
     valid = torch.isfinite(t)
     idx_safe = torch.where(valid, idx, 0)
-    t_done = scatter_set(ev["t_done"], idx, valid, float("inf"))
+    if layout is None:
+        t_done = scatter_set(ev["t_done"], idx, valid, float("inf"))
+    else:
+        t_done = layout.scatter_set(ev["t_done"], idx, valid, float("inf"))
     return t, idx_safe, valid, {**ev, "t_done": t_done}
 
 

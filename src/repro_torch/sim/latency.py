@@ -23,6 +23,8 @@ from typing import Dict
 
 import torch
 
+from repro_torch.core.fleet import whole
+
 
 @dataclasses.dataclass(frozen=True)
 class LatencyProfile:
@@ -109,10 +111,14 @@ def client_speed(draws, n: int, profile: LatencyProfile) -> torch.Tensor:
     return torch.exp(profile.hetero * draws.normal("speed", (n,)))
 
 
-def sample_latency(draws, profile: LatencyProfile,
-                   speed: torch.Tensor) -> torch.Tensor:
-    """One dispatch's total wall time (compute + comm) per client, (n,) f32."""
-    n = speed.shape[0]
+def sample_latency(draws, profile: LatencyProfile, speed: torch.Tensor,
+                   layout=None) -> torch.Tensor:
+    """One dispatch's total wall time (compute + comm) per client, (n,) f32.
+    Under a sharded ``layout`` (``core.fleet``) ``speed`` is this rank's
+    block: the draws keep their full ``(n,)`` shape and the rank keeps its
+    block."""
+    lay = whole(layout, speed.shape[0])
+    n = lay.n
     if profile.compute_sigma > 0:
         compute = torch.exp(
             profile.compute_mu
@@ -125,7 +131,7 @@ def sample_latency(draws, profile: LatencyProfile,
                       device=speed.device)
     if profile.comm_rate > 0:
         comm = comm + draws.exponential("latency_comm", (n,)) / profile.comm_rate
-    return speed * compute + comm
+    return speed * lay.block(compute) + lay.block(comm)
 
 
 def sample_avail_gap(draws, profile: LatencyProfile, n: int) -> torch.Tensor:
@@ -135,11 +141,14 @@ def sample_avail_gap(draws, profile: LatencyProfile, n: int) -> torch.Tensor:
     return profile.avail_gap * draws.exponential("avail_gap", (n,))
 
 
-def sample_dropout(draws, profile: LatencyProfile, n: int) -> torch.Tensor:
-    """Per-dispatch dropout draw, (n,) bool (True = update is lost)."""
+def sample_dropout(draws, profile: LatencyProfile, n: int,
+                   layout=None) -> torch.Tensor:
+    """Per-dispatch dropout draw, (n,) bool (True = update is lost); this
+    rank's block of it under a sharded ``layout``."""
+    lay = whole(layout, n)
     if profile.dropout <= 0:
-        return torch.zeros((n,), dtype=torch.bool, device=draws.device)
-    return draws.uniform("dropout", (n,)) < profile.dropout
+        return torch.zeros((lay.local_n,), dtype=torch.bool, device=draws.device)
+    return lay.block(draws.uniform("dropout", (n,))) < profile.dropout
 
 
 def simulate_sync_duration(selection, profile: LatencyProfile, draws) -> float:

@@ -34,10 +34,13 @@ def beat(hb: Dict, mask: torch.Tensor, t: torch.Tensor) -> Dict:
 
 
 def beat_at(hb: Dict, idx: torch.Tensor, mask: torch.Tensor,
-            t: torch.Tensor) -> Dict:
+            t: torch.Tensor, layout=None) -> Dict:
     """Popped clients ``idx`` (B,) check in at their completion times ``t``
     (B,) where ``mask`` holds: the reference's ``.at[scatter_idx].set(t,
-    mode="drop")`` as a masked scatter (``sim.events.scatter_set``)."""
+    mode="drop")`` as a masked scatter (``sim.events.scatter_set``; on the
+    owner only under a sharded ``core.fleet`` layout)."""
+    if layout is not None:
+        return {"last_beat": layout.scatter_set(hb["last_beat"], idx, mask, t)}
     return {"last_beat": ev_mod.scatter_set(hb["last_beat"], idx, mask, t)}
 
 

@@ -34,7 +34,7 @@ split of its fold-104 key).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict
 
 import numpy as np
 import torch
@@ -100,13 +100,19 @@ class _DeviceMaps:
 
 
 def tiered_apply(agg: Aggregator, topo: Topology, n_clients: int, mesh=None,
-                 axis: Optional[str] = None, stacked_bases: bool = True):
+                 stacked_bases: bool = True):
     """Build the tiered ``aggregate(g, updates, bases, w, idx)`` hook.
 
     ``idx`` is the (B,) cohort -> client index map the engines hold;
     padded or invalid slots carry weight 0 and add the zero accumulator.
     ``stacked_bases=False`` is the sync engine's convention (``bases`` is
-    the unstacked global tree)."""
+    the unstacked global tree).
+
+    With ``mesh`` (a ``core.distributed.FleetMesh``) the hook is the
+    cohort-parallel form: ``updates``/``w``/``idx`` are this rank's slice of the cohort, the slot accumulation and the
+    tier-0 segment sums run rank-locally (K1's segmented route), and the
+    (E0, ...) node accumulators merge by the rank-order ``psum`` before the
+    upper tiers, which every rank runs whole."""
     if topo.is_star:
         raise ValueError(
             f"topology {topo.name!r} is a star: engines use the plain "
@@ -118,12 +124,6 @@ def tiered_apply(agg: Aggregator, topo: Topology, n_clients: int, mesh=None,
             "are accumulator merges, so non-additive aggregators cannot "
             "run under a multi-tier topology"
         )
-    if mesh is not None or axis is not None:
-        raise NotImplementedError(
-            "tiered_apply over a device mesh (mesh=/axis=) is not ported to "
-            "repro_torch yet: it arrives with ROADMAP queue 1, slice F "
-            "(multi-GPU)"
-        )
     sizes = [int(s) for s in topo.tier_sizes]
     maps = _DeviceMaps(assign=topo.assign(n_clients),
                        **{f"parent{i}": p for i, p in enumerate(topo.parents())},
@@ -134,6 +134,10 @@ def tiered_apply(agg: Aggregator, topo: Topology, n_clients: int, mesh=None,
         dev = maps.on(w.device)
         seg = dev["assign"][idx]
         acc = tier0_accums(agg, g, updates, bases, w, seg, sizes[0], stacked_bases)
+        if mesh is not None:
+            from repro_torch.core.distributed import psum
+
+            acc = tree_map(lambda a: psum(a, mesh), acc)
         for i, size in enumerate(sizes[1:]):
             acc = segment_sum_tree(acc, dev[f"parent{i}"], size)
         if "mix" in dev:

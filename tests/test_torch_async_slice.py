@@ -231,9 +231,22 @@ def test_run_result_matches(runs):
     assert dataclasses.asdict(pt.config).keys() == dataclasses.asdict(ref.config).keys()
 
 
+def _config_parity(cfg):
+    """The port's ``RunConfig`` raises the reference's ``ValueError`` with an
+    equal message, or accepts what the reference accepts."""
+    try:
+        RefRunConfig(**cfg)
+    except ValueError as exc:
+        with pytest.raises(ValueError) as got:
+            RunConfig(**cfg)
+        assert str(got.value) == str(exc)
+        return
+    RunConfig(**cfg)
+
+
 @pytest.mark.parametrize("option", [
-    # topologies run since slice D and defense since slice E: these cases
-    # pair them with an option of a later slice, which still raises
+    # fleet sharding runs since slice F: each case, paired with a
+    # topology or the defense, is validated as the reference validates it
     dict(mode="sync", topology="hierarchical", defense=True, shard_cohort=True),
     dict(topology="hierarchical", mesh_shards=0),
     dict(topology_kwargs={"tiers": (4,)}, topology="hierarchical", shard_cohort=True),
@@ -242,13 +255,13 @@ def test_run_result_matches(runs):
 ])
 def test_out_of_slice_options_raise(option):
     cfg = {**CFG, **option}
-    if "defense" not in option and "defense_kwargs" in option:
-        # defense_kwargs without defense=True: the reference's ValueError
-        with pytest.raises(ValueError, match="^defense_kwargs given without defense=True$"):
+    if "rng_impl" in option:
+        # a JAX PRNG implementation has no meaning in the port
+        RefRunConfig(**cfg)
+        with pytest.raises(NotImplementedError, match="torch.Generator"):
             RunConfig(**cfg)
         return
-    with pytest.raises(NotImplementedError, match="slice|torch.Generator"):
-        RunConfig(**cfg)
+    _config_parity(cfg)
 
 
 def test_driver_runs_on_cpu_and_rejects_later_slices(capsys):
@@ -259,12 +272,24 @@ def test_driver_runs_on_cpu_and_rejects_later_slices(capsys):
     out = capsys.readouterr().out
     assert "== load metric X (wall clock) ==" in out
     assert len(res.records) == 2 and np.isfinite(res.records[-1].eval_loss)
-    for flags in (["--arch", "tinyllama-1.1b"],
-                  ["--topology", "hierarchical", "--mesh-shards", "0"],
+    with pytest.raises(NotImplementedError):
+        fl_async.main(["--device", "cpu", "--clients", "12", "--k", "4",
+                       "--rounds", "1", "--data-scale", "0.02",
+                       "--arch", "tinyllama-1.1b"])
+    # --mesh-shards runs since slice F: on one CPU it resolves to a world of
+    # one, which the driver ends with its run; the one-device run bit for bit
+    for flags in (["--topology", "hierarchical", "--mesh-shards", "0"],
                   ["--defense", "--mesh-shards", "0"]):
-        with pytest.raises(NotImplementedError):
-            fl_async.main(["--device", "cpu", "--clients", "12", "--k", "4",
-                           "--rounds", "1", "--data-scale", "0.02", *flags])
+        argv = ["--device", "cpu", "--clients", "12", "--k", "4",
+                "--rounds", "1", "--data-scale", "0.02", *flags]
+        sharded = fl_async.main(argv)
+        assert "/x1] step" in capsys.readouterr().out
+        assert not torch.distributed.is_initialized()
+        plain = fl_async.main(argv[:-2])
+        np.testing.assert_array_equal(sharded.selection, plain.selection)
+        for key, leaves in plain.params.items():
+            for name, val in leaves.items():
+                assert torch.equal(sharded.params[key][name], val)
 
 
 @pytest.mark.parametrize("driver", ["fl_async", "fl_train"])

@@ -152,10 +152,14 @@ def test_run_config_resolves_defense_as_the_reference():
                   topology_kwargs={"tiers": (4,)})
     assert RunConfig(**tiered).resolved_defense().threshold == 0.4
     assert RefRunConfig(**tiered).resolved_defense().threshold == 0.4
-    # cohort sharding and meshes still wait for slice F
+    # meshes and cohort sharding (slice F) are validated as the reference
+    # validates them: under sync both raise, with its messages
     for later in (dict(mesh_shards=2), dict(shard_cohort=True)):
-        with pytest.raises(NotImplementedError, match="slice F"):
+        with pytest.raises(ValueError) as ref:
+            RefRunConfig(**kw, **later)
+        with pytest.raises(ValueError) as got:
             RunConfig(**kw, **later)
+        assert str(got.value) == str(ref.value)
 
 
 # ---------------------------------------------------------------------------

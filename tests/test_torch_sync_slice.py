@@ -419,22 +419,19 @@ def test_legacy_async_wrapper_is_the_engine_run(small_task):
 
 
 @pytest.mark.parametrize("option", [
-    # topologies run since slice D and defense since slice E: paired with
-    # cohort sharding or a mesh, which still raise
+    # fleet sharding runs since slice F: a mesh without cohort sharding,
+    # or cohort sharding without a mesh, is rejected under sync with the
+    # reference's message
     dict(topology="hierarchical", defense=True, shard_cohort=True),
     dict(defense_kwargs={"threshold": 0.5}),
     dict(defense=True, mesh_shards=0), dict(mesh_shards=0), dict(shard_cohort=True),
 ])
 def test_later_slice_options_raise_under_sync(option):
-    if "defense" not in option:
-        if "defense_kwargs" in option:
-            # defense_kwargs without defense=True: the reference's ValueError
-            with pytest.raises(ValueError,
-                               match="^defense_kwargs given without defense=True$"):
-                RunConfig(**{**CFG, **option})
-            return
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(ValueError) as ref:
+        RefRunConfig(**{**CFG, **option})
+    with pytest.raises(ValueError) as got:
         RunConfig(**{**CFG, **option})
+    assert str(got.value) == str(ref.value)
 
 
 def test_fl_train_driver_runs_on_cpu(capsys):
@@ -454,7 +451,11 @@ def test_fl_train_driver_runs_on_cpu(capsys):
     for flags in (["--mesh-shards", "0"],
                   ["--topology", "hierarchical", "--defense", "--mesh-shards", "0"],
                   ["--defense", "--arch", "tinyllama-1.1b"], ["--arch", "tinyllama-1.1b"]):
-        with pytest.raises(NotImplementedError):
+        # a mesh runs since slice F; under sync it needs --shard-cohort, and
+        # RunConfig says so with the reference's message
+        raises = (pytest.raises(ValueError, match="^mesh_shards requires mode='async'")
+                  if "--mesh-shards" in flags else pytest.raises(NotImplementedError))
+        with raises:
             fl_train.main(["--device", "cpu", "--clients", "12", "--k", "4",
                            "--rounds", "1", "--data-scale", "0.02", *flags])
     if not torch.cuda.is_available():

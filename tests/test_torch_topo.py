@@ -256,10 +256,16 @@ def test_rejections_equal_the_reference():
         with pytest.raises(ValueError) as got:
             pt_reduce.tiered_apply(pt_agg, pt_graph.make_topology(name), N)
         assert str(got.value) == str(ref.value)
-    with pytest.raises(NotImplementedError, match="slice F"):
-        pt_reduce.tiered_apply(pt_aggs.make_fedavg(),
-                               pt_graph.make_topology("hierarchical"), N,
-                               mesh=object(), axis="fleet")
+    # over a mesh (slice F) both accept the hierarchy and return the hook
+    from repro.core import distributed as ref_dist
+    from repro_torch.core import distributed as pt_dist
+
+    assert callable(ref_reduce.tiered_apply(
+        ref_aggs.make_fedavg(), ref_graph.make_topology("hierarchical"), N,
+        mesh=ref_dist.fleet_mesh(1), axis="fleet"))
+    assert callable(pt_reduce.tiered_apply(
+        pt_aggs.make_fedavg(), pt_graph.make_topology("hierarchical"), N,
+        mesh=pt_dist.FleetMesh(size=1, rank=0)))
 
 
 @pytest.mark.parametrize("agg_name", list(AGGS))

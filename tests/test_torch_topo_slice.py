@@ -449,9 +449,18 @@ def test_engine_rejections(small_task):
         _cfg(topology_kwargs={"tiers": (4,)})
     with pytest.raises(ValueError, match="tier-0"):
         _cfg(topology="hierarchical", topology_kwargs={"tiers": (64,)})
-    for kw in (dict(mesh_shards=2), dict(shard_cohort=True)):
-        with pytest.raises(NotImplementedError, match="slice F"):
-            _cfg(**kw)
+    # slice F's options are validated as the reference validates them: a
+    # 2-way mesh of 16 clients is accepted, cohort sharding without a mesh
+    # raises its message
+    base = dict(n_clients=16, k=4, m=4, policy="markov", rounds=5, local_epochs=1,
+                batch_size=5, eval_every=2, mode="async", buffer_size=3,
+                profile="mobile")
+    assert _cfg(mesh_shards=2).mesh_shards == RefRunConfig(**base, mesh_shards=2).mesh_shards
+    with pytest.raises(ValueError) as ref:
+        RefRunConfig(**base, shard_cohort=True)
+    with pytest.raises(ValueError) as got:
+        _cfg(shard_cohort=True)
+    assert str(got.value) == str(ref.value)
     ref_msg = None
     try:
         RefRunConfig(n_clients=16, k=4, topology="ring")

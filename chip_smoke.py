@@ -230,13 +230,47 @@ prints one JSON line for each:
           the CPU's plain route; then mamba2-370m at full width, f32 held to
           CONSISTENCY_TOL and the bf16 gap and top-1 agreement reported.
 
+  kernel_k4_bwd  K4's backward (``csrc/flash_attention_bwd.cu``) against
+          ``flash_attention_bwd_plain`` on the card: the training shape
+          (4, 4, 8, 2048, 64) in bf16 in the model's layout, the forward
+          phase's grid (G 1..16, D 32/64/128, S 200/384/2048, sliding and
+          chunked windows of 100 and 128) and f32 at the reference's test
+          shapes; the forward's lse within LSE_TOL of the plain
+          log-sum-exp of the f32 inputs, which the plain backward takes;
+          dq, dk, dv within BWD_TOL of each gradient's max, two
+          launches bitwise equal, the forward's output bitwise the same
+          with and without lse, ``vmap(grad)`` over a cohort of 4 bitwise
+          equal to four single calls; its time beside its bound (10 D flops
+          a head a causal pair), the plain version's and the backward of
+          ``scaled_dot_product_attention`` with kv expanded.
+  lm_train     tinyllama-1.1b at full width and depth (22 layers, bf16,
+          weights from seed 0) trained by ``model.sgd_train_step`` at (4,
+          2048), lr 3e-3, 5 steps on ``make_token_stream`` batches, remat
+          on: K4 forward 2 x 22 and backward 22 launches a step, no plain or
+          kernel-off attention, finite losses and params that moved, no
+          host sync in a step; ms a step, tokens/s, the share of the bf16
+          peak, device-busy share and K4's share in a profiler window, peak
+          memory with remat on and off.
+  lm_grad_parity  the reduced tinyllama in f32 (TF32 off) from the same
+          weights on the card and the CPU: ``model.loss`` gradients at S =
+          128 and 256 (K4 both ways on the card) within 1e-4 of each leaf's
+          max, then one ``sgd_train_step``'s params allclose.
+  train_main   ``repro_torch.launch.train`` at the reference's defaults
+          (20M-param tinyllama variant, batch 8, seq 128, lr 3e-3, 200
+          steps): K4 both ways every step, the loss falls; tokens/s, peak.
+  fl_lm        ``fl_train --arch tinyllama-1.1b`` at the paper's sync
+          settings for 10 rounds (K1 once a round: two grouped launches for
+          the reduced LM's 21 leaves) and ``fl_async --arch`` at 16 384
+          clients, k 256, 5 steps (K2 once a step): finite losses, peaks.
+
 The main, async_oldest and sync_main phases run before the parity phases,
 which turn TF32 off; the slice C, D, E and F phases run after
 ``sync_parity``, and those timed beside ``main`` and ``sync_main``
 (``sync_attack``, ``async_chaos``, ``async_hier``, ``sync_hier``,
 ``async_defense``, ``sync_defense``, ``sharded_main``) set TF32 back to
 what ``main`` ran with while they run.
-Then the ``{"kernels": [...]}`` line (K2, K1, K4, K5, K3, K6), the card's
+Then the ``{"kernels": [...]}`` line (K2, K1, K4, K5, K3, K6, K4's
+backward; each count the sum over the paths that launch it), the card's
 name and power limit as ``nvidia-smi`` reports them, and, last, the device
 line. Any failure exits non-zero; without a GPU, or outside a checkout of
 the repository, the script fails before printing a result. It imports
@@ -3405,6 +3439,403 @@ def phase_ssm_parity(torch, k6, model, params):
           "params_reduced": sum(t.numel() for t in tree_leaves(weights)), "tf32": False})
 
 
+# ---------------------------------------------------------------------------
+# slice G2: LM training (K4's backward, sgd_train_step, the train driver, the
+# LM as the FL workload)
+# ---------------------------------------------------------------------------
+
+TRAIN_SHAPE = (4, 2048)  # (B, S) of lm_train: tinyllama-1.1b's training batch
+LM_TRAIN_STEPS = 5
+LM_TRAIN_LR = 3e-3
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # relative to each gradient's max
+LSE_TOL = {"atol": 1e-4, "rtol": 1e-5}  # the forward's lse against the plain one
+TRAIN_ARGV = ["--device", "cuda", "--arch", LM_ARCH, "--target-params", "20e6",
+              "--batch", "8", "--seq", "128", "--lr", "3e-3", "--steps", "200",
+              "--log-every", "50"]
+FL_LM_SYNC_ARGV = ["--device", "cuda", "--arch", LM_ARCH, "--clients", "100", "--k", "15",
+                   "--m", "10", "--local-epochs", "5", "--batch-size", "50", "--rounds", "10"]
+FL_LM_ASYNC_ARGV = ["--device", "cuda", "--arch", LM_ARCH, "--clients", "16384",
+                    "--k", "256", "--rounds", "5"]
+K4_BWD_KERNELS = ("dkdv_mma_kernel", "dq_mma_kernel", "delta_kernel")
+
+
+def _rel_err(got, exp) -> float:
+    """max |got - exp| over max |exp|: a gradient's error at its own scale."""
+    return float((got.float() - exp.float()).abs().max() / exp.float().abs().max())
+
+
+def _check_lse(torch, k4, name, q, k, v, out, lse, kw, dt):
+    """The forward's ``lse`` against the plain log-sum-exp of the inputs in
+    f32 (LSE_TOL; the kernel's scores are f32 sums of exact products, the
+    plain bf16 einsum would round them to bf16) and its ``out`` against the
+    plain output at ATTN_TOL. Returns the plain lse, which the backward's
+    plain version then uses, so a wrong kernel lse shows in the gradients."""
+    _, lse_plain = k4.flash_attention_plain(q.float(), k.float(), v.float(), **kw,
+                                            return_lse=True)
+    if not torch.allclose(lse, lse_plain, **LSE_TOL):
+        raise AssertionError(f"K4 {name}: lse off the plain one by "
+                             f"{float((lse - lse_plain).abs().max())} ({LSE_TOL})")
+    tol = ATTN_TOL[str(dt)[6:]]
+    if not torch.allclose(out.float(), k4.flash_attention_plain(q, k, v, **kw).float(),
+                          atol=tol, rtol=tol):
+        raise AssertionError(f"K4 {name}: the forward with lse disagrees with its plain version")
+    return lse_plain
+
+
+def phase_kernel_k4_bwd(torch, k4):
+    """K4's backward kernel, given the forward's ``out`` and ``lse``, against
+    ``flash_attention_bwd_plain`` given the same ``out`` and the plain lse
+    (dq, dk, dv within BWD_TOL of each gradient's max), at the training
+    shape, the forward phase's grid and f32 at the reference's test
+    shapes; the forward's lse within LSE_TOL of the plain one and its
+    output bitwise the same with and without lse; two launches bitwise
+    equal; ``vmap(grad)`` over a cohort of 4 bitwise equal to four single
+    calls; its time beside its bound, the plain version's and the backward
+    of ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, S = TRAIN_SHAPE
+    main = (B, 4, 8, S, 64)  # tinyllama-1.1b: 4 kv heads, 8 query heads each, D 64
+    cases = [(main, "full", 0, bf16, "model")]
+    cases += [((1, 2, G, 384, D), "full", 0, bf16, "model")
+              for D in (32, 64, 128) for G in (1, 2, 4, 5, 8, 16)]
+    cases += [((1, 2, 4, 200, 64), "full", 0, bf16, "model")]
+    cases += [((1, 2, G, Sx, D), kind, w, bf16, "model")
+              for kind in ("sliding", "chunked") for w in (100, 128)
+              for G, Sx, D in ((4, 384, 64), (5, 200, 32), (8, 2048, 128))]
+    cases += [(shape, kind, w, f32, "contiguous") for shape, kind, w in [
+        ((1, 2, 2, 256, 64), "full", 0), ((2, 1, 4, 512, 32), "full", 0),
+        ((1, 2, 1, 512, 128), "sliding", 128), ((1, 1, 2, 512, 64), "chunked", 128),
+        ((1, 4, 8, 256, 64), "full", 0)]]
+    errs = {}
+    for shape, kind, w, dt, layout in cases:
+        q, k, v = (_model_layout(torch, gen, shape, dt) if layout == "model"
+                   else _attn_inputs(torch, gen, shape, dt))
+        dout = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
+        kw = dict(scale=shape[-1] ** -0.5, kind=kind, window=w)
+        name = f"{tuple(shape)}_{kind}{w or ''}_{str(dt)[6:]}_{layout}"
+        out, lse = k4.flash_attention_with_lse(q, k, v, **kw)
+        if not torch.equal(out, k4.flash_attention(q, k, v, **kw, block_q=shape[3],
+                                                   block_k=shape[3])):
+            raise AssertionError(f"K4 {name}: the output's bits move with lse")
+        lse_plain = _check_lse(torch, k4, name, q, k, v, out, lse, kw, dt)
+        grads = k4.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        again = k4.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        plain = k4.flash_attention_bwd_plain(q, k, v, out, lse_plain, dout, **kw)
+        torch.cuda.synchronize()
+        tol = BWD_TOL[str(dt)[6:]]
+        errs[name] = {"lse_abs": float((lse - lse_plain).abs().max())}
+        for g_name, g, a, p in zip(("dq", "dk", "dv"), grads, again, plain):
+            if not torch.equal(g, a):
+                raise AssertionError(f"K4 bwd {name}: {g_name} launches differ bitwise")
+            errs[name][g_name] = _rel_err(g, p)
+            if errs[name][g_name] > tol:
+                raise AssertionError(f"K4 bwd {name}: {g_name} off its plain version by "
+                                     f"{errs[name][g_name]} of its max (tol {tol})")
+        del plain
+
+    # vmap(grad) over a cohort of 4, as the FL clients train
+    qs, ks, vs = (torch.stack(t) for t in zip(*[_model_layout(torch, gen, (1, 2, 4, 256, 64),
+                                                              bf16) for _ in range(4)]))
+
+    def loss(q_, k_, v_):
+        return k4.flash_attention(q_, k_, v_, scale=0.125).float().square().sum()
+
+    grad = torch.func.grad(loss, argnums=(0, 1, 2))
+    before = k4.bwd_launches
+    batched = torch.func.vmap(grad)(qs, ks, vs)
+    if k4.bwd_launches != before + 1:
+        raise AssertionError("vmap(grad): the cohort was not one backward launch")
+    for i in range(4):
+        if not all(torch.equal(b[i], s) for b, s in zip(batched, grad(qs[i], ks[i], vs[i]))):
+            raise AssertionError(f"vmap(grad) slot {i} differs from its single call")
+
+    # timing at the training shape, in the model's layout
+    q, k, v = _model_layout(torch, gen, main, bf16)
+    dout = torch.randn(q.shape, generator=gen, device="cuda").to(bf16)
+    out, lse = k4.flash_attention_with_lse(q, k, v, scale=0.125)
+    lse_plain = k4.flash_attention_plain(q.float(), k.float(), v.float(), scale=0.125,
+                                         return_lse=True)[1]
+    run = lambda: k4.flash_attention_bwd(q, k, v, out, lse, dout, scale=0.125)  # noqa: E731
+    _, Hk, G, _, D = main
+    qh = q.reshape(B, Hk * G, S, D).detach().requires_grad_()
+    kh, vh = (t.repeat_interleave(G, dim=1).detach().requires_grad_() for t in (k, v))
+    o_lib = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    do_lib = dout.reshape(B, Hk * G, S, D)
+    lib = lambda: torch.autograd.grad(o_lib, (qh, kh, vh), do_lib,  # noqa: E731
+                                      retain_graph=True)
+    pairs = S * (S + 1) // 2
+    ops = 10 * B * Hk * G * D * pairs  # S, dP recomputed; dV, dQ, dK: 5 products
+    nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + lse.numel() * 4  # q o do dq; k v dk dv
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
+    k4.bwd_launches, timed = 0, cuda_ms(torch, run, calls=10, trials=5)
+    entry = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:92",
+        "max_abs_err": max(
+            float((g.float() - p.float()).abs().max()) for g, p in zip(
+                run(), k4.flash_attention_bwd_plain(q, k, v, out, lse_plain, dout, 0.125))),
+        "ms": timed,
+        "plain_ms": cuda_ms(torch, lambda: k4.flash_attention_bwd_plain(
+            q, k, v, out, lse, dout, 0.125), calls=2, trials=3, warmup=1),
+        "bound_ms": bound_ms,
+        "bound_by": "operations" if ops / BF16_OPS_PER_S > nbytes / HBM_BYTES_PER_S
+        else "bytes",
+        "library_ms": cuda_ms(torch, lib, calls=10, trials=5),
+    }
+    k4.bwd_launches = 0
+    dev_ms = device_ms(torch, run)
+    emit({"phase": "kernel_k4_bwd", "ok": True, "cases": len(cases), "shape": list(main),
+          "dtype": "bfloat16", "layout": "model", **entry, "device_ms": dev_ms,
+          "library_device_ms": device_ms(torch, lib), "gflop": ops / 1e9,
+          "device_tflops": ops / (dev_ms * 1e-3) / 1e12, "share_of_bound": bound_ms / dev_ms,
+          "forward_bits_kept_with_lse": True, "vmap_cohort_bitwise": True,
+          "tolerance_rel_to_max": BWD_TOL, "lse_tolerance": LSE_TOL,
+          "lse_max_abs_err": max(e["lse_abs"] for e in errs.values()),
+          "rel_err_by_case": errs})
+    return entry
+
+
+def _token_batches(torch, vocab, steps, B, S, seed=0):
+    """``steps`` (tokens, labels) batches of one ``make_token_stream``, moved
+    to the card once (a step slices views)."""
+    from repro_torch.data.synthetic import make_token_stream
+
+    stream = make_token_stream(vocab, steps * B * (S + 1), seed)
+    docs = torch.as_tensor(stream, device="cuda").view(steps, B, S + 1)
+    return [{"tokens": docs[i, :, :-1], "labels": docs[i, :, 1:]} for i in range(steps)]
+
+
+def phase_lm_train(torch, k4):
+    """tinyllama-1.1b at full width and depth (22 layers, bf16, weights from
+    seed 0) trained by ``model.sgd_train_step`` at (B, S) = TRAIN_SHAPE with
+    ``build``'s default remat: K4 forward 2 x 22 and backward 22 launches a
+    step, no plain or kernel-off attention, finite loss and params that
+    moved, no host sync in a step; ms a step, tokens/s, the share of the
+    bf16 peak, device-busy share, K4's share of device time, peak memory
+    with remat on and off."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import factory
+
+    cfg = get_arch(LM_ARCH)
+    model = factory.build(cfg)
+    L = cfg.num_layers
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    B, S = TRAIN_SHAPE
+    batches = _token_batches(torch, cfg.vocab_size, LM_TRAIN_STEPS + 4, B, S)
+    lr = torch.full((), LM_TRAIN_LR, device="cuda")
+    plain_calls = {}
+    restore = [_count_calls(k4, ["flash_attention_plain", "flash_attention_bwd_plain"],
+                            plain_calls),
+               _count_calls(attn_mod, ["_attend_direct", "_attend_flash_jnp"], plain_calls)]
+    first = [t.clone() for t in tree_leaves(params)[:3]]
+    try:
+        per_step, losses = [], []
+        k4.launches = k4.bwd_launches = 0  # the path's counts: its LM_TRAIN_STEPS steps
+        for i in range(LM_TRAIN_STEPS):
+            f0, b0 = k4.launches, k4.bwd_launches
+            t0 = time.perf_counter()
+            params, metrics = model.sgd_train_step(params, batches[i], lr)
+            torch.cuda.synchronize()
+            per_step.append((time.perf_counter() - t0) * 1e3)
+            launched = (k4.launches - f0, k4.bwd_launches - b0)
+            if launched != (2 * L, L):
+                raise AssertionError(f"lm_train: K4 forward/backward launched {launched} "
+                                     f"times in a step of {L} layers (want {(2 * L, L)})")
+            losses.append(float(metrics["loss"]))
+        counts = (k4.launches, k4.bwd_launches)
+        if plain_calls:
+            raise AssertionError(f"lm_train: plain or kernel-off attention ran: {plain_calls}")
+        state = {"p": params}
+
+        def step(i=LM_TRAIN_STEPS):
+            state["p"], state["m"] = model.sgd_train_step(state["p"], batches[i], lr)
+
+        syncs = _syncs_in(torch, step)
+        if syncs:
+            raise AssertionError(f"lm_train: a step synchronized: {syncs[:3]}")
+        union, window, by_name, _ = _profile(torch, lambda: step(LM_TRAIN_STEPS + 1), 2)
+        params = state["p"]
+    finally:
+        for fn in restore:
+            fn()
+    leaves = tree_leaves(params)
+    if not (all(map(math.isfinite, losses)) and all(bool(torch.isfinite(t).all())
+                                                   for t in leaves)):
+        raise AssertionError(f"lm_train: non-finite loss {losses} or params")
+    if all(torch.equal(a, b) for a, b in zip(first, leaves[:3])):
+        raise AssertionError("lm_train: the params did not move")
+    peaks = {}
+    for remat in (True, False):
+        m = factory.build(cfg, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out, _ = m.sgd_train_step(params, batches[LM_TRAIN_STEPS + 2], lr)
+        torch.cuda.synchronize()
+        peaks["remat" if remat else "no_remat"] = {
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "above_params_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
+        del out
+    ms = statistics.median(per_step[1:])  # step 0 warms up cuBLAS and the kernels
+    tokens = B * S
+    a = cfg.pattern[0].attn
+    pairs = S * (S + 1) // 2
+    attn_flops = 14 * B * a.num_heads * a.head_dim * pairs * L  # forward 4 D, backward 10 D
+    flops = 6 * n_params * tokens + attn_flops
+    emit({"phase": "lm_train", "ok": True, "arch": cfg.name, "layers": L,
+          "params": n_params, "batch": B, "seq": S, "steps": LM_TRAIN_STEPS, "lr": LM_TRAIN_LR,
+          "remat": True, "k4_launches_per_step": 2 * L, "k4_bwd_launches_per_step": L,
+          "plain_calls": 0, "host_syncs_in_a_step": 0, "losses": losses,
+          "ms_per_step": ms, "ms_per_step_all": per_step, "first_step_ms": per_step[0], "tokens_per_s": tokens / ms * 1e3,
+          "model_tflops": flops / (ms * 1e-3) / 1e12,
+          "share_of_bf16_peak": flops / (ms * 1e-3) / BF16_OPS_PER_S,
+          "flops_counted": "6 N tokens + 14 D per head per causal pair per layer "
+                           "(remat's recompute not counted)",
+          "profile_2_steps": {
+              "device_union_ms_per_step": union / 2, "window_ms_per_step": window / 2,
+              "device_busy_share": union / window,
+              "k4_share_of_device_time": _share(by_name, "attn_wgmma_kernel"),
+              "k4_bwd_share_of_device_time": sum(_share(by_name, n) for n in K4_BWD_KERNELS),
+              "top": sorted(((round(v / 2, 4), n[:80]) for n, v in by_name.items()),
+                            reverse=True)[:8]},
+          "peak_memory": peaks,
+          "logits_note": "lm_loss keeps the full (4, 2048, 32000) f32 logits (1.05 GB): "
+                         "_vocab_chunk returns 0 at S = 2048"})
+    return counts
+
+
+def phase_lm_grad_parity(torch, k4):
+    """The reduced tinyllama in f32 with TF32 off, from the same numpy
+    weights on the card and on the CPU: ``model.loss`` gradients at S = 128
+    and 256 (K4 forward and backward on the card, the plain route on the
+    CPU) within 1e-4 of each leaf's max, then one ``sgd_train_step``: the
+    params allclose."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.models import factory
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(LM_ARCH).reduced()
+    model = factory.build(cfg)
+    weights = model.init(torch.Generator().manual_seed(0))  # on the CPU, then copied
+    rng = np.random.default_rng(0)
+    worst, f0, b0 = {}, k4.launches, k4.bwd_launches
+    for S in (128, 256):
+        toks = rng.integers(0, cfg.vocab_size, (2, S + 1)).astype(np.int32)
+        grads = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.detach().to(dev).requires_grad_(), weights)
+            t = torch.from_numpy(toks).to(dev)
+            loss, _ = model.loss(p, {"tokens": t[:, :-1], "labels": t[:, 1:]})
+            grads[dev] = [g.cpu() for g in torch.autograd.grad(loss, tree_leaves(p))]
+        worst[S] = max(_rel_err(a, b) for a, b in zip(grads["cuda"], grads["cpu"]))
+        if worst[S] > 1e-4:
+            raise AssertionError(f"lm_grad_parity: S={S} gradients off the CPU's by "
+                                 f"{worst[S]} of a leaf's max")
+    launched = (k4.launches - f0, k4.bwd_launches - b0)
+    # remat: the forward twice a layer; two sequence lengths
+    if launched != (2 * 2 * cfg.num_layers, 2 * cfg.num_layers):
+        raise AssertionError(f"lm_grad_parity: K4 launched {launched} times on the card")
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 129)).astype(np.int32))
+    new = {}
+    for dev in ("cpu", "cuda"):
+        t = toks.to(dev)
+        new[dev], _ = model.sgd_train_step(tree_map(lambda w: w.to(dev), weights),
+                                           {"tokens": t[:, :-1], "labels": t[:, 1:]}, 3e-3)
+    step_gap = max(float((a.cpu() - b).abs().max())
+                   for a, b in zip(tree_leaves(new["cuda"]), tree_leaves(new["cpu"])))
+    if not all(torch.allclose(a.cpu(), b, rtol=1e-5, atol=1e-6)
+               for a, b in zip(tree_leaves(new["cuda"]), tree_leaves(new["cpu"]))):
+        raise AssertionError(f"lm_grad_parity: one SGD step off the CPU's by {step_gap}")
+    emit({"phase": "lm_grad_parity", "ok": True, "arch": cfg.name, "batch": 2,
+          "k4_launches": launched, "grad_rel_err_by_seq": worst, "grad_tol": 1e-4,
+          "sgd_step_max_abs_gap": step_gap, "sgd_step_tol": {"rtol": 1e-5, "atol": 1e-6},
+          "tf32": False})
+    return launched
+
+
+def phase_train_main(torch, k4):
+    """The driver's own path, ``repro_torch.launch.train`` at the
+    reference's defaults (tinyllama widened to ~20M params, batch 8, seq
+    128, lr 3e-3, 200 steps): K4 forward and backward every step, the final
+    loss below the initial one; tok/s and peak memory."""
+    import numpy as np
+
+    from repro_torch.launch import train
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    f0, b0 = k4.launches, k4.bwd_launches
+    res = train.main(TRAIN_ARGV)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = len(res["losses"])
+    layers = res["cfg"].num_layers
+    launched = (k4.launches - f0, k4.bwd_launches - b0)
+    if launched != (2 * layers * steps, layers * steps):
+        raise AssertionError(f"train_main: K4 launched {launched} times in {steps} steps")
+    first, last = float(np.mean(res["losses"][:10])), float(np.mean(res["losses"][-10:]))
+    if not (math.isfinite(last) and last < first):
+        raise AssertionError(f"train_main: loss did not fall ({first} -> {last})")
+    emit({"phase": "train_main", "ok": True, "argv": TRAIN_ARGV, "arch": res["cfg"].name,
+          "d_model": res["cfg"].d_model, "layers": layers, "steps": steps,
+          "k4_launches": launched[0], "k4_bwd_launches": launched[1],
+          "initial_loss": first, "final_loss": last, "tokens_per_s": res["tokens_per_s"],
+          "seconds": res["seconds"], "peak_mem_gib": peak})
+    return launched
+
+
+def phase_fl_lm(torch, event_topk, fedavg_reduce):
+    """The LM as the federated workload: ``fl_train --arch tinyllama-1.1b``
+    at the paper's sync settings (10 rounds; K1 once a round over the
+    reduced LM's 21 leaves: one ``fedavg_reduce_leaves`` call, two grouped
+    launches of <= 16 leaves) and ``fl_async --arch`` at 16 384 clients and
+    k = 256 (5 steps, K2 once a step); finite losses, peak memory."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import fl_async, fl_train
+
+    out = {"phase": "fl_lm", "ok": True}
+    for name, driver, argv in (("sync", fl_train, FL_LM_SYNC_ARGV),
+                               ("async", fl_async, FL_LM_ASYNC_ARGV)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fedavg_reduce.launches = event_topk.launches = 0
+        t0 = time.time()
+        res = driver.main(argv)
+        wall = time.time() - t0
+        cfg = res.config
+        leaves = len(tree_leaves(res.params))
+        evals = [r.eval_loss for r in res.records]
+        trains = [r.train_loss for r in res.records if name == "sync" or r.buffer_fill > 0]
+        if not evals or not all(map(math.isfinite, evals + trains)):
+            raise AssertionError(f"fl_lm {name}: non-finite losses {evals} {trains}")
+        if name == "sync":
+            per_call = -(-leaves // fedavg_reduce.MAX_LEAVES)
+            if fedavg_reduce.launches != cfg.rounds * per_call:
+                raise AssertionError(f"fl_lm sync: K1 launched {fedavg_reduce.launches} "
+                                     f"times in {cfg.rounds} rounds of {leaves} leaves")
+        elif event_topk.launches != cfg.rounds:
+            raise AssertionError(f"fl_lm async: K2 launched {event_topk.launches} times "
+                                 f"in {cfg.rounds} steps")
+        out[name] = {"argv": argv, "rounds": cfg.rounds, "param_leaves": leaves,
+                     "k1_launches": fedavg_reduce.launches, "k2_launches": event_topk.launches,
+                     "eval_loss": evals[-1],
+                     "first_eval_loss": evals[0], "wall_s": wall,
+                     "steps_per_s": cfg.rounds / res.wall_time_s,
+                     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    emit(out)
+    return out["sync"]["k1_launches"], out["async"]["k2_launches"]
+
+
 def main() -> int:
     import torch
 
@@ -3456,10 +3887,23 @@ def main() -> int:
     k6_entry = phase_kernel_k6(torch, ssd_scan)
     k6_entry["launches"], model, params = phase_ssm_serve_main(torch, ssd_scan)
     phase_ssm_parity(torch, ssd_scan, model, params)
+    del model, params
+    bwd_entry = phase_kernel_k4_bwd(torch, flash_attention)
+    fwd, bwd = phase_lm_train(torch, flash_attention)
+    k4_entry["launches"] += fwd
+    bwd_entry["launches"] = bwd
+    phase_lm_grad_parity(torch, flash_attention)
+    fwd, bwd = phase_train_main(torch, flash_attention)
+    k4_entry["launches"] += fwd
+    bwd_entry["launches"] += bwd
+    k1, k2 = phase_fl_lm(torch, event_topk, fedavg_reduce)
+    k1_entry["launches"] += k1
+    entry["launches"] += k2
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{key: e[key] for key in keys}
-                      for e in (entry, k1_entry, k4_entry, k5_entry, k3_entry, k6_entry)]})
+                      for e in (entry, k1_entry, k4_entry, k5_entry, k3_entry, k6_entry,
+                                bwd_entry)]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True)

@@ -3,9 +3,9 @@
 Both packages keep the same dict keys and layouts (HWIO conv weights,
 ``(in, out)`` fc weights, int32 ages and versions, f32 times, the LM's
 ``(d_model, H, D)`` einsum weights stacked on a leading ``repeats`` axis,
-``(B, L, Hk, D)`` ring caches with an int32 index), so a conversion is a
-key-for-key copy through numpy. One dtype that differs: indices are int64
-in the port (torch's index type). bf16 leaves cross bit for bit: numpy
+``(B, L, Hk, D)`` ring caches with an int32 index, optimizer state as
+``{m, v, t}``), so a conversion is a key-for-key copy through numpy. One
+dtype that differs: indices are int64 in the port (torch's index type). bf16 leaves cross bit for bit: numpy
 holds them as ``ml_dtypes.bfloat16``, which torch does not take, so they
 go through an int16 view.
 """
@@ -97,3 +97,15 @@ def lm_caches_from_jax(caches, device) -> Dict:
 def lm_caches_to_jax(caches) -> Dict:
     """The inverse of ``lm_caches_from_jax``."""
     return _to_numpy(caches)
+
+
+def opt_state_from_jax(state, device) -> Dict:
+    """Port optimizer state (``optim.optimizers``) from the reference's:
+    AdamW's f32 moments ``m``/``v`` (trees shaped as the params) and its
+    int32 step ``t``, SGD's momentum ``m``, or plain SGD's empty dict."""
+    return _to_torch(state, device)
+
+
+def opt_state_to_jax(state) -> Dict:
+    """The inverse of ``opt_state_from_jax``."""
+    return _to_numpy(state)

@@ -51,6 +51,12 @@
 // 4 x 4 block of scores and a 4 x D/16 block of the output (the f32
 // tolerance of 2e-5 rules out TF32 tensor-core tiles).
 //
+// With a non-null lse (the training forward), both routes also write each
+// row's log-sum-exp of its scaled, masked scores, m + log(l) in natural
+// units, f32 (B, Hk, G, S) contiguous, for the backward
+// (flash_attention_bwd.cu). The write comes after the output's and takes
+// nothing from it, so the output is bitwise the same with and without it.
+//
 // Bound on the H100: 4 * B * Hk * G * D * (causal key-query pairs) flops
 // against reading q, k, v and writing o once; at the serving prefill
 // shape it is bound by operations.
@@ -105,7 +111,7 @@ __device__ __forceinline__ float round_to(float p, const float*) { return p; }
 template <typename T, int D>
 __global__ void __launch_bounds__(256)
 fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, T* __restrict__ o, Geom gm) {
+           const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse, Geom gm) {
   constexpr int P = D + 1;  // padded row (no bank conflicts across keys)
   constexpr int DJ = D / 16;
   extern __shared__ float smem[];
@@ -214,6 +220,9 @@ fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
       from_f(ob + (row % G) * gm.o_g + qp * gm.o_s + tx + 16 * j, acc[i][j] * inv);
+    if (lse != nullptr && tx == 0)
+      lse[((static_cast<long long>(b) * gm.Hk + h) * G + row % G) * S + qp] =
+          m[i] + logf(fmaxf(l[i], 1e-30f));
   }
 }
 
@@ -232,6 +241,7 @@ constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int kConsumerWarps = 8;
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // 128 * 40 + 256 * 232 <= 65536
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct WgGeom {
   int S, G, P, Hk, n_qt, bhn, total, kind, window;
@@ -511,7 +521,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-                  const WgGeom gm) {
+                  float* __restrict__ lse, const WgGeom gm) {
   using C = WgCfg<D>;
   constexpr int BN = C::TILE_N;
   extern __shared__ unsigned char smem_raw[];
@@ -726,6 +736,9 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
         for (int n = 0; n < D / 8; ++n)
           *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * tid) =
               pack_bf16(oacc[4 * n + 2 * rr] * inv, oacc[4 * n + 2 * rr + 1] * inv);
+        if (lse != nullptr && tid == 0)  // m is in log2 units: to natural ones
+          lse[((static_cast<long long>(tl.b) * gm.Hk + tl.h) * G + row % G) * S + qp] =
+              ((rr ? m_hi : m_lo) + log2f(fmaxf(rr ? l_hi : l_lo, 1e-30f))) * kLn2;
       }
     }
     if (cw == 0) named_sync(1);  // takes warpgroup 1's last turn
@@ -734,14 +747,14 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
 
 template <typename T, int D>
 cudaError_t launch_fma(dim3 grid, cudaStream_t stream, const void* q, const void* k,
-                       const void* v, void* o, const Geom& gm) {
+                       const void* v, void* o, float* lse, const Geom& gm) {
   const size_t smem = (size_t)(3 * 64 * (D + 1) + 64 * (kBN + 1)) * sizeof(float);
   auto kern = fma_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   kern<<<grid, 256, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                    static_cast<const T*>(v), static_cast<T*>(o), gm);
+                                    static_cast<const T*>(v), static_cast<T*>(o), lse, gm);
   return cudaGetLastError();
 }
 
@@ -792,7 +805,7 @@ int num_sms() {
 
 template <int D>
 int launch_wgmma(cudaStream_t stream, const void* q, const void* k, const void* v, void* o,
-                 int B, int G, const Geom& gm) {
+                 float* lse, int B, int G, const Geom& gm) {
   using C = WgCfg<D>;
   if (G < 1 || G > kRows) return cudaErrorInvalidValue;
   const int S = gm.S, Hk = gm.Hk, P = kRows / G;
@@ -831,7 +844,7 @@ int launch_wgmma(cudaStream_t stream, const void* q, const void* k, const void* 
   // loads
   const long long grid = ctas < num_sms() ? ctas : num_sms();
   kern<<<(unsigned)grid, kThreads, C::SMEM, stream>>>(tq, tk, tv,
-                                                      static_cast<__nv_bfloat16*>(o), wg);
+                                                      static_cast<__nv_bfloat16*>(o), lse, wg);
   return cudaGetLastError();
 }
 
@@ -842,10 +855,11 @@ int launch_wgmma(cudaStream_t stream, const void* q, const void* k, const void* 
 // k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_g, o_s}. kind: 0 full,
 // 1 sliding, 2 chunked. dtype: 0 f32 (FMA kernel), 1 bf16 (wgmma kernel:
 // 1 <= G <= 128, every stride but the last a multiple of 8 elements, the
-// base pointers 16-byte aligned).
+// base pointers 16-byte aligned). lse: null, or f32 (B, Hk, G, S) contiguous
+// to receive each row's log-sum-exp.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      void* o, int B, int Hk, int G, int S, int D,
-                                      const long long* st, float scale, int kind,
+                                      void* o, float* lse, int B, int Hk, int G, int S,
+                                      int D, const long long* st, float scale, int kind,
                                       int window, int dtype, void* stream) {
   Geom gm;
   gm.Hk = Hk; gm.G = G; gm.S = S; gm.kind = kind; gm.window = window;
@@ -857,9 +871,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     switch (D) {
-      case 32: return launch_wgmma<32>(s, q, k, v, o, B, G, gm);
-      case 64: return launch_wgmma<64>(s, q, k, v, o, B, G, gm);
-      case 128: return launch_wgmma<128>(s, q, k, v, o, B, G, gm);
+      case 32: return launch_wgmma<32>(s, q, k, v, o, lse, B, G, gm);
+      case 64: return launch_wgmma<64>(s, q, k, v, o, lse, B, G, gm);
+      case 128: return launch_wgmma<128>(s, q, k, v, o, lse, B, G, gm);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -867,9 +881,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     const long long rows = (long long)G * S;
     dim3 grid((unsigned)((rows + kBM - 1) / kBM), (unsigned)(B * Hk));
     switch (D) {
-      case 32: return launch_fma<float, 32>(grid, s, q, k, v, o, gm);
-      case 64: return launch_fma<float, 64>(grid, s, q, k, v, o, gm);
-      case 128: return launch_fma<float, 128>(grid, s, q, k, v, o, gm);
+      case 32: return launch_fma<float, 32>(grid, s, q, k, v, o, lse, gm);
+      case 64: return launch_fma<float, 64>(grid, s, q, k, v, o, lse, gm);
+      case 128: return launch_fma<float, 128>(grid, s, q, k, v, o, lse, gm);
       default: return cudaErrorInvalidValue;
     }
   }

@@ -1,21 +1,24 @@
 """FL task abstraction: client-sharded data on a device plus a loss.
 
-Only the paper's CNN classification task is ported so far; the causal-LM
-task (``repro.fl.task.make_lm_task``) arrives with LM training, ROADMAP queue 1,
-slice G2.
+Two constructors, as in ``repro.fl.task``: the paper's CNN classification
+task, and a causal-LM task so an assigned architecture (reduced variant on
+the CPU, or any the port builds on the card) can be the federated workload.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.paper_cnn import CNNConfig
 from repro_torch.data import partition_dirichlet, partition_iid
-from repro_torch.data.synthetic import ImageDataset
+from repro_torch.data.synthetic import ImageDataset, make_token_stream
 from repro_torch.device import resolve_device
 from repro_torch.models import cnn as cnn_mod
+from repro_torch.models import factory
 
 EVAL_BATCH = 500
 
@@ -96,4 +99,71 @@ def make_cnn_task(
         device=dev,
         eval_data={"x": tx[:n_used], "y": ty[:n_used]},
         eval_batch_fn=lambda params, data: eval_sums(params, data["x"], data["y"]),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Causal-LM task (an assigned architecture as the FL workload)
+# ---------------------------------------------------------------------------
+
+
+def _lm_docs(vocab_size: int, n_docs: int, seq_len: int, seed: int) -> np.ndarray:
+    """``n_docs`` consecutive windows of ``seq_len + 1`` tokens of one
+    ``make_token_stream`` (the reference's sliding-window cut)."""
+    stream = make_token_stream(vocab_size, n_docs * (seq_len + 1) + seq_len, seed)
+    return np.array(np.lib.stride_tricks.sliding_window_view(stream, seq_len + 1)[
+        ::seq_len + 1][:n_docs])
+
+
+def make_lm_task(
+    cfg: ArchConfig,
+    n_clients: int,
+    seq_len: int = 128,
+    docs_per_client: int = 16,
+    seed: int = 0,
+    device=None,
+) -> FLTask:
+    """``n_clients`` shards of ``docs_per_client`` token documents of
+    ``seq_len + 1`` tokens from ``make_token_stream(seed)``, and 32 held-out
+    documents from seed ``seed + 99``: the reference's documents exactly,
+    as int32 on ``device`` (the GPU unless ``"cpu"`` is asked for).
+    ``loss_fn`` is the model's mean next-token cross entropy of a batch of
+    documents; ``eval_fn`` scores the held-out set (``accuracy`` is minus
+    the loss: higher is better); ``eval_batch_fn`` returns the summed
+    metrics of its documents. ``init`` draws the params from the run's
+    ``params`` sub-stream (a generator source)."""
+    dev = resolve_device(device)
+    model = factory.build(cfg)
+    docs = _lm_docs(cfg.vocab_size, n_clients * docs_per_client, seq_len, seed)
+    cdocs = torch.as_tensor(docs.reshape(n_clients, docs_per_client, seq_len + 1),
+                            device=dev)
+    held = torch.as_tensor(_lm_docs(cfg.vocab_size, 32, seq_len, seed + 99), device=dev)
+
+    def loss_fn(params, batch):
+        docs_b = batch["docs"]  # (bs, seq + 1)
+        loss, _ = model.loss(params, {"tokens": docs_b[:, :-1], "labels": docs_b[:, 1:]})
+        return loss
+
+    @torch.no_grad()
+    def eval_fn(params):
+        loss = loss_fn(params, {"docs": held})
+        return {"loss": loss, "accuracy": -loss}  # higher is better convention
+
+    @torch.no_grad()
+    def eval_batch_fn(params, data):
+        # every document has seq_len labels, so the mean over documents of
+        # the per-batch mean is the held-out mean: the sum is n times it
+        total = loss_fn(params, data) * data["docs"].shape[0]
+        return {"loss": total, "accuracy": -total}
+
+    return FLTask(
+        name=f"lm:{cfg.name}",
+        init=lambda draws: model.init(draws.sub("params").generator),
+        loss_fn=loss_fn,
+        eval_fn=eval_fn,
+        client_data={"docs": cdocs},
+        examples_per_client=docs_per_client,
+        device=dev,
+        eval_data={"docs": held},
+        eval_batch_fn=eval_batch_fn,
     )

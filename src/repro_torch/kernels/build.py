@@ -26,6 +26,7 @@ BUILD_DIR = PKG / "_build"
 SOURCES = {"event_topk": CSRC / "event_topk.cu",
            "fedavg_reduce": CSRC / "fedavg_reduce.cu",
            "flash_attention": CSRC / "flash_attention.cu",
+           "flash_attention_bwd": CSRC / "flash_attention_bwd.cu",
            "flash_decode": CSRC / "flash_decode.cu",
            "aoi_topk": CSRC / "aoi_topk.cu",
            "ssd_scan": CSRC / "ssd_scan.cu"}

@@ -1,5 +1,5 @@
-"""K4 on Hopper: causal GQA flash attention forward (full, sliding or
-chunked masks).
+"""K4 on Hopper: causal GQA flash attention (full, sliding or chunked
+masks), forward and backward.
 
 Replaces the TPU kernel ``src/repro/kernels/flash_attention.py::
 flash_attention`` (``_flash_kernel``). The CUDA source is
@@ -26,13 +26,31 @@ prefill shape (B, Hk, G, S, D) = (4, 4, 8, 2048, 64) in bf16 that is
 68.7 GFLOP (69 us at 989 TFLOP/s) against 75 MB (22 us at 3.35 TB/s), so
 it is bound by operations.
 
+The backward (``csrc/flash_attention_bwd.cu``) replaces no TPU kernel: the
+reference's Pallas kernel has no VJP and the reference trains with it
+switched off. The port trains through K4, so its gradient is a kernel too:
+a pre-pass for ``D = rowsum(dO * O)``, a dK/dV kernel (one CTA per key
+tile, walking every query tile and all G heads of its kv head in a fixed
+order: the GQA sum needs no atomics) and a dQ kernel (one CTA per query
+tile), all recomputing P from the forward's log-sum-exp ``lse``; bf16 on
+``mma.sync`` tensor cores, f32 by FMA. Bound: 10 D flops per head per
+causal pair (2.5 times the forward's).
+
 ``flash_attention(q, k, v, scale=, kind=, window=, block_q=, block_k=)`` is
-the wrapper, with the reference's signature: a CPU tensor goes to the plain
-version ``flash_attention_plain`` (differentiable), a CUDA tensor to the
-kernel, which raises under autograd (the reference kernel has no VJP) and
-on shapes it does not take. ``block_q``/``block_k`` are checked as the
-reference checks them (S must divide into both); the kernel tiles by its
-own sizes. ``launches`` counts the kernel calls.
+the wrapper, with the reference's signature. Without autograd (and outside
+``torch.func`` transforms) a CPU tensor goes to the plain version
+``flash_attention_plain`` and a CUDA tensor to the forward kernel without
+``lse``, as serving runs it. When a gradient is wanted, or under
+``torch.func.vmap``/``grad``, the call goes through ``Attention``, an
+``autograd.Function`` whose forward runs the kernel with ``lse`` and whose
+backward runs ``AttentionBwd``, a second Function around the backward
+kernel; each has a ``vmap`` rule that folds the vmapped dimension into B.
+On the CPU both Functions take their plain versions (``flash_attention_plain``
+with ``return_lse=True`` and ``flash_attention_bwd_plain``); a CUDA tensor
+reaches only the kernels, or raises on shapes they do not take.
+``block_q``/``block_k`` are checked as the reference checks them (S must
+divide into both); the kernels tile by their own sizes. ``launches`` counts
+the forward kernel's calls, ``bwd_launches`` the backward's.
 """
 from __future__ import annotations
 
@@ -41,7 +59,8 @@ import functools
 
 import torch
 
-launches = 0  # kernel calls
+launches = 0  # forward kernel calls
+bwd_launches = 0  # backward kernel calls
 NEG_INF = -1e30
 DEFAULT_BLOCK_Q = 256
 DEFAULT_BLOCK_K = 512
@@ -63,22 +82,49 @@ def tile_rows(G: int) -> tuple:
     return P, P * G
 
 
-def flash_attention_plain(q, k, v, *, scale, kind="full", window=0):
-    """The plain version: the direct masked softmax of
-    ``repro.kernels.ref.flash_attention_ref``. q (B, Hk, G, S, D), k/v
-    (B, Hk, S, D); scores in f32, the softmax weights cast to v's dtype."""
-    S = q.shape[3]
-    pos = torch.arange(S, device=q.device)
+def _mask(S, kind, window, device):
+    """(S, S) boolean: query position (row) may attend to key position."""
+    pos = torch.arange(S, device=device)
     qp, kp = pos[:, None], pos[None, :]
     mask = kp <= qp
     if kind == "sliding" and window > 0:
         mask &= kp > qp - window
     elif kind == "chunked" and window > 0:
         mask &= (kp // window) == (qp // window)
+    return mask
+
+
+def flash_attention_plain(q, k, v, *, scale, kind="full", window=0, return_lse=False):
+    """The plain version: the direct masked softmax of
+    ``repro.kernels.ref.flash_attention_ref``. q (B, Hk, G, S, D), k/v
+    (B, Hk, S, D); scores in f32, the softmax weights cast to v's dtype.
+    With ``return_lse``, also each row's f32 log-sum-exp (B, Hk, G, S) of
+    the scaled, masked scores, as the kernel writes it for the backward."""
+    mask = _mask(q.shape[3], kind, window, q.device)
     s = torch.einsum("bhgqd,bhkd->bhgqk", q, k).float() * scale
     s = torch.where(mask, s, NEG_INF)
     w = torch.softmax(s, dim=-1)
-    return torch.einsum("bhgqk,bhkd->bhgqd", w.to(v.dtype), v)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", w.to(v.dtype), v)
+    return (out, torch.logsumexp(s, dim=-1)) if return_lse else out
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, scale, kind="full", window=0):
+    """The backward's plain version, as explicit formulas in f32 from the
+    inputs (P and dS rounded to q's dtype where the kernel rounds them):
+    P = exp(s * scale - lse) on allowed pairs, dV = P^T dO, dP = dO V^T,
+    D = rowsum(dO * O), dS = P * (dP - D), dQ = scale dS K,
+    dK = scale dS^T Q. Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    mask = _mask(q.shape[3], kind, window, q.device)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf) * scale
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p.to(v.dtype).float(), dof)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, vf)
+    delta = (dof * out.float()).sum(-1)
+    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 @functools.cache
@@ -88,7 +134,20 @@ def _launcher():
     from repro_torch.kernels.build import library
 
     fn = library("flash_attention").flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_launcher():
+    """The built library's ``flash_attention_bwd_launch``, typed."""
+    from repro_torch.kernels.build import library
+
+    fn = library("flash_attention_bwd").flash_attention_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -107,6 +166,8 @@ def _check(q, k, v, kind, block_q, block_k):
         raise ValueError(f"mixed dtypes {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention runs on cpu or cuda, got {q.device}")
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {sorted(KINDS)}, got {kind!r}")
     bq, bk = min(block_q, S), min(block_k, S)
@@ -114,8 +175,14 @@ def _check(q, k, v, kind, block_q, block_k):
         raise ValueError(f"S={S} must divide into both block sizes ({bq}, {bk})")
 
 
+def _aligned(t) -> bool:
+    """Rows a 16-byte load (TMA, ldmatrix staging) can take: a 16-byte
+    aligned base and every stride but the last a multiple of 8 elements."""
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:-1])
+
+
 def _check_kernel(q, k, v, scale):
-    """What the CUDA kernel takes beyond the reference's conditions."""
+    """What the CUDA kernels take beyond the reference's conditions."""
     D = q.shape[-1]
     if q.dtype not in DTYPES:
         raise ValueError(f"the K4 kernel takes float32 or bfloat16, got {q.dtype}")
@@ -124,45 +191,184 @@ def _check_kernel(q, k, v, scale):
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k and v must be contiguous in the head dim")
     if q.dtype == torch.bfloat16:  # TMA: 16-byte aligned base and strides
-        if any(t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:-1])
-               for t in (q, k, v)):
+        if not all(_aligned(t) for t in (q, k, v)):
             raise ValueError("bf16 q, k and v need 16-byte aligned rows")
         tile_rows(q.shape[2])
         if not scale > 0:  # it takes the row max of the unscaled scores
             raise ValueError(f"the bf16 K4 kernel takes a positive scale, got {scale}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError(
-            "the K4 kernel has no backward (the reference's Pallas kernel has "
-            "no VJP either); run it under torch.no_grad()")
 
 
-def flash_attention(q, k, v, *, scale, kind="full", window=0,
-                    block_q=DEFAULT_BLOCK_Q, block_k=DEFAULT_BLOCK_K):
-    """(B, Hk, G, S, D) causal attention of q over k/v, in q's dtype."""
+def _err(name, err):
+    if err >= ENCODE_ERROR:
+        raise RuntimeError(f"{name}: a TMA tensor map could not be encoded "
+                           f"(CUresult {err - ENCODE_ERROR})")
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _forward(q, k, v, scale, kind, window, with_lse):
+    """(out, lse or None): the plain version on the CPU, else the kernel."""
     global launches
-    _check(q, k, v, kind, block_q or DEFAULT_BLOCK_Q, block_k or DEFAULT_BLOCK_K)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale=scale, kind=kind, window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, got {q.device}")
+        if with_lse:
+            return flash_attention_plain(q, k, v, scale=scale, kind=kind, window=window,
+                                         return_lse=True)
+        return flash_attention_plain(q, k, v, scale=scale, kind=kind, window=window), None
     _check_kernel(q, k, v, scale)
     B, Hk, G, S, D = q.shape
     # written in (B, S, Hk, G, D) order, so the model's move back to
     # (B, S, H, D) is a free view
     out = torch.empty((B, S, Hk, G, D), dtype=q.dtype,
                       device=q.device).permute(0, 2, 3, 1, 4)
+    lse = (torch.empty((B, Hk, G, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     strides = (ctypes.c_longlong * 14)(
         *q.stride()[:4], *k.stride()[:3], *v.stride()[:3], *out.stride()[:4])
     fn = _launcher()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr() if with_lse else None,
                  B, Hk, G, S, D, strides, float(scale), KINDS[kind], int(window),
                  DTYPES[q.dtype], stream)
-    if err >= ENCODE_ERROR:
-        raise RuntimeError(f"flash_attention: a TMA tensor map could not be encoded "
-                           f"(CUresult {err - ENCODE_ERROR})")
-    if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+    _err("flash_attention", err)
     launches += 1
-    return out
+    return out, lse
+
+
+def _backward(q, k, v, out, lse, dout, scale, kind, window):
+    """(dq, dk, dv): the plain version on the CPU, else the backward kernel."""
+    global bwd_launches
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, scale, kind, window)
+    _check_kernel(q, k, v, scale)
+    if dout.dtype != q.dtype or out.dtype != q.dtype:
+        raise ValueError(f"out and dout must be {q.dtype}, got {out.dtype}, {dout.dtype}")
+    # the kernel stages out and dout by 16-byte loads (their layouts are
+    # whatever autograd hands back; the model's are aligned)
+    out, dout = (t if t.stride(-1) == 1 and _aligned(t) else t.contiguous()
+                 for t in (out, dout))
+    lse = lse.contiguous()
+    B, Hk, G, S, D = q.shape
+    # in the model's layouts: dq as q's (B, S, H, D), dk/dv as (B, S, Hk, D)
+    dq = torch.empty((B, S, Hk, G, D), dtype=q.dtype,
+                     device=q.device).permute(0, 2, 3, 1, 4)
+    dk, dv = (torch.empty((B, S, Hk, D), dtype=t.dtype, device=q.device).permute(0, 2, 1, 3)
+              for t in (k, v))
+    delta = torch.empty((B, Hk, G, S), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 28)(
+        *q.stride()[:4], *k.stride()[:3], *v.stride()[:3], *out.stride()[:4],
+        *dout.stride()[:4], *dq.stride()[:4], *dk.stride()[:3], *dv.stride()[:3])
+    fn = _bwd_launcher()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), B, Hk, G, S, D, strides, float(scale),
+                 KINDS[kind], int(window), DTYPES[q.dtype], stream)
+    _err("flash_attention_bwd", err)
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_with_lse(q, k, v, *, scale, kind="full", window=0):
+    """(out, lse): the forward with each row's f32 log-sum-exp
+    (B, Hk, G, S), outside autograd; the kernel on a CUDA tensor (one
+    counted launch), the plain version on a CPU tensor."""
+    _check(q, k, v, kind, q.shape[3], q.shape[3])
+    return _forward(q, k, v, scale, kind, window, with_lse=True)
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, scale, kind="full", window=0):
+    """(dq, dk, dv) from the forward's ``out`` and ``lse`` and the output
+    gradient ``dout``, outside autograd; the backward kernel on a CUDA
+    tensor (one counted launch of its three kernels), the plain version on
+    a CPU tensor."""
+    _check(q, k, v, kind, q.shape[3], q.shape[3])
+    return _backward(q, k, v, out, lse, dout, scale, kind, window)
+
+
+def _fold(x, d, n):
+    """x with its vmapped dim ``d`` (None: not vmapped, so expanded to ``n``)
+    folded into the leading batch dim."""
+    x = x.expand(n, *x.shape) if d is None else x.movedim(d, 0)
+    return x.reshape((n * x.shape[1],) + x.shape[2:])
+
+
+def _unfold(x, n):
+    return x.reshape((n, x.shape[0] // n) + x.shape[1:])
+
+
+class Attention(torch.autograd.Function):
+    """K4's forward with ``lse``, differentiable through ``AttentionBwd``;
+    returns (out, lse), lse not differentiable."""
+
+    @staticmethod
+    def forward(q, k, v, scale, kind, window):
+        return _forward(q, k, v, scale, kind, window, with_lse=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, scale, kind, window = inputs
+        out, lse = output
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.attrs = (scale, kind, window)
+        ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = AttentionBwd.apply(q, k, v, out, lse, dout, *ctx.attrs)
+        return dq, dk, dv, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, scale, kind, window):
+        n = info.batch_size
+        q, k, v = (_fold(x, d, n) for x, d in zip((q, k, v), in_dims[:3]))
+        out, lse = Attention.apply(q, k, v, scale, kind, window)
+        return (_unfold(out, n), _unfold(lse, n)), (0, 0)
+
+
+class AttentionBwd(torch.autograd.Function):
+    """K4's backward: (dq, dk, dv) from q, k, v, out, lse and dout. Not
+    differentiable itself."""
+
+    @staticmethod
+    def forward(q, k, v, out, lse, dout, scale, kind, window):
+        return _backward(q, k, v, out, lse, dout, scale, kind, window)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("K4's backward has no backward of its own")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, out, lse, dout, scale, kind, window):
+        n = info.batch_size
+        args = (_fold(x, d, n) for x, d in zip((q, k, v, out, lse, dout), in_dims[:6]))
+        grads = AttentionBwd.apply(*args, scale, kind, window)
+        return tuple(_unfold(g, n) for g in grads), (0, 0, 0)
+
+
+def under_torch_func() -> bool:
+    """Is a ``torch.func`` transform (``grad``, ``vmap``) active?"""
+    return torch._C._functorch.maybe_current_level() is not None
+
+
+def _tracked(*ts) -> bool:
+    """Is a gradient wanted, or is a ``torch.func`` transform active (whose
+    batched or tracked tensors only the Functions take)?"""
+    return under_torch_func() or (torch.is_grad_enabled()
+                                  and any(t.requires_grad for t in ts))
+
+
+def flash_attention(q, k, v, *, scale, kind="full", window=0,
+                    block_q=DEFAULT_BLOCK_Q, block_k=DEFAULT_BLOCK_K):
+    """(B, Hk, G, S, D) causal attention of q over k/v, in q's dtype."""
+    _check(q, k, v, kind, block_q or DEFAULT_BLOCK_Q, block_k or DEFAULT_BLOCK_K)
+    if _tracked(q, k, v):
+        return Attention.apply(q, k, v, float(scale), kind, int(window))[0]
+    return _forward(q, k, v, scale, kind, window, with_lse=False)[0]

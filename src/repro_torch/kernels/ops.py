@@ -40,7 +40,9 @@ def fedavg_reduce_leaves(stacks, weights, seg=None, num_segments=1):
 def flash_attention(q, k, v, *, scale, kind="full", window=0, block_q=None,
                     block_k=None):
     """K4: causal GQA attention, q (B, Hk, G, S, D) over k/v (B, Hk, S, D),
-    with ``kind`` full, sliding or chunked (``window``)."""
+    with ``kind`` full, sliding or chunked (``window``). Differentiable:
+    under autograd or ``torch.func`` it runs K4's autograd Function (the
+    forward with lse, then K4's backward kernel)."""
     return _flash.flash_attention(q, k, v, scale=scale, kind=kind, window=window,
                                   block_q=block_q, block_k=block_k)
 

@@ -33,8 +33,8 @@ The FMA route's schedule at that shape needs 21.5 GFLOP of f32 FMA work
 
 ``ssd_scan(x, dt, A, B_, C_, chunk, h0=None)`` is the wrapper: a CPU tensor
 goes to the plain version ``ssd_chunked_plain`` (differentiable), a CUDA
-tensor to the kernel, which raises under autograd (the reference kernel
-has no VJP) and on shapes it does not take. ``launches`` counts the
+tensor to the kernel, which raises under autograd (K6's backward is
+ROADMAP queue 1's slice G2b) and on shapes it does not take. ``launches`` counts the
 kernel calls (one a call, whatever the number of phases).
 """
 from __future__ import annotations
@@ -147,8 +147,9 @@ def _check_kernel(x, dt, A, B_, C_, h0):
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, dt, A, B_, C_) + ((h0,) if h0 is not None else ())):
         raise RuntimeError(
-            "the K6 kernel has no backward (the reference's Pallas kernel has "
-            "no VJP either); run it under torch.no_grad()")
+            "the K6 kernel has no backward yet: Mamba2 training on the GPU "
+            "arrives with ROADMAP queue 1, slice G2b (K6's backward); run it "
+            "under torch.no_grad()")
 
 
 def ssd_scan(x, dt, A, B_, C_, chunk: int = 256,

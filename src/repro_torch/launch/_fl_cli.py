@@ -31,8 +31,7 @@ def add_common_args(ap: argparse.ArgumentParser, defaults: Dict[str, Any]) -> No
     ap.add_argument("--dataset", default="mnist",
                     choices=["mnist", "cifar10", "cifar100"])
     ap.add_argument("--arch", default=None,
-                    help="reduced LLM arch as the FL workload (not ported "
-                         "yet: ROADMAP queue 1, slice G2, LM training)")
+                    help="use a reduced LLM arch as the FL workload")
     ap.add_argument("--policy", default="markov", choices=sorted(policy_names()))
     ap.add_argument("--rounds", type=int, default=defaults["rounds"],
                     help=defaults.get("rounds_help", "training rounds"))
@@ -213,12 +212,16 @@ def run_world(args: argparse.Namespace):
 
 
 def build_task(args: argparse.Namespace) -> FLTask:
-    """The federated workload: the paper's CNN on ``args.device``."""
+    """The federated workload on ``args.device``: the paper's CNN, or with
+    ``--arch`` the reduced variant of that architecture as a causal LM over
+    64-token documents, 8 a client (as the reference's drivers)."""
     if args.arch:
-        raise NotImplementedError(
-            "--arch (LM workloads) is not ported to repro_torch yet: it "
-            "arrives with ROADMAP queue 1, slice G2 (LM training)"
-        )
+        from repro_torch.configs import get_arch
+        from repro_torch.fl import make_lm_task
+
+        cfg = get_arch(args.arch).reduced()
+        return make_lm_task(cfg, args.clients, seq_len=64, docs_per_client=8,
+                            seed=args.seed, device=args.device)
     from repro_torch.configs.paper_cnn import CNN_CONFIGS
     from repro_torch.data.synthetic import load_dataset
     from repro_torch.fl import make_cnn_task

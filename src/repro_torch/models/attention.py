@@ -9,7 +9,10 @@ Full-sequence attention goes through K4 (``kernels.flash_attention``)
 when ``set_kernel_attention`` is on (the default here, the reference's
 "TPU deployments" setting) and the shape meets the kernel's conditions;
 otherwise it takes the reference's kernel-off route (``_attend_direct``
-or the blocked online softmax ``_attend_flash_jnp``). The decode step of a
+or the blocked online softmax ``_attend_flash_jnp``). In training the K4
+route is differentiable through K4's autograd Function, whose backward is
+a kernel too; the reference trains with its kernel off, so its gradient
+there is autodiff of the direct route (the same function). The decode step of a
 ``full`` layer goes through K5 (``kernels.flash_decode``): its ring mask
 keeps exactly the slots ``0 .. min(index + 1, L) - 1``, a prefix, which is
 what K5's ``valid_len`` masks. MLA and cross attention are not ported yet.

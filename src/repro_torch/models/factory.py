@@ -2,14 +2,17 @@
 
     model = build(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    loss, metrics = model.loss(params, batch)          # forward only
+    loss, metrics = model.loss(params, batch)
+    new_params, metrics = model.sgd_train_step(params, batch, lr)
     logits, caches = model.prefill(params, batch)
     logits, caches = model.decode_step(params, caches, token)
 
 Port of ``repro.models.factory`` for dense attention decoders and pure
-Mamba2 (SSD) stacks, inference only. ``build`` raises for what the port
-cannot run yet, naming the slice that brings it; ``sgd_train_step`` raises
-until LM training is ported.
+Mamba2 (SSD) stacks. ``build`` raises for what the port cannot run yet,
+naming the slice that brings it. Training runs through autograd: on the
+card a dense decoder's attention takes K4 forward and backward; a Mamba2
+stack's ``sgd_train_step`` raises there until K6 has a backward (slice
+G2b), and trains on the CPU through K6's plain version.
 """
 from __future__ import annotations
 
@@ -19,9 +22,11 @@ from typing import Callable, Dict
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.kernels import ssd_scan
 from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.models import transformer
+from repro_torch.optim.optimizers import scale
 
 MOE_AUX_WEIGHT = 0.01
 _LATER = ("ROADMAP queue 1, slice G3 (MoE, MLA, hybrid SSM, windowed and "
@@ -74,7 +79,10 @@ def _unsupported(cfg: ArchConfig) -> str:
     return ""
 
 
-def build(cfg: ArchConfig) -> Model:
+def build(cfg: ArchConfig, remat: bool = True) -> Model:
+    """The model API of ``cfg``. ``remat`` (the reference's default too)
+    recomputes each repeated layer's activations in the backward
+    (``transformer.forward``)."""
     why = _unsupported(cfg)
     if why:
         raise NotImplementedError(f"{cfg.name}: not ported to repro_torch yet: {why}")
@@ -83,16 +91,31 @@ def build(cfg: ArchConfig) -> Model:
         return transformer.init_params(gen, cfg)
 
     def loss(params, batch):
-        x, aux, _ = transformer.forward(params, cfg, batch["tokens"], mode="train")
+        x, aux, _ = transformer.forward(params, cfg, batch["tokens"], mode="train",
+                                        remat=remat)
         ce = transformer.lm_loss(params, cfg, x, batch["labels"],
                                  vocab_chunk=_vocab_chunk(cfg, x.shape[1]))
         total = ce + MOE_AUX_WEIGHT * aux
         return total, {"loss": ce, "moe_aux": aux}
 
     def sgd_train_step(params, batch, lr):
-        raise NotImplementedError(
-            "LM training is not ported to repro_torch yet: it arrives with "
-            "ROADMAP queue 1, slice G2 (LM training)")
+        """One SGD step on ``loss``: ``p - lr * g`` with ``lr * g`` in the
+        leaf's dtype (``lr`` rounded to it first), as the reference rounds
+        a Python-float ``lr`` (``lr`` a Python float or a 0-d float32
+        tensor on the params' device). Returns the new params
+        and ``{loss, moe_aux, total_loss}`` as device tensors (no host
+        sync)."""
+        with torch.enable_grad():
+            tracked = tree_map(lambda p: p.detach().requires_grad_(), params)
+            total, metrics = loss(tracked, batch)
+            leaves = tree_leaves(tracked)
+            grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        it = iter(g if g is not None else torch.zeros_like(p) for p, g in zip(leaves, grads))
+        grads = tree_map(lambda _: next(it), params)
+        new_params = tree_map(lambda p, g: (p.detach() - scale(lr, g, p.dtype)).to(p.dtype),
+                              params, grads)
+        return new_params, {**{k: v.detach() for k, v in metrics.items()},
+                            "total_loss": total.detach()}
 
     def prefill(params, batch):
         x, _, caches = transformer.forward(params, cfg, batch["tokens"], mode="prefill")

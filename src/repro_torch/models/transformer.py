@@ -15,7 +15,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.kernels.flash_attention import under_torch_func
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import ssm as ssm_mod
@@ -192,16 +193,33 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> Dict:
     return params
 
 
+def _unbound(tree) -> list:
+    """One tree a repeat, each leaf the repeat's slice of its stack by a
+    single ``torch.unbind`` per leaf."""
+    parts = [t.unbind(0) for t in tree_leaves(tree)]
+    out = []
+    for r in range(len(parts[0]) if parts else 0):
+        it = iter([p[r] for p in parts])
+        out.append(tree_map(lambda _: next(it), tree))
+    return out
+
+
 def _layers(tree, cfg: ArchConfig):
-    """(params-or-cache, spec) for every layer in order; the stacked
-    ``blocks`` leaves are indexed as views."""
+    """(params-or-cache, spec, in_blocks) for every layer in order. Each
+    stacked ``blocks`` leaf is split once into views (``torch.unbind``),
+    whose backward stacks the layers' gradients in one op, where indexing
+    would give every layer's gradient a zero-filled copy of the whole stack
+    to add up. Decode writes its caches' views in place, which autograd
+    allows on ``unbind``'s views while no gradient flows into them: decode
+    records none (its params and caches do not require grad)."""
     for i, spec in enumerate(cfg.prefix):
-        yield tree["prefix"][i], spec
+        yield tree["prefix"][i], spec, False
+    split = [_unbound(b) for b in tree["blocks"]]
     for r in range(cfg.repeats):
         for pi, spec in enumerate(cfg.pattern):
-            yield tree_map(lambda t: t[r], tree["blocks"][pi]), spec
+            yield split[pi][r], spec, True
     for i, spec in enumerate(cfg.remainder):
-        yield tree["remainder"][i], spec
+        yield tree["remainder"][i], spec, False
 
 
 # ---------------------------------------------------------------------------
@@ -217,24 +235,50 @@ def _embed_tokens(params, cfg: ArchConfig, tokens):
     return x
 
 
+def _checkpointed(p, x, cfg, spec, ropes, positions):
+    """One train-mode layer whose activations autograd does not keep: they
+    are recomputed in the backward (``torch.utils.checkpoint``)."""
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(lambda p_, x_: apply_layer(p_, x_, cfg, spec, ropes, positions,
+                                                 "train")[0],
+                      p, x, use_reentrant=False, preserve_rng_state=False)
+
+
 def forward(
     params: Dict,
     cfg: ArchConfig,
     tokens: torch.Tensor,  # (B, S)
     mode: str = "train",
+    remat: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
     """Returns (final_hidden (B,S,d), total_moe_aux (0 without MoE layers),
     caches|None). ``mode`` is ``train`` or ``prefill``; the frontend
-    embeddings of the reference's multimodal archs come with slice G3."""
+    embeddings of the reference's multimodal archs come with slice G3.
+
+    ``remat`` (train mode): each layer of the repeated ``blocks`` runs
+    under ``torch.utils.checkpoint`` when autograd records it, so the
+    backward recomputes its activations instead of keeping them, as the
+    reference's ``jax.checkpoint`` of its scan body does (the reference
+    checkpoints the pattern group of one repeat, one layer for tinyllama).
+    ``torch.func`` transforms do not take checkpointing, so under them (the
+    FL clients' ``vmap(grad)``) the layers run unwrapped: the values are
+    the same, only the memory differs. The layers' recompute calls K4's
+    forward a second time."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"forward runs mode train or prefill, got {mode!r}")
     x = _embed_tokens(params, cfg, tokens)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     ropes = build_ropes(cfg, x.device)
+    remat = (remat and mode == "train" and torch.is_grad_enabled()
+             and not under_torch_func())
     caches = []
-    for p, spec in _layers(params, cfg):
-        x, c = apply_layer(p, x, cfg, spec, ropes, positions, mode)
+    for p, spec, in_blocks in _layers(params, cfg):
+        if remat and in_blocks:
+            x, c = _checkpointed(p, x, cfg, spec, ropes, positions), None
+        else:
+            x, c = apply_layer(p, x, cfg, spec, ropes, positions, mode)
         caches.append(c)
     x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -344,7 +388,7 @@ def decode_step(
     reuse the tree it passed in as the old state. No host sync."""
     x = _embed_tokens(params, cfg, token)
     ropes = build_ropes(cfg, x.device)
-    for (p, spec), (cache, _) in zip(_layers(params, cfg), _layers(caches, cfg)):
+    for (p, spec, _), (cache, _, _) in zip(_layers(params, cfg), _layers(caches, cfg)):
         x, _ = apply_layer(p, x, cfg, spec, ropes, None, "decode", cache)
     x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     return unembed(params, cfg, x), caches

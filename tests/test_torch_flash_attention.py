@@ -102,8 +102,8 @@ def test_plain_k4_matches_pallas_interpret(dtype):
 
 
 def test_plain_k4_is_differentiable_on_cpu():
-    """The kernel-off route trains: the plain version carries a gradient
-    (the CUDA kernel raises under autograd, as the Pallas kernel has no VJP)."""
+    """On the CPU a gradient goes through ``Attention`` and its plain
+    versions (on the card, through the forward and backward kernels)."""
     q, k, v = (t.requires_grad_() for t in _torch(_qkv(1, 1, 2, 128, 32), "float32"))
     out = k4.flash_attention(q, k, v, scale=0.2)
     out.sum().backward()
@@ -163,11 +163,125 @@ def test_kernel_matches_plain_on_gpu(B, Hk, G, S, D, kind, window, dtype):
 
 @pytest.mark.cuda
 def test_kernel_raises_under_autograd_on_gpu():
+    """Under autograd the kernel runs forward (with lse) and backward: one
+    counted launch each, no plain version, gradients equal to autograd's
+    through the plain route (f32 1e-4, bf16 2e-2, relative to each
+    gradient's max). The name is the one the test had when the kernel
+    raised there."""
     _gpu()
-    q, k, v = _torch(_qkv(1, 1, 2, 128, 64), "float32", "cuda")
-    q.requires_grad_()
-    with pytest.raises(RuntimeError, match="no backward"):
-        k4.flash_attention(q, k, v, scale=0.125)
+    for dtype in DTYPES:
+        _autograd_matches_plain(dtype)
+
+
+def _autograd_matches_plain(dtype):
+    arrs = _qkv(1, 2, 4, 256, 64)
+    q, k, v = (t.requires_grad_() for t in _torch(arrs, dtype, "cuda"))
+    dout = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (1, 2, 4, 256, 64)).astype(np.float32)).to("cuda", getattr(torch, dtype))
+    before, bwd_before = k4.launches, k4.bwd_launches
+    out = k4.flash_attention(q, k, v, scale=0.125, kind="sliding", window=100)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert (k4.launches, k4.bwd_launches) == (before + 1, bwd_before + 1)
+    qp, kp, vp = (t.detach().requires_grad_() for t in (q, k, v))
+    plain = torch.autograd.grad(k4.flash_attention_plain(
+        qp, kp, vp, scale=0.125, kind="sliding", window=100), (qp, kp, vp), dout)
+    assert (k4.launches, k4.bwd_launches) == (before + 1, bwd_before + 1)
+    for name, g, p in zip("qkv", grads, plain):
+        assert g.dtype == p.dtype and g.shape == p.shape
+        _assert_rel(g, p, _bwd_tol(dtype), f"d{name}")
+
+
+def _bwd_tol(dtype):
+    return 2e-2 if dtype == "bfloat16" else 1e-4
+
+
+def _assert_rel(got, exp, tol, name):
+    """max |got - exp| within ``tol`` of max |exp| (a gradient's scale)."""
+    err = float((got.float() - exp.float()).abs().max())
+    scale = float(exp.float().abs().max())
+    assert err <= tol * scale, f"{name}: max abs err {err} vs max {scale} (tol {tol})"
+
+
+def _bwd_inputs(B, Hk, G, S, D, dtype, layout, seed):
+    dt = getattr(torch, dtype)
+    if layout == "model":
+        q, k, v = _model_layout(B, Hk, G, S, D, dtype, seed=seed)
+    else:
+        q, k, v = _torch(_qkv(B, Hk, G, S, D, seed=seed), dtype, "cuda")
+    dout = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (B, S, Hk, G, D)).astype(np.float32)).to("cuda", dt).permute(0, 2, 3, 1, 4)
+    return q, k, v, dout
+
+
+BWD_CASES = [(*c, "float32", "contiguous") for c in CASES] + [
+    (1, 2, G, 384, D, "full", 0, "bfloat16", "model")
+    for D in (32, 64, 128) for G in (1, 2, 4, 5, 8, 16)
+] + [(1, 2, 4, 200, 64, "full", 0, "bfloat16", "model"),
+      (4, 4, 8, 2048, 64, "full", 0, "bfloat16", "model")] + [  # tinyllama's training shape
+    (1, 2, G, S, D, kind, w, "bfloat16", "model")
+    for kind in ("sliding", "chunked") for w in (100, 128)
+    for G, S, D in ((4, 384, 64), (5, 200, 32), (8, 2048, 128))
+] + [(1, 1, 3, 200, 32, kind, 100, "float32", "contiguous")
+     for kind in ("sliding", "chunked")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hk,G,S,D,kind,window,dtype,layout", BWD_CASES)
+def test_backward_kernel_matches_plain_on_gpu(B, Hk, G, S, D, kind, window, dtype,
+                                              layout):
+    """K4's backward kernel (given the kernel forward's ``out`` and ``lse``)
+    against ``flash_attention_bwd_plain`` given the same ``out`` and the
+    plain log-sum-exp, so a wrong kernel lse shows in the gradients too
+    (f32 1e-4, bf16 2e-2, relative to each gradient's max); the kernel's
+    lse against the plain one of the inputs in f32 (atol 1e-4, rtol 1e-5);
+    two launches bitwise equal; the forward's output bitwise the same with
+    and without lse."""
+    _gpu()
+    q, k, v, dout = _bwd_inputs(B, Hk, G, S, D, dtype, layout, seed=S + G + D)
+    kw = dict(scale=D**-0.5, kind=kind, window=window)
+    out, lse = k4.flash_attention_with_lse(q, k, v, **kw)
+    assert torch.equal(out, k4.flash_attention(q, k, v, **kw, block_q=S, block_k=S))
+    # the kernels' scores are f32 sums of exact products; the plain bf16
+    # einsum rounds them to bf16, so the lse is held against f32 inputs
+    _, lse_plain = k4.flash_attention_plain(q.float(), k.float(), v.float(), **kw,
+                                            return_lse=True)
+    torch.testing.assert_close(lse, lse_plain, atol=1e-4, rtol=1e-5)
+    before = k4.bwd_launches
+    grads = k4.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    again = k4.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    plain = k4.flash_attention_bwd_plain(q, k, v, out, lse_plain, dout, **kw)
+    torch.cuda.synchronize()
+    assert k4.bwd_launches == before + 2
+    for name, g, a, p in zip("qkv", grads, again, plain):
+        assert g.dtype == p.dtype and g.shape == p.shape, name
+        assert torch.equal(g, a), f"d{name}: launches differ bitwise"
+        _assert_rel(g, p, _bwd_tol(dtype), f"d{name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_vmap_grad_through_the_kernels_equals_a_loop_on_gpu(dtype):
+    """``torch.func.vmap(grad(...))`` over a cohort of 4, as the FL clients
+    train: each Function's vmap rule folds the cohort into B, and the
+    gradients equal four single calls bitwise."""
+    _gpu()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal((4, 1, 2, 4, 256, 64) if i == 0 else
+                                                    (4, 1, 2, 256, 64)).astype(np.float32))
+               .to("cuda", dt) for i in range(3))
+
+    def loss(q_, k_, v_):
+        return k4.flash_attention(q_, k_, v_, scale=0.125).float().square().sum()
+
+    grad = torch.func.grad(loss, argnums=(0, 1, 2))
+    before = k4.bwd_launches
+    batched = torch.func.vmap(grad)(q, k, v)
+    assert k4.bwd_launches == before + 1
+    for i in range(4):
+        for b, s in zip(batched, grad(q[i], k[i], v[i])):
+            assert torch.equal(b[i], s)
 
 
 # --- the bf16 wgmma kernel: CTA packing and host-side rules -----------------

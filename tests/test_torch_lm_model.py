@@ -72,8 +72,13 @@ def test_builds_what_the_slice_runs_and_names_the_rest():
                  "pixtral-12b", "jamba-v0.1-52b", "llama4-maverick-400b-a17b"):
         with pytest.raises(NotImplementedError, match="slice G3"):
             factory.build(get_arch(name))
-    with pytest.raises(NotImplementedError, match="slice G2"):
-        factory.build(get_arch(ARCH).reduced()).sgd_train_step({}, {}, 0.1)
+    # LM training arrived with slice G2: the step runs and moves the params
+    m = factory.build(get_arch(ARCH).reduced())
+    p = m.init(torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(_tokens(m.cfg, 2, 33, seed=1))
+    new, metrics = m.sgd_train_step(p, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}, 0.1)
+    assert bool(torch.isfinite(metrics["total_loss"]))
+    assert not torch.equal(new["embed"], p["embed"])
 
 
 def test_init_matches_the_reference_tree_and_distributions(lm):

@@ -448,9 +448,13 @@ def test_fl_train_driver_runs_on_cpu(capsys):
     assert res.config.eval_every == 1  # rounds // 30, at least 1
     assert len(res.records) == 3 and np.isfinite(res.records[-1].eval_loss)
     assert k1.launches == before  # on the CPU, K1's plain version
+    # --arch runs since slice G2; an arch of a later slice raises
+    lm = fl_train.main(["--device", "cpu", "--clients", "12", "--k", "4", "--rounds", "1",
+                        "--local-epochs", "1", "--batch-size", "4", "--arch", "tinyllama-1.1b"])
+    assert np.isfinite(lm.records[-1].eval_loss)
     for flags in (["--mesh-shards", "0"],
                   ["--topology", "hierarchical", "--defense", "--mesh-shards", "0"],
-                  ["--defense", "--arch", "tinyllama-1.1b"], ["--arch", "tinyllama-1.1b"]):
+                  ["--defense", "--arch", "gemma3-27b"], ["--arch", "gemma3-27b"]):
         # a mesh runs since slice F; under sync it needs --shard-cohort, and
         # RunConfig says so with the reference's message
         raises = (pytest.raises(ValueError, match="^mesh_shards requires mode='async'")

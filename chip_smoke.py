@@ -3456,7 +3456,10 @@ FL_LM_SYNC_ARGV = ["--device", "cuda", "--arch", LM_ARCH, "--clients", "100", "-
                    "--m", "10", "--local-epochs", "5", "--batch-size", "50", "--rounds", "10"]
 FL_LM_ASYNC_ARGV = ["--device", "cuda", "--arch", LM_ARCH, "--clients", "16384",
                     "--k", "256", "--rounds", "5"]
-K4_BWD_KERNELS = ("dkdv_mma_kernel", "dq_mma_kernel", "delta_kernel")
+K4_BWD_KERNELS = ("dkdv_wgmma_kernel", "dq_wgmma_kernel", "prep_kernel")
+# K4's backward before its redesign (mma.sync, synchronous loads): chip run 5
+# of this script at the training shape (NVIDIA H100 80GB HBM3, 700.00 W)
+K4_BWD_MMA_SYNC_MS = {"ms": 1.474, "device_ms": 1.452}
 
 
 def _rel_err(got, exp) -> float:
@@ -3489,9 +3492,11 @@ def phase_kernel_k4_bwd(torch, k4):
     shape, the forward phase's grid and f32 at the reference's test
     shapes; the forward's lse within LSE_TOL of the plain one and its
     output bitwise the same with and without lse; two launches bitwise
-    equal; ``vmap(grad)`` over a cohort of 4 bitwise equal to four single
-    calls; its time beside its bound, the plain version's and the backward
-    of ``scaled_dot_product_attention``."""
+    equal (three at the training shape); ``vmap(grad)`` over a cohort of 4
+    bitwise equal to four single calls; its time beside its bound, the
+    plain version's, the backward of ``scaled_dot_product_attention`` and
+    the ``mma.sync`` design it replaced; its workspace (each of its three
+    kernels' device time a launch is ``lm_train``'s, at the same shape)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(14)
@@ -3588,10 +3593,23 @@ def phase_kernel_k4_bwd(torch, k4):
     }
     k4.bwd_launches = 0
     dev_ms = device_ms(torch, run)
+    # three launches at the training shape give the same bits
+    first, *again = (run() for _ in range(3))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for other in again for a, b in zip(first, other)):
+        raise AssertionError("K4 bwd: three launches at the training shape differ bitwise")
+    k4.bwd_launches = 0
+    plan = k4.bwd_plan(*main)
     emit({"phase": "kernel_k4_bwd", "ok": True, "cases": len(cases), "shape": list(main),
           "dtype": "bfloat16", "layout": "model", **entry, "device_ms": dev_ms,
           "library_device_ms": device_ms(torch, lib), "gflop": ops / 1e9,
           "device_tflops": ops / (dev_ms * 1e-3) / 1e12, "share_of_bound": bound_ms / dev_ms,
+          "mma_sync_design": K4_BWD_MMA_SYNC_MS,
+          "workspace_bytes": plan.workspace_bytes,
+          "plan": {"kv_items": plan.kv_items, "q_items": plan.q_items,
+                   "kv_smem": plan.kv_smem, "q_smem": plan.q_smem,
+                   "kv_queries_a_step": plan.kv_queries, "q_keys_a_step": plan.q_keys},
+          "training_shape_launches_bitwise": 3,
           "forward_bits_kept_with_lse": True, "vmap_cohort_bitwise": True,
           "tolerance_rel_to_max": BWD_TOL, "lse_tolerance": LSE_TOL,
           "lse_max_abs_err": max(e["lse_abs"] for e in errs.values()),
@@ -3615,8 +3633,9 @@ def phase_lm_train(torch, k4):
     ``build``'s default remat: K4 forward 2 x 22 and backward 22 launches a
     step, no plain or kernel-off attention, finite loss and params that
     moved, no host sync in a step; ms a step, tokens/s, the share of the
-    bf16 peak, device-busy share, K4's share of device time, peak memory
-    with remat on and off."""
+    bf16 peak, device-busy share, K4's share of device time and each of its
+    backward kernels' device time a launch, peak memory with remat on and
+    off."""
     from repro_torch.configs import get_arch
     from repro_torch.core.tree import tree_leaves
     from repro_torch.models import attention as attn_mod
@@ -3683,6 +3702,10 @@ def phase_lm_train(torch, k4):
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
             "above_params_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
         del out
+    bwd_share = sum(_share(by_name, n) for n in K4_BWD_KERNELS)
+    if not bwd_share > 0:
+        raise AssertionError(f"lm_train: no device time under K4's backward kernels "
+                             f"{K4_BWD_KERNELS}")
     ms = statistics.median(per_step[1:])  # step 0 warms up cuBLAS and the kernels
     tokens = B * S
     a = cfg.pattern[0].attn
@@ -3702,7 +3725,15 @@ def phase_lm_train(torch, k4):
               "device_union_ms_per_step": union / 2, "window_ms_per_step": window / 2,
               "device_busy_share": union / window,
               "k4_share_of_device_time": _share(by_name, "attn_wgmma_kernel"),
-              "k4_bwd_share_of_device_time": sum(_share(by_name, n) for n in K4_BWD_KERNELS),
+              "k4_bwd_share_of_device_time": bwd_share,
+              "k4_bwd_ms_per_step": {n: sum(v for key, v in by_name.items() if n in key) / 2
+                                     for n in K4_BWD_KERNELS},
+              # each backward kernel's device time a launch at the training
+              # shape (kernel_k4_bwd's own profile, late in the script, kept
+              # no kernel record; this one keeps all)
+              "k4_bwd_device_ms_a_launch": {
+                  n: sum(v for key, v in by_name.items() if n in key) / (2 * L)
+                  for n in K4_BWD_KERNELS},
               "top": sorted(((round(v / 2, 4), n[:80]) for n, v in by_name.items()),
                             reverse=True)[:8]},
           "peak_memory": peaks,
@@ -3849,7 +3880,9 @@ def main() -> int:
     t0 = time.time()
     build.build_all()
     emit({"phase": "build", "ok": True, "seconds": time.time() - t0,
-          "ptxas": {k: [ln.strip() for ln in v.splitlines() if "Used" in ln]
+          "ptxas": {k: [ln.strip() for ln in v.splitlines()
+                        if "Used" in ln or "C75" in ln
+                        or ("spill" in ln and not ln.strip().startswith("0 bytes"))]
                     for k, v in build.ptxas_log.items()}})
     entry = phase_kernel(torch, event_topk)
     k1_entry = phase_kernel_k1(torch, fedavg_reduce)

@@ -3599,7 +3599,7 @@ def phase_kernel_k4_bwd(torch, k4):
     if not all(torch.equal(a, b) for other in again for a, b in zip(first, other)):
         raise AssertionError("K4 bwd: three launches at the training shape differ bitwise")
     k4.bwd_launches = 0
-    plan = k4.bwd_plan(*main)
+    plan = k4.bwd_plan(*main, sms=torch.cuda.get_device_properties(0).multi_processor_count)
     emit({"phase": "kernel_k4_bwd", "ok": True, "cases": len(cases), "shape": list(main),
           "dtype": "bfloat16", "layout": "model", **entry, "device_ms": dev_ms,
           "library_device_ms": device_ms(torch, lib), "gflop": ops / 1e9,
@@ -3607,6 +3607,7 @@ def phase_kernel_k4_bwd(torch, k4):
           "mma_sync_design": K4_BWD_MMA_SYNC_MS,
           "workspace_bytes": plan.workspace_bytes,
           "plan": {"kv_items": plan.kv_items, "q_items": plan.q_items,
+                   "kv_grid": plan.kv_grid, "q_grid": plan.q_grid,
                    "kv_smem": plan.kv_smem, "q_smem": plan.q_smem,
                    "kv_queries_a_step": plan.kv_queries, "q_keys_a_step": plan.q_keys},
           "training_shape_launches_bitwise": 3,
@@ -3729,8 +3730,9 @@ def phase_lm_train(torch, k4):
               "k4_bwd_ms_per_step": {n: sum(v for key, v in by_name.items() if n in key) / 2
                                      for n in K4_BWD_KERNELS},
               # each backward kernel's device time a launch at the training
-              # shape (kernel_k4_bwd's own profile, late in the script, kept
-              # no kernel record; this one keeps all)
+              # shape: a profile of five backward calls inside kernel_k4_bwd,
+              # late in the script, kept no kernel record (with acc_events,
+              # and held 0.5 s longer on each side); this one keeps all
               "k4_bwd_device_ms_a_launch": {
                   n: sum(v for key, v in by_name.items() if n in key) / (2 * L)
                   for n in K4_BWD_KERNELS},

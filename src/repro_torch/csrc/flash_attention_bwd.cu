@@ -48,8 +48,9 @@
 // group gives its registers away with setmaxnreg, and two consumer
 // warpgroups) and take their work items longest first: the host's plan
 // (kernels/flash_attention.py::bwd_plan) sorts the key tiles and the query
-// tiles by the length of their walks into `order`, and the CTAs take items
-// in rounds that alternate direction. Each consumer issues a step's S and
+// tiles by the length of their walks into `order` and sets each grid to
+// min(items, the card's SMs), and the CTAs take items in rounds that
+// alternate direction. Each consumer issues a step's S and
 // dP products behind the previous step's dV and dK (dQ) products, so the
 // tensor cores stay fed while it computes P; the element mask runs only on
 // tiles that the diagonal, a window edge, a chunk boundary or S cut, and a
@@ -225,7 +226,8 @@ __device__ __forceinline__ int round_item(int r, int total) {
 // dK/dV: keys [kmin, kmin + 63] of one warpgroup against queries
 // [q0, q0 + bm - 1]: no allowed pair (skip), some (element mask), or all
 // (clean; a padded query row past S has P = 0 from its +inf lse). kind is 0
-// when window is 0. kernels/flash_attention.py::kv_state mirrors it.
+// when window is 0. tests/test_torch_flash_attention_bwd.py::kv_state
+// mirrors it.
 __device__ __forceinline__ int kv_state(int q0, int bm, int kmin, int S, int kind, int w) {
   if (kmin > S - 1) return kSkip;
   const int kmax = kmin + 63, qb = min(q0 + bm - 1, S - 1);
@@ -237,7 +239,7 @@ __device__ __forceinline__ int kv_state(int q0, int bm, int kmin, int S, int kin
 }
 
 // dQ: queries [qa, qa + 63] of one warpgroup against keys [kt, kt + bn - 1];
-// kernels/flash_attention.py::dq_state mirrors it
+// tests/test_torch_flash_attention_bwd.py::dq_state mirrors it
 __device__ __forceinline__ int dq_state(int kt, int bn, int qa, int S, int kind, int w) {
   if (qa > S - 1) return kSkip;
   const int qb = min(qa + 63, S - 1), lo = max(qa, kt);
@@ -924,8 +926,9 @@ int map_4d(CUtensorMap* map, const void* p, int B, int Hk, int S, int D, const l
 
 template <int D>
 int launch_wgmma(cudaStream_t st, const void* q, const void* k, const void* v, const void* o,
-                 const void* dout, const float* lse, float* ws, const int* order, void* dq,
-                 void* dk, void* dv, int B, const BwdGeom& gm, const long long* strides) {
+                 const void* dout, const float* lse, float* ws, const int* order, int kv_grid,
+                 int q_grid, void* dq, void* dk, void* dv, int B, const BwdGeom& gm,
+                 const long long* strides) {
   using C = BwdCfg<D>;
   using bf = __nv_bfloat16;
   const int S = gm.S, Hk = gm.Hk, G = gm.G;
@@ -934,6 +937,8 @@ int launch_wgmma(cudaStream_t st, const void* q, const void* k, const void* v, c
   const long long kv_total = static_cast<long long>(B) * Hk * n_t;
   const long long q_total = static_cast<long long>(B) * Hk * G * n_t;
   if (q_total > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  if (kv_grid < 1 || kv_grid > kv_total || q_grid < 1 || q_grid > q_total)
+    return cudaErrorInvalidConfiguration;
   float* lse2 = ws;
   float* dl = ws + n_rows;
   {
@@ -969,16 +974,14 @@ int launch_wgmma(cudaStream_t st, const void* q, const void* k, const void* v, c
   wg.dq_b = gm.dq_b; wg.dq_h = gm.dq_h; wg.dq_g = gm.dq_g; wg.dq_s = gm.dq_s;
   wg.dk_b = gm.dk_b; wg.dk_h = gm.dk_h; wg.dk_s = gm.dk_s;
   wg.dv_b = gm.dv_b; wg.dv_h = gm.dv_h; wg.dv_s = gm.dv_s;
-  const int sms = num_sms();
   cudaError_t err = set_smem(dkdv_wgmma_kernel<D>, C::KV_SMEM);
   if (err != cudaSuccess) return err;
-  dkdv_wgmma_kernel<D><<<static_cast<unsigned>(kv_total < sms ? kv_total : sms), kThreads,
-                         C::KV_SMEM, st>>>(kq, kdo, kk, kv, static_cast<bf*>(dk),
-                                           static_cast<bf*>(dv), wg);
+  dkdv_wgmma_kernel<D><<<kv_grid, kThreads, C::KV_SMEM, st>>>(
+      kq, kdo, kk, kv, static_cast<bf*>(dk), static_cast<bf*>(dv), wg);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = set_smem(dq_wgmma_kernel<D>, C::Q_SMEM)) != cudaSuccess) return err;
-  dq_wgmma_kernel<D><<<static_cast<unsigned>(q_total < sms ? q_total : sms), kThreads,
-                       C::Q_SMEM, st>>>(qq, qdo, qk, qv, static_cast<bf*>(dq), wg);
+  dq_wgmma_kernel<D><<<q_grid, kThreads, C::Q_SMEM, st>>>(qq, qdo, qk, qv,
+                                                          static_cast<bf*>(dq), wg);
   return cudaGetLastError();
 }
 
@@ -1039,11 +1042,13 @@ extern "C" int flash_attention_bwd_config(int D, int* out) {
 // shape (Dl), order is unused. dtype 1 (bf16; every stride but the last a
 // positive multiple of 8 elements, base pointers 16-byte aligned): ws is f32
 // scratch of 2 B Hk G s_pad (s_pad = S rounded up to 128), order the plan's
-// int32 key tiles then query tiles, on the device.
+// int32 key tiles then query tiles, on the device, and kv_grid, q_grid the
+// plan's persistent grids (1 to the kernel's work items each).
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* o, const void* dout, const float* lse,
-                                          float* ws, const int* order, void* dq, void* dk,
-                                          void* dv, int B, int Hk, int G, int S, int D,
+                                          float* ws, const int* order, int kv_grid,
+                                          int q_grid, void* dq, void* dk, void* dv, int B,
+                                          int Hk, int G, int S, int D,
                                           const long long* st, float scale, int kind,
                                           int window, int dtype, void* stream) {
   BwdGeom gm;
@@ -1064,9 +1069,15 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
   if (dtype == 1) {
     if (order == nullptr) return cudaErrorInvalidValue;
     switch (D) {
-      case 32: return launch_wgmma<32>(s, q, k, v, o, dout, lse, ws, order, dq, dk, dv, B, gm, st);
-      case 64: return launch_wgmma<64>(s, q, k, v, o, dout, lse, ws, order, dq, dk, dv, B, gm, st);
-      default: return launch_wgmma<128>(s, q, k, v, o, dout, lse, ws, order, dq, dk, dv, B, gm, st);
+      case 32:
+        return launch_wgmma<32>(s, q, k, v, o, dout, lse, ws, order, kv_grid, q_grid, dq, dk,
+                                 dv, B, gm, st);
+      case 64:
+        return launch_wgmma<64>(s, q, k, v, o, dout, lse, ws, order, kv_grid, q_grid, dq, dk,
+                                 dv, B, gm, st);
+      default:
+        return launch_wgmma<128>(s, q, k, v, o, dout, lse, ws, order, kv_grid, q_grid, dq, dk,
+                                 dv, B, gm, st);
     }
   }
   if ((S + 31) / 32 > 65535) return cudaErrorInvalidConfiguration;

@@ -3,9 +3,8 @@
 Each source compiles with ``nvcc`` into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), loaded with
 ``ctypes``. Libraries are cached under ``src/repro_torch/_build`` (listed
-in ``.gitignore``) by a hash of the source, the shared headers it includes
-(``HEADERS``) and the flags, so a rebuilt source never loads a stale
-library. ``build_all`` starts one ``nvcc`` per
+in ``.gitignore``) by a hash of the source, the shared headers and the
+flags, so a rebuilt source never loads a stale library. ``build_all`` starts one ``nvcc`` per
 source at once and waits for all of them.
 
 Nothing here runs at import: this module imports on machines without
@@ -31,14 +30,6 @@ SOURCES = {"event_topk": CSRC / "event_topk.cu",
            "flash_decode": CSRC / "flash_decode.cu",
            "aoi_topk": CSRC / "aoi_topk.cu",
            "ssd_scan": CSRC / "ssd_scan.cu"}
-# the shared headers of csrc that each source includes
-HEADERS = {"event_topk": ("radix_topk.cuh",),
-           "fedavg_reduce": (),
-           "flash_attention": ("hopper.cuh",),
-           "flash_attention_bwd": ("hopper.cuh",),
-           "flash_decode": ("mma_tiles.cuh",),
-           "aoi_topk": ("radix_topk.cuh",),
-           "ssd_scan": ("mma_tiles.cuh",)}
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -65,11 +56,11 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    """The library's path, named by a hash of the source, the headers it
-    includes and the flags."""
+    """The library's path, named by a hash of the source, the shared
+    headers of ``csrc`` and the flags."""
     digest = hashlib.sha256(SOURCES[name].read_bytes())
-    for header in HEADERS.get(name, ()):
-        digest.update((CSRC / header).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -37,9 +37,9 @@ sees the keys in a fixed order, so the GQA sum needs no atomics) and a dQ
 kernel (a work item is 128 queries of one head), both persistent,
 warp-specialised and on ``wgmma`` with TMA rings, as the forward. f32 is
 plain FMA. ``bwd_plan`` is the bf16 route's schedule (tile sizes, the work
-items longest first, grids, shared memory, workspace), which the kernels
-read, and ``emulate_bwd`` replays it on CPU tensors for the tests. Bound:
-10 D flops per head per causal pair (2.5 times the forward's).
+items longest first, grids on the card's SMs, shared memory, workspace):
+the kernels take its order and grids. Bound: 10 D flops per head per
+causal pair (2.5 times the forward's).
 
 ``flash_attention(q, k, v, scale=, kind=, window=, block_q=, block_k=)`` is
 the wrapper, with the reference's signature. Without autograd (and outside
@@ -65,8 +65,6 @@ import math
 from typing import NamedTuple
 
 import torch
-
-from repro_torch.kernels.radix_topk import SMS  # the kernels size their grids by the card's own
 
 launches = 0  # forward kernel calls
 bwd_launches = 0  # backward kernel calls
@@ -167,7 +165,8 @@ def _bwd_launcher():
             raise RuntimeError(f"csrc/flash_attention_bwd.cu's tiles at D={D} are "
                                f"{tuple(out)}, bwd_plan's {_bwd_tiles(D)}")
     fn = lib.flash_attention_bwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + [
+        ctypes.c_int] * 5 + [
         ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -179,7 +178,6 @@ def _bwd_launcher():
 BWD_KEYS = 128  # keys a dK/dV work item: 64 a consumer warpgroup
 BWD_ROWS = 128  # queries a dQ work item: 64 a consumer warpgroup
 BWD_PAD = 128  # the workspace's rows: S rounded up to this
-SKIP, MASKED, CLEAN = 0, 1, 2  # a warpgroup's share of one step
 
 
 def _round1024(x: int) -> int:
@@ -221,33 +219,6 @@ def _last_query(k: int, S: int, kind: int, w: int) -> int:
     return S - 1
 
 
-def kv_state(q0: int, bm: int, kmin: int, S: int, kind: int, w: int) -> int:
-    """The dK/dV kernel's ``kv_state``: keys [kmin, kmin + 63] of one
-    warpgroup against queries [q0, q0 + bm - 1]: SKIP (no allowed pair),
-    MASKED (the element mask runs) or CLEAN (every pair allowed; a query
-    row past S has P = 0 from its +inf lse)."""
-    if kmin > S - 1:
-        return SKIP
-    kmax, qb = kmin + 63, min(q0 + bm - 1, S - 1)
-    if max(q0, kmin) > min(qb, _last_query(min(kmax, S - 1), S, kind, w)):
-        return SKIP
-    clean = (kmax <= q0 and (kind != 1 or kmin > qb - w)
-             and (kind != 2 or kmin // w == qb // w))
-    return CLEAN if clean else MASKED
-
-
-def dq_state(kt: int, bn: int, qa: int, S: int, kind: int, w: int) -> int:
-    """The dQ kernel's ``dq_state``: queries [qa, qa + 63] of one warpgroup
-    against keys [kt, kt + bn - 1]."""
-    if qa > S - 1:
-        return SKIP
-    qb, lo = min(qa + 63, S - 1), max(qa, kt)
-    if lo > qb or _first_key(lo, kind, w) > kt + bn - 1:
-        return SKIP
-    clean = kt + bn - 1 <= qa and _first_key(qb, kind, w) <= kt
-    return CLEAN if clean else MASKED
-
-
 class BwdPlan(NamedTuple):
     """One bf16 backward call's schedule. ``kv_order`` lists the key tiles
     (of ``kv_keys``) and ``q_order`` the query tiles (of ``q_rows``) longest
@@ -276,40 +247,36 @@ class BwdPlan(NamedTuple):
     q_order: tuple
     kv_items: int
     q_items: int
-    kv_grid: int
+    kv_grid: int  # persistent CTAs a kernel: min(its items, the card's SMs)
     q_grid: int
     workspace_bytes: int  # lse * log2(e) and D, f32 (B Hk G, s_pad) each
     launches: int  # kernels a call: the pre-pass, dK/dV, dQ
 
 
-def kv_walk(plan: BwdPlan, kt: int) -> list:
-    """(q0, (state of keys 0-63, state of keys 64-127)) for each query tile
-    of key tile ``kt``'s walk, in the kernel's order: from the last tile
-    down, each taken for every query head g in turn (G steps a tile)."""
+def kv_walk(plan: BwdPlan, kt: int) -> range:
+    """The first query of each query tile of key tile ``kt``'s walk, in the
+    kernel's order: from the last tile that sees its keys down, each taken
+    for every query head g in turn (G steps a tile)."""
     k0, bm = kt * plan.kv_keys, plan.kv_queries
     q_last = _last_query(min(k0 + plan.kv_keys - 1, plan.S - 1), plan.S, plan.kind,
                          plan.window)
-    return [(q0, tuple(kv_state(q0, bm, k0 + 64 * cw, plan.S, plan.kind, plan.window)
-                       for cw in (0, 1)))
-            for q0 in range(q_last // bm * bm, k0 - 1, -bm)]
+    return range(q_last // bm * bm, k0 - 1, -bm)
 
 
-def dq_walk(plan: BwdPlan, qt: int) -> list:
-    """(kt, (state of queries 0-63, state of queries 64-127)) for each step
-    of query tile ``qt``'s walk."""
+def dq_walk(plan: BwdPlan, qt: int) -> range:
+    """The first key of each step of query tile ``qt``'s walk."""
     q0, bn = qt * plan.q_rows, plan.q_keys
     k_first = _first_key(q0, plan.kind, plan.window) // bn * bn
     k_last = min(q0 + plan.q_rows - 1, plan.S - 1)
-    return [(kt, tuple(dq_state(kt, bn, q0 + 64 * cw, plan.S, plan.kind, plan.window)
-                       for cw in (0, 1)))
-            for kt in range(k_first, k_last // bn * bn + 1, bn)]
+    return range(k_first, k_last // bn * bn + 1, bn)
 
 
 @functools.lru_cache(maxsize=256)
 def bwd_plan(B: int, Hk: int, G: int, S: int, D: int, kind: str = "full", window: int = 0,
-             sms: int = SMS) -> BwdPlan:
+             *, sms: int) -> BwdPlan:
     """The bf16 backward's schedule at (B, Hk, G, S, D) under a mask, on a
-    card of ``sms`` SMs."""
+    card of ``sms`` SMs (one persistent CTA per SM, fewer when there are
+    fewer work items)."""
     if D not in HEAD_DIMS:
         raise ValueError(f"the K4 backward takes head dims {HEAD_DIMS}, got {D}")
     kn, bm, kv_stages, kv_smem, qn, bn, q_stages, q_smem, pad = _bwd_tiles(D)
@@ -332,73 +299,6 @@ def _order_on(order: tuple, device: torch.device) -> torch.Tensor:
     """A plan's tile order as an int32 tensor on ``device``, made once per
     schedule (the kernels read it; no call copies it again)."""
     return torch.tensor(order, dtype=torch.int32, device=device)
-
-
-def emulate_bwd(q, k, v, out, lse, dout, *, scale, kind="full", window=0):
-    """The bf16 route's schedule on CPU tensors: ``bwd_plan``'s work items
-    and steps (a SKIP share computes nothing, a CLEAN one runs no element
-    mask), f32 sums in the kernels' order (dK, dV over the query tiles of a
-    key tile's walk, last first, and the heads at each; dQ over its key
-    tiles), P and dS rounded to q's dtype as the products' operands,
-    P = exp2(s * scale * log2 e - lse * log2 e). Returns (dq, dk, dv) in
-    q's, k's and v's dtypes."""
-    B, Hk, G, S, D = q.shape
-    plan = bwd_plan(B, Hk, G, S, D, kind, window)
-    dt, pad = q.dtype, plan.s_pad - S
-    c = torch.tensor(scale * LOG2E, dtype=torch.float32)
-    qf, dof = (torch.nn.functional.pad(t.float(), (0, 0, 0, pad)) for t in (q, dout))
-    kf, vf = (torch.nn.functional.pad(t.float(), (0, 0, 0, pad)) for t in (k, v))
-    inf = torch.full((B, Hk, G, pad), math.inf)
-    lse2 = torch.cat([lse.float() * torch.tensor(LOG2E, dtype=torch.float32), inf], -1)
-    dl = torch.nn.functional.pad((dout.float() * out.float()).sum(-1), (0, pad))
-    mask = _mask(plan.s_pad, kind, window, "cpu")  # [query, key]
-
-    dk = torch.zeros(B, Hk, plan.s_pad, D)
-    dv = torch.zeros(B, Hk, plan.s_pad, D)
-    bm = plan.kv_queries
-    for kt in plan.kv_order:
-        for b in range(B):
-            for h in range(Hk):
-                for cw in (0, 1):
-                    ks = slice(kt * plan.kv_keys + 64 * cw, kt * plan.kv_keys + 64 * cw + 64)
-                    K, V = kf[b, h, ks], vf[b, h, ks]
-                    dK, dV = torch.zeros(64, D), torch.zeros(64, D)
-                    for q0, states in kv_walk(plan, kt):
-                        if states[cw] == SKIP:
-                            continue
-                        for g in range(G):
-                            qs = slice(q0, q0 + bm)
-                            Q, dO = qf[b, h, g, qs], dof[b, h, g, qs]
-                            p = torch.exp2(K @ Q.T * c - lse2[b, h, g, qs])
-                            if states[cw] == MASKED:
-                                p = torch.where(mask[qs, ks].T, p, 0.0)
-                            ds = p * (V @ dO.T - dl[b, h, g, qs])
-                            dV += p.to(dt).float() @ dO
-                            dK += ds.to(dt).float() @ Q
-                    dk[b, h, ks], dv[b, h, ks] = dK * scale, dV
-
-    dq = torch.zeros(B, Hk, G, plan.s_pad, D)
-    bn = plan.q_keys
-    for qt in plan.q_order:
-        for b in range(B):
-            for h in range(Hk):
-                for g in range(G):
-                    for cw in (0, 1):
-                        qs = slice(qt * plan.q_rows + 64 * cw, qt * plan.q_rows + 64 * cw + 64)
-                        Q, dO = qf[b, h, g, qs], dof[b, h, g, qs]
-                        dQ = torch.zeros(64, D)
-                        for kt, states in dq_walk(plan, qt):
-                            if states[cw] == SKIP:
-                                continue
-                            ks = slice(kt, kt + bn)
-                            K, V = kf[b, h, ks], vf[b, h, ks]
-                            p = torch.exp2(Q @ K.T * c - lse2[b, h, g, qs, None])
-                            if states[cw] == MASKED:
-                                p = torch.where(mask[qs, ks], p, 0.0)
-                            ds = p * (dO @ V.T - dl[b, h, g, qs, None])
-                            dQ += ds.to(dt).float() @ K
-                        dq[b, h, g, qs] = dQ * scale
-    return dq[..., :S, :].to(q.dtype), dk[:, :, :S].to(k.dtype), dv[:, :, :S].to(v.dtype)
 
 
 def _check(q, k, v, kind, block_q, block_k):
@@ -503,12 +403,14 @@ def _backward(q, k, v, out, lse, dout, scale, kind, window):
     dk, dv = (torch.empty((B, S, Hk, D), dtype=t.dtype, device=q.device).permute(0, 2, 1, 3)
               for t in (k, v))
     if q.dtype == torch.bfloat16:
-        plan = bwd_plan(B, Hk, G, S, D, kind, int(window))
+        plan = bwd_plan(B, Hk, G, S, D, kind, int(window),
+                        sms=torch.cuda.get_device_properties(q.device).multi_processor_count)
         ws = torch.empty(plan.workspace_bytes // 4, dtype=torch.float32, device=q.device)
         order = _order_on(plan.kv_order + plan.q_order, q.device).data_ptr()
+        grids = plan.kv_grid, plan.q_grid
     else:  # the FMA route: D = rowsum(dO * O) of lse's shape
         ws = torch.empty((B, Hk, G, S), dtype=torch.float32, device=q.device)
-        order = None
+        order, grids = None, (0, 0)
     strides = (ctypes.c_longlong * 28)(
         *q.stride()[:4], *k.stride()[:3], *v.stride()[:3], *out.stride()[:4],
         *dout.stride()[:4], *dq.stride()[:4], *dk.stride()[:3], *dv.stride()[:3])
@@ -516,7 +418,7 @@ def _backward(q, k, v, out, lse, dout, scale, kind, window):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 dout.data_ptr(), lse.data_ptr(), ws.data_ptr(), order, dq.data_ptr(),
+                 dout.data_ptr(), lse.data_ptr(), ws.data_ptr(), order, *grids, dq.data_ptr(),
                  dk.data_ptr(), dv.data_ptr(), B, Hk, G, S, D, strides, float(scale),
                  KINDS[kind], int(window), DTYPES[q.dtype], stream)
     _err("flash_attention_bwd", err)

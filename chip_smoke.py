@@ -3869,6 +3869,400 @@ def phase_fl_lm(torch, event_topk, fedavg_reduce):
     return out["sync"]["k1_launches"], out["async"]["k2_launches"]
 
 
+# ---------------------------------------------------------------------------
+# slice G2b: Mamba2 training (K6's backward, sgd_train_step, the train driver
+# and both FL drivers on mamba2)
+# ---------------------------------------------------------------------------
+
+SSM_TRAIN_STEPS = 5
+SSM_TRAIN_LR = 3e-3
+# the K6 backward against the plain backward, of each gradient's max: f32
+# inputs; f32 outputs (ddt, dA, dh0) of bf16 inputs; outputs written in bf16
+# (dx, dB, dC: one bf16 rounding, 2^-9 of the value at most, and the f32
+# work's share), as tests/test_torch_ssd_scan_bwd.py settles them on the CPU
+K6_BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-3, "bf16_out": 2.0 ** -8}
+K6_BWD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dh0")
+K6_BWD_KERNELS = ("ssd_bwd_dstate_kernel", "ssd_bwd_pass_kernel", "ssd_bwd_chunk_kernel",
+                  "ssd_bwd_sum_kernel")
+SSM_TRAIN_ARGV = [SSM_ARCH if a == LM_ARCH else a for a in TRAIN_ARGV]
+FL_SSM_SYNC_ARGV = [SSM_ARCH if a == LM_ARCH else a for a in FL_LM_SYNC_ARGV]
+FL_SSM_ASYNC_ARGV = [SSM_ARCH if a == LM_ARCH else a for a in FL_LM_ASYNC_ARGV]
+
+
+def _k6_bwd_tol(name, dt) -> float:
+    if str(dt) == "torch.bfloat16" and name in ("dx", "dB", "dC"):
+        return K6_BWD_TOL["bf16_out"]
+    return K6_BWD_TOL[str(dt)[6:]]
+
+
+def _ssd_flops(B, S, nh, hd, ds, L):
+    """(forward, backward) flops the chunked scan needs at this shape: the
+    causal pairs' products (CB once per (batch, chunk), no head axis) and
+    the (L x hd x ds) state products of each (batch, head, chunk)."""
+    nc, pairs = S // L, L * (L + 1) // 2
+    cb = B * nc * pairs * 2 * ds
+    fwd = cb + B * nh * nc * (pairs * 2 * hd + 4 * L * hd * ds)
+    bwd = cb + B * nh * nc * (pairs * 2 * (2 * ds + 2 * hd) + 8 * L * hd * ds)
+    return fwd, bwd
+
+
+def phase_kernel_k6_bwd(torch, k6):
+    """K6's backward (``csrc/ssd_scan_bwd.cu``) against
+    ``ssd_chunked_bwd_plain`` on the card, TF32 off: mamba2-370m's training
+    shape (4, 2048, 32, 64, 128), chunk 256, bf16 strided slices of the
+    conv output; f32 and bf16 at (hd, ds) = (32, 16), (64, 64), (64, 128),
+    chunks 16, 64, 100 (S = 200) and 256, each with h0 and dh_final absent
+    and present; and a case whose sum dt |A| over a chunk passes exp's f32
+    range. The plain side gets only what it computes itself: its h_in from
+    the plain forward; the kernel forward's h_in is held to it at K6_TOL,
+    its y bitwise to the forward without h_in (and with A one row per
+    batch row at the training shape). Gradients within K6_BWD_TOL of each
+    gradient's max, finite, two launches bitwise equal; the time beside its
+    bound, the FMA schedule's and the plain backward's."""
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, S = TRAIN_SHAPE
+    main = (B, S, 32, 64, 128)  # mamba2-370m: 32 heads of 64, d_state 128
+    cases = [(main, 256, bf16, True, False)]
+    cases += [((2, 200 if L == 100 else 2 * max(L, 32), 4, hd, ds), L, dt_, dt_ is bf16, False)
+              for dt_ in (f32, bf16) for hd, ds in ((32, 16), (64, 64), (64, 128))
+              for L in (16, 64, 100, 256)]
+    # sum dt |A| over a chunk: 256 * 0.05 * 16 = 205, past exp's f32 range
+    cases += [((1, 512, 4, 64, 64), 256, f32, True, True)]
+    errs = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's einsums in f32
+    try:
+        for shape, L, dt_, strided, overflow in cases:
+            x, dt, A, B_, C_ = _ssd_inputs(torch, gen, shape, dt_, strided)
+            if overflow:
+                dt, A = torch.full_like(dt, 0.05), torch.full_like(A, -16.0)
+            Bx, _, nh, hd, ds = shape
+            dy = torch.randn(x.shape, generator=gen, device="cuda")
+            h0, dhf = (torch.randn((Bx, nh, hd, ds), generator=gen, device="cuda")
+                       for _ in range(2))
+            for init, dh in ((None, None), (h0, dhf)):
+                name = (f"{shape}_L{L}_{str(dt_)[6:]}{'_h0_dhf' if dh is not None else ''}"
+                        f"{'_overflow' if overflow else ''}")
+                y, _, h_in = k6.ssd_scan_with_h_in(x, dt, A, B_, C_, L, init)
+                if not torch.equal(y, k6.ssd_scan(x, dt, A, B_, C_, L, init)[0]):
+                    raise AssertionError(f"K6 {name}: y's bits move with h_in")
+                _, _, h_plain = k6.ssd_chunked_plain(x, dt, A, B_, C_, L, init,
+                                                     return_h_in=True)
+                if not torch.allclose(h_in, h_plain, atol=K6_TOL, rtol=K6_TOL):
+                    raise AssertionError(f"K6 {name}: h_in off the plain forward's by "
+                                         f"{float((h_in - h_plain).abs().max())}")
+                grads = k6.ssd_scan_bwd(x, dt, A, B_, C_, L, h_plain, dy, dh)
+                again = k6.ssd_scan_bwd(x, dt, A, B_, C_, L, h_plain, dy, dh)
+                plain = k6.ssd_chunked_bwd_plain(x, dt, A.expand(Bx, nh), B_, C_, L, h_plain,
+                                                 dy, dh)
+                torch.cuda.synchronize()
+                errs[name] = {"h_in_abs": float((h_in - h_plain).abs().max())}
+                for g_name, g, a, p in zip(K6_BWD_GRADS, grads, again, plain):
+                    if not torch.equal(g, a):
+                        raise AssertionError(f"K6 bwd {name}: {g_name} launches differ bitwise")
+                    if not (bool(torch.isfinite(g).all()) and bool(torch.isfinite(p).all())):
+                        raise AssertionError(f"K6 bwd {name}: {g_name} not finite")
+                    errs[name][g_name] = _rel_err(g, p)
+                    if errs[name][g_name] > _k6_bwd_tol(g_name, dt_):
+                        raise AssertionError(
+                            f"K6 bwd {name}: {g_name} off its plain version by "
+                            f"{errs[name][g_name]} of its max (tol {_k6_bwd_tol(g_name, dt_)})")
+                del plain, grads, again
+
+        # timing at the training shape, in the model's layout
+        x, dt, A, B_, C_ = _ssd_inputs(torch, gen, main, bf16)
+        Bm, Sm, nh, hd, ds = main
+        rows = A.expand(Bm, nh).contiguous()  # A as one row per batch row: the same bits
+        if not torch.equal(k6.ssd_scan(x, dt, A, B_, C_, 256)[0],
+                           k6.ssd_scan(x, dt, rows, B_, C_, 256)[0]):
+            raise AssertionError("K6: y's bits move with A given one row per batch row")
+        dy = torch.randn(x.shape, generator=gen, device="cuda")
+        _, _, h_in = k6.ssd_scan_with_h_in(x, dt, A, B_, C_, 256)
+        run = lambda: k6.ssd_scan_bwd(x, dt, A, B_, C_, 256, h_in, dy)  # noqa: E731
+        plain = lambda: k6.ssd_chunked_bwd_plain(x, dt, A.expand(Bm, nh), B_, C_,  # noqa: E731
+                                                 256, h_in, dy)
+        L, nc = 256, Sm // 256
+        _, ops = _ssd_flops(Bm, Sm, nh, hd, ds, L)
+        nb = L // 64
+        # the kernel's schedule: f32 FMA on whole 64 x 64 blocks, CB per head
+        fma_ops = Bm * nh * nc * (8 * L * hd * ds + nb * (nb + 1) // 2 * 2 * 64 * 64
+                                  * (3 * ds + 2 * hd))
+        n_state = Bm * nh * nc * hd * ds
+        nbytes = (2 * x.numel() + 4 * B_.numel()) * 2 \
+            + (2 * dt.numel() + nh + Bm * nh + x.numel() + n_state + Bm * nh * hd * ds) * 4
+        # the workspace: each chunk's term written, read and its dH_out
+        # written and read; the per-head dB and dC partials written and read
+        ws_bytes = 4 * n_state * 4 + 2 * 2 * Bm * nh * Sm * ds * 4
+        k6.bwd_launches = 0
+        bound_s = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S)
+        first = run()
+        torch.cuda.synchronize()
+        entry = {
+            "name": "ssd_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:75",
+            "max_abs_err": max(float((g.float() - p.float()).abs().max())
+                               for g, p in zip(first, plain())),
+            "ms": cuda_ms(torch, run, calls=10, trials=5),
+            "plain_ms": cuda_ms(torch, plain, calls=2, trials=3, warmup=1),
+            "bound_ms": bound_s * 1e3,
+            "bound_by": "operations" if ops / BF16_OPS_PER_S > nbytes / HBM_BYTES_PER_S
+            else "bytes",
+            "library_ms": None,  # no single PyTorch call computes the scan's backward
+        }
+        dev_ms = device_ms(torch, run)
+        k6.bwd_launches = 0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    emit({"phase": "kernel_k6_bwd", "ok": True, "cases": len(errs), "shape": list(main),
+          "chunk": 256, "dtype": "bfloat16", "inputs": "strided slices of (B, S, 2304)",
+          "tolerance_rel_to_max": K6_BWD_TOL, "h_in_tolerance": K6_TOL, **entry,
+          "device_ms": dev_ms, "gflop": ops / 1e9, "fma_gflop": fma_ops / 1e9,
+          "mbytes": nbytes / 1e6, "workspace_mbytes": ws_bytes / 1e6,
+          "fma_bound_ms": max(nbytes / HBM_BYTES_PER_S, fma_ops / FP32_OPS_PER_S) * 1e3,
+          "workspace_bound_ms": max((nbytes + ws_bytes) / HBM_BYTES_PER_S,
+                                    ops / BF16_OPS_PER_S) * 1e3,
+          "device_fma_tflops": fma_ops / (dev_ms * 1e-3) / 1e12,
+          "share_of_bound": bound_s * 1e3 / dev_ms, "launches_bitwise": 2,
+          "forward_bits_kept_with_h_in": True, "forward_bits_kept_with_a_rows": True,
+          "rel_err_by_case": errs})
+    return entry
+
+
+def phase_ssm_train(torch, k6):
+    """mamba2-370m at full width and depth (48 layers, bf16, weights from
+    seed 0) trained by ``model.sgd_train_step`` at (B, S) = TRAIN_SHAPE,
+    lr 3e-3, 5 steps, remat on: K6 forward 2 x 48 and backward 48 launches
+    a step, no plain scan (``ssd_chunked_plain``, ``ssd_chunked_bwd_plain``,
+    ``ssd_reference``), finite losses and params that moved, no host sync in
+    a step; ms a step, tokens/s, the share of the bf16 peak, device-busy
+    share, K6's backward's share of device time and each of its kernels'
+    device time a launch, peak memory with remat on and off."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models import factory
+    from repro_torch.models import ssm as ssm_mod
+
+    cfg = get_arch(SSM_ARCH)
+    model = factory.build(cfg)
+    L = cfg.num_layers
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    B, S = TRAIN_SHAPE
+    batches = _token_batches(torch, cfg.vocab_size, SSM_TRAIN_STEPS + 4, B, S)
+    lr = torch.full((), SSM_TRAIN_LR, device="cuda")
+    plain_calls = {}
+    restore = [_count_calls(k6, ["ssd_chunked_plain", "ssd_chunked_bwd_plain"], plain_calls),
+               _count_calls(ssm_mod, ["ssd_reference"], plain_calls)]
+    first = [t.clone() for t in tree_leaves(params)[:4]]
+    try:
+        per_step, losses = [], []
+        k6.launches = k6.bwd_launches = 0  # the path's counts: its SSM_TRAIN_STEPS steps
+        for i in range(SSM_TRAIN_STEPS):
+            f0, b0 = k6.launches, k6.bwd_launches
+            t0 = time.perf_counter()
+            params, metrics = model.sgd_train_step(params, batches[i], lr)
+            torch.cuda.synchronize()
+            per_step.append((time.perf_counter() - t0) * 1e3)
+            launched = (k6.launches - f0, k6.bwd_launches - b0)
+            if launched != (2 * L, L):
+                raise AssertionError(f"ssm_train: K6 forward/backward launched {launched} "
+                                     f"times in a step of {L} layers (want {(2 * L, L)})")
+            losses.append(float(metrics["loss"]))
+        counts = (k6.launches, k6.bwd_launches)
+        if plain_calls:
+            raise AssertionError(f"ssm_train: a plain scan ran: {plain_calls}")
+        state = {"p": params}
+
+        def step(i=SSM_TRAIN_STEPS):
+            state["p"], state["m"] = model.sgd_train_step(state["p"], batches[i], lr)
+
+        syncs = _syncs_in(torch, step)
+        if syncs:
+            raise AssertionError(f"ssm_train: a step synchronized: {syncs[:3]}")
+        union, window, by_name, _ = _profile(torch, lambda: step(SSM_TRAIN_STEPS + 1), 2)
+        params = state["p"]
+    finally:
+        for fn in restore:
+            fn()
+    leaves = tree_leaves(params)
+    if not (all(map(math.isfinite, losses)) and all(bool(torch.isfinite(t).all())
+                                                   for t in leaves)):
+        raise AssertionError(f"ssm_train: non-finite loss {losses} or params")
+    if all(torch.equal(a, b) for a, b in zip(first, leaves[:4])):
+        raise AssertionError("ssm_train: the params did not move")
+    peaks = {}
+    for remat in (True, False):
+        m = factory.build(cfg, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out, _ = m.sgd_train_step(params, batches[SSM_TRAIN_STEPS + 2], lr)
+        torch.cuda.synchronize()
+        peaks["remat" if remat else "no_remat"] = {
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "above_params_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
+        del out
+    k6.launches = k6.bwd_launches = 0
+    bwd_share = sum(_share(by_name, n) for n in K6_BWD_KERNELS)
+    if not bwd_share > 0:
+        raise AssertionError(f"ssm_train: no device time under K6's backward kernels "
+                             f"{K6_BWD_KERNELS}")
+    ms = statistics.median(per_step[1:])  # step 0 warms up cuBLAS and the kernels
+    tokens = B * S
+    s = cfg.pattern[0].ssm
+    scan_fwd, scan_bwd = _ssd_flops(B, S, s.num_heads, s.head_dim, s.d_state, s.chunk)
+    flops = 6 * n_params * tokens + (scan_fwd + scan_bwd) * L
+    emit({"phase": "ssm_train", "ok": True, "arch": cfg.name, "layers": L,
+          "params": n_params, "batch": B, "seq": S, "steps": SSM_TRAIN_STEPS,
+          "lr": SSM_TRAIN_LR, "remat": True, "k6_launches_per_step": 2 * L,
+          "k6_bwd_launches_per_step": L, "plain_calls": 0, "host_syncs_in_a_step": 0,
+          "losses": losses, "ms_per_step": ms, "ms_per_step_all": per_step,
+          "first_step_ms": per_step[0], "tokens_per_s": tokens / ms * 1e3,
+          "model_tflops": flops / (ms * 1e-3) / 1e12,
+          "share_of_bf16_peak": flops / (ms * 1e-3) / BF16_OPS_PER_S,
+          "flops_counted": "6 N tokens + the scan's forward and backward per layer "
+                           "(causal pairs and state products; remat's recompute not "
+                           "counted)",
+          "profile_2_steps": {
+              "device_union_ms_per_step": union / 2, "window_ms_per_step": window / 2,
+              "device_busy_share": union / window,
+              "k6_share_of_device_time": _share(by_name, "ssd_") - bwd_share,
+              "k6_bwd_share_of_device_time": bwd_share,
+              "k6_bwd_ms_per_step": {n: sum(v for key, v in by_name.items() if n in key) / 2
+                                     for n in K6_BWD_KERNELS},
+              "k6_bwd_device_ms_a_launch": {
+                  n: sum(v for key, v in by_name.items() if n in key) / (2 * L)
+                  for n in K6_BWD_KERNELS},
+              "top": sorted(((round(v / 2, 4), n[:80]) for n, v in by_name.items()),
+                            reverse=True)[:10]},
+          "peak_memory": peaks,
+          "logits_note": "lm_loss keeps the full (4, 2048, 50280) f32 logits (1.65 GB): "
+                         "_vocab_chunk returns 0 at S = 2048"})
+    return counts
+
+
+def phase_ssm_grad_parity(torch, k6):
+    """The reduced mamba2 in f32 with TF32 off, from the same weights on the
+    card and on the CPU: ``model.loss`` gradients at S = 64 and 128 (K6
+    forward and backward on the card, the plain route on the CPU) within
+    1e-4 of each leaf's max, then one ``sgd_train_step``: the params
+    allclose (rtol 1e-5, atol 1e-6)."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.models import factory
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(SSM_ARCH).reduced()
+    model = factory.build(cfg)
+    weights = model.init(torch.Generator().manual_seed(0))  # on the CPU, then copied
+    rng = np.random.default_rng(0)
+    worst, f0, b0 = {}, k6.launches, k6.bwd_launches
+    for S in (64, 128):
+        toks = rng.integers(0, cfg.vocab_size, (2, S + 1)).astype(np.int32)
+        grads = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.detach().to(dev).requires_grad_(), weights)
+            t = torch.from_numpy(toks).to(dev)
+            loss, _ = model.loss(p, {"tokens": t[:, :-1], "labels": t[:, 1:]})
+            grads[dev] = [g.cpu() for g in torch.autograd.grad(loss, tree_leaves(p))]
+        worst[S] = max(_rel_err(a, b) for a, b in zip(grads["cuda"], grads["cpu"]))
+        if worst[S] > 1e-4:
+            raise AssertionError(f"ssm_grad_parity: S={S} gradients off the CPU's by "
+                                 f"{worst[S]} of a leaf's max")
+    launched = (k6.launches - f0, k6.bwd_launches - b0)
+    # remat: the forward twice a layer; two sequence lengths
+    if launched != (2 * 2 * cfg.num_layers, 2 * cfg.num_layers):
+        raise AssertionError(f"ssm_grad_parity: K6 launched {launched} times on the card")
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 129)).astype(np.int32))
+    new = {}
+    for dev in ("cpu", "cuda"):
+        t = toks.to(dev)
+        new[dev], _ = model.sgd_train_step(tree_map(lambda w: w.to(dev), weights),
+                                           {"tokens": t[:, :-1], "labels": t[:, 1:]}, 3e-3)
+    step_gap = max(float((a.cpu() - b).abs().max())
+                   for a, b in zip(tree_leaves(new["cuda"]), tree_leaves(new["cpu"])))
+    if not all(torch.allclose(a.cpu(), b, rtol=1e-5, atol=1e-6)
+               for a, b in zip(tree_leaves(new["cuda"]), tree_leaves(new["cpu"]))):
+        raise AssertionError(f"ssm_grad_parity: one SGD step off the CPU's by {step_gap}")
+    emit({"phase": "ssm_grad_parity", "ok": True, "arch": cfg.name, "batch": 2,
+          "k6_launches": launched, "grad_rel_err_by_seq": worst, "grad_tol": 1e-4,
+          "sgd_step_max_abs_gap": step_gap, "sgd_step_tol": {"rtol": 1e-5, "atol": 1e-6},
+          "tf32": False})
+
+
+def phase_fl_ssm(torch, event_topk, fedavg_reduce, k6):
+    """mamba2 as the federated workload and the train driver's own path:
+    ``fl_train --arch mamba2-370m`` at the paper's sync settings (10
+    rounds, K1 once a round) and ``fl_async --arch mamba2-370m`` at 16 384
+    clients and k = 256 (5 steps, K2 once a step), the clients' ``vmap(grad)``
+    through K6's forward and backward; finite losses. Then
+    ``launch/train.py --arch mamba2-370m`` at TRAIN_ARGV's settings: K6
+    forward twice and backward once a layer a step, the loss falls."""
+    import numpy as np
+
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import fl_async, fl_train, train
+
+    out = {"phase": "fl_ssm", "ok": True}
+    for name, driver, argv in (("sync", fl_train, FL_SSM_SYNC_ARGV),
+                               ("async", fl_async, FL_SSM_ASYNC_ARGV)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fedavg_reduce.launches = event_topk.launches = k6.launches = k6.bwd_launches = 0
+        t0 = time.time()
+        res = driver.main(argv)
+        wall = time.time() - t0
+        cfg = res.config
+        leaves = len(tree_leaves(res.params))
+        evals = [r.eval_loss for r in res.records]
+        trains = [r.train_loss for r in res.records if name == "sync" or r.buffer_fill > 0]
+        if not evals or not all(map(math.isfinite, evals + trains)):
+            raise AssertionError(f"fl_ssm {name}: non-finite losses {evals} {trains}")
+        if not (k6.launches > 0 and k6.bwd_launches > 0):
+            raise AssertionError(f"fl_ssm {name}: K6 launched {k6.launches} forward and "
+                                 f"{k6.bwd_launches} backward times")
+        if name == "sync":
+            per_call = -(-leaves // fedavg_reduce.MAX_LEAVES)
+            if fedavg_reduce.launches != cfg.rounds * per_call:
+                raise AssertionError(f"fl_ssm sync: K1 launched {fedavg_reduce.launches} "
+                                     f"times in {cfg.rounds} rounds of {leaves} leaves")
+        elif event_topk.launches != cfg.rounds:
+            raise AssertionError(f"fl_ssm async: K2 launched {event_topk.launches} times "
+                                 f"in {cfg.rounds} steps")
+        out[name] = {"argv": argv, "rounds": cfg.rounds, "param_leaves": leaves,
+                     "k1_launches": fedavg_reduce.launches, "k2_launches": event_topk.launches,
+                     "k6_launches": k6.launches, "k6_bwd_launches": k6.bwd_launches,
+                     "eval_loss": evals[-1], "first_eval_loss": evals[0], "wall_s": wall,
+                     "steps_per_s": cfg.rounds / res.wall_time_s,
+                     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k6.launches = k6.bwd_launches = 0
+    res = train.main(SSM_TRAIN_ARGV)
+    steps, layers = len(res["losses"]), res["cfg"].num_layers
+    launched = (k6.launches, k6.bwd_launches)
+    if launched != (2 * layers * steps, layers * steps):
+        raise AssertionError(f"fl_ssm train: K6 launched {launched} times in {steps} steps")
+    first, last = float(np.mean(res["losses"][:10])), float(np.mean(res["losses"][-10:]))
+    if not (math.isfinite(last) and last < first):
+        raise AssertionError(f"fl_ssm train: loss did not fall ({first} -> {last})")
+    out["train"] = {"argv": SSM_TRAIN_ARGV, "arch": res["cfg"].name,
+                    "d_model": res["cfg"].d_model, "layers": layers, "steps": steps,
+                    "k6_launches": launched[0], "k6_bwd_launches": launched[1],
+                    "initial_loss": first, "final_loss": last,
+                    "tokens_per_s": res["tokens_per_s"], "seconds": res["seconds"],
+                    "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    emit(out)
+    return (out["sync"]["k1_launches"], out["async"]["k2_launches"],
+            sum(out[n]["k6_launches"] for n in ("sync", "async", "train")),
+            sum(out[n]["k6_bwd_launches"] for n in ("sync", "async", "train")))
+
+
 def main() -> int:
     import torch
 
@@ -3934,11 +4328,20 @@ def main() -> int:
     k1, k2 = phase_fl_lm(torch, event_topk, fedavg_reduce)
     k1_entry["launches"] += k1
     entry["launches"] += k2
+    k6_bwd_entry = phase_kernel_k6_bwd(torch, ssd_scan)
+    fwd, k6_bwd_entry["launches"] = phase_ssm_train(torch, ssd_scan)
+    k6_entry["launches"] += fwd
+    phase_ssm_grad_parity(torch, ssd_scan)
+    k1, k2, fwd, bwd = phase_fl_ssm(torch, event_topk, fedavg_reduce, ssd_scan)
+    k1_entry["launches"] += k1
+    entry["launches"] += k2
+    k6_entry["launches"] += fwd
+    k6_bwd_entry["launches"] += bwd
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{key: e[key] for key in keys}
                       for e in (entry, k1_entry, k4_entry, k5_entry, k3_entry, k6_entry,
-                                bwd_entry)]})
+                                bwd_entry, k6_bwd_entry)]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True)

@@ -50,39 +50,22 @@
 // diagonal, every product an f32 FMA (f32 inputs are not exact in bf16,
 // and the reference's f32 tolerance is 1e-4): bound by its 21.5 GFLOP of
 // FMA work (0.32 ms at 67 TFLOP/s) at the shape above.
+//
+// For training, either route also writes the state entering each chunk in
+// f32 (ssd_pass_kernel has it in registers, the FMA kernel in shared memory
+// at the start of the chunk): ssd_scan_bwd.cu's input. A is (nh,) or, under
+// a vmapped cohort whose clients each have their own A, one row per batch
+// row, read through a batch stride. With no such output and an (nh,) A the
+// kernels compute what they computed without them, bit for bit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
 #include "mma_tiles.cuh"
+#include "ssd_common.cuh"
 
 namespace {
-
-constexpr int BLK = 64;       // rows and columns of a sub-block
-constexpr int THREADS = 256;  // a 16 x 16 thread grid
-constexpr int RB = BLK / 16;  // rows of a sub-block per thread
-
-struct Strides {
-  // element strides of x (b, s, h), B (b, s), C (b, s), dt (b, s, h)
-  long long xb, xs, xh, bb, bs, cb, cs, db, ds, dh;
-};
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// rows [r0, r0 + BLK) of a (rows, width) matrix (row stride `rs`, contiguous
-// in the row) into dst with row stride `ld`, zero past row `rows`
-template <typename T, int W>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const T* src,
-                                          long long rs, int r0, int rows) {
-  for (int e = threadIdx.x; e < BLK * W; e += THREADS) {
-    const int r = e / W, c = e % W;
-    dst[r * ld + c] = (r0 + r < rows) ? widen(src[(r0 + r) * rs + c]) : 0.f;
-  }
-}
 
 // The FMA route. One CTA per (batch, head) walks the chunks in order; the
 // state stays in shared memory between chunks (hd x ds f32). Per 64-row
@@ -99,8 +82,8 @@ __global__ void __launch_bounds__(THREADS)
 ssd_fma_kernel(const T* __restrict__ x, const float* __restrict__ dt,
            const float* __restrict__ A, const T* __restrict__ Bm,
            const T* __restrict__ Cm, const float* __restrict__ h0,
-           float* __restrict__ y, float* __restrict__ hout, int S, int nh,
-           int L, Strides st) {
+           float* __restrict__ y, float* __restrict__ hout, float* __restrict__ hin,
+           int S, int nh, int L, Strides st) {
   constexpr int LDS = DS + 1;       // padded row of h, B and C
   constexpr int LDB = BLK + 1;      // padded row of the scores
   constexpr int CH = HD / 16;       // columns of y per thread
@@ -116,7 +99,7 @@ ssd_fma_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const float a = A[h];
+  const float a = A[b * st.ab + h];
   const long long hoff = (static_cast<long long>(b) * nh + h) * HD * DS;
   for (int e = threadIdx.x; e < HD * DS; e += THREADS) {
     h_s[(e / DS) * LDS + e % DS] = h0 ? h0[hoff + e] : 0.f;
@@ -131,6 +114,11 @@ ssd_fma_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       dt_s[t] = dt[b * st.db + (s0 + t) * st.ds + h * st.dh];
     }
     __syncthreads();
+    if (hin) {  // the state entering this chunk, for the backward
+      float* out = hin + (hoff * (S / L) + static_cast<long long>(s0 / L) * HD * DS);
+      for (int e = threadIdx.x; e < HD * DS; e += THREADS)
+        out[e] = h_s[(e / DS) * LDS + e % DS];
+    }
     if (threadIdx.x == 0) {
       float run = 0.f;
       for (int t = 0; t < L; ++t) {
@@ -442,7 +430,7 @@ ssd_state_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   const int s0 = c * L, t = threadIdx.x;
   load_tile<HD>(x_s, x + b * st.xb + s0 * st.xs + h * st.xh, st.xs, L, LP, vec);
   load_tile<DS>(b_s, Bm + b * st.bb + s0 * st.bs, st.bs, L, LP, vec);
-  chunk_decay(dt, A[h], dt_s, cs_s, warp_tot, b, h, s0, L, st);
+  chunk_decay(dt, A[b * st.ab + h], dt_s, cs_s, warp_tot, b, h, s0, L, st);
   const float total = cs_s[L - 1];
   w_s[t] = t < L ? expf(total - cs_s[t]) * dt_s[t] : 0.f;
   if (t == 0) totals[(b * nh + h) * nc + c] = total;
@@ -496,7 +484,7 @@ ssd_state_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
 __global__ void __launch_bounds__(THREADS)
 ssd_pass_kernel(const float* __restrict__ h0, const float* __restrict__ states,
                 const float* __restrict__ totals, bf16* __restrict__ hsplit,
-                float* __restrict__ hout, int nc, int E) {
+                float* __restrict__ hout, float* __restrict__ hin, int nc, int E) {
   const long long bh = static_cast<long long>(blockIdx.z) * gridDim.y + blockIdx.y;
   const int e = (blockIdx.x * THREADS + threadIdx.x) * 4;
   if (e >= E) return;
@@ -518,6 +506,7 @@ ssd_pass_kernel(const float* __restrict__ h0, const float* __restrict__ states,
 #pragma unroll
       for (int term = 0; term < kTerms; ++term)
         *reinterpret_cast<uint2*>(out + term * E) = make_uint2(p01[term][0], p23[term][0]);
+      if (hin) *reinterpret_cast<float4*>(hin + (bh * nc + c0 + k) * E + e) = hv;
       const float d = expf(totals[bh * nc + c0 + k]);
       const float4 st = sv[k];
       hv = make_float4(d * hv.x + st.x, d * hv.y + st.y, d * hv.z + st.z,
@@ -591,7 +580,7 @@ ssd_out_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
       }
   };
   load_c(warp);  // the first tile's, while the shared tiles land
-  chunk_decay(dt, A[h], dt_s, cs_s, warp_tot, b, h, s0, L, st);
+  chunk_decay(dt, A[b * st.ab + h], dt_s, cs_s, warp_tot, b, h, s0, L, st);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -680,20 +669,6 @@ constexpr int out_smem(int LP) {
   return LP * (HD + PAD) * 2 + kTerms * HD * (DS + PAD) * 2 + (2 * THREADS + 8) * 4;
 }
 
-// Raises `kernel`'s dynamic shared memory cap to `bytes` on the current
-// device if it is below: once per kernel and device in practice.
-template <typename K>
-cudaError_t allow_smem(K kernel, int bytes, int (&cap)[64]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  int& have = cap[dev & 63];
-  if (bytes <= have) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) have = bytes;
-  return err;
-}
-
 // Floats of the tensor-core route's workspace (the wrapper allocates it):
 // the per-chunk states (Bb, nh, nc, HD, DS) f32, the states entering each
 // chunk as kTerms bf16 planes (Bb, nh, nc, kTerms, HD, DS), CB
@@ -706,8 +681,8 @@ long long workspace_floats(int Bb, int S, int nh, int hd, int ds, int L) {
 
 template <int HD, int DS>
 int launch_tc(const bf16* x, const float* dt, const float* A, const bf16* Bm,
-              const bf16* Cm, const float* h0, float* y, float* hout, float* ws,
-              int Bb, int S, int nh, int L, Strides st, bool vec,
+              const bf16* Cm, const float* h0, float* y, float* hout, float* hin,
+              float* ws, int Bb, int S, int nh, int L, Strides st, bool vec,
               cudaStream_t stream) {
   static int cap_state[64], cap_out[64];
   const int nc = S / L, ldc = (L + 1) & ~1, LP = (L + 15) & ~15;
@@ -728,7 +703,7 @@ int launch_tc(const bf16* x, const float* dt, const float* A, const bf16* Bm,
       x, dt, A, Bm, states, totals, nh, L, st, vec);
   constexpr int E = HD * DS;
   ssd_pass_kernel<<<dim3((E + 4 * THREADS - 1) / (4 * THREADS), nh, Bb), THREADS, 0,
-                    stream>>>(h0, states, totals, hsplit, hout, nc, E);
+                    stream>>>(h0, states, totals, hsplit, hout, hin, nc, E);
   ssd_out_kernel<HD, DS><<<dim3(nh, nc, Bb), THREADS, out_smem<HD, DS>(LP), stream>>>(
       x, dt, A, Cm, cb, hsplit, y, S, L, ldc, st, vec);
   return static_cast<int>(cudaGetLastError());
@@ -736,8 +711,8 @@ int launch_tc(const bf16* x, const float* dt, const float* A, const bf16* Bm,
 
 template <typename T, int HD, int DS>
 int launch_fma(const void* x, const float* dt, const float* A, const void* Bm,
-               const void* Cm, const float* h0, float* y, float* hout, int Bb,
-               int S, int nh, int L, Strides st, cudaStream_t stream) {
+               const void* Cm, const float* h0, float* y, float* hout, float* hin,
+               int Bb, int S, int nh, int L, Strides st, cudaStream_t stream) {
   static int cap[64];
   const size_t smem = smem_bytes<HD, DS>(L);
   auto kernel = ssd_fma_kernel<T, HD, DS>;
@@ -745,25 +720,25 @@ int launch_fma(const void* x, const float* dt, const float* A, const void* Bm,
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(nh, Bb), THREADS, smem, stream>>>(
       static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm),
-      static_cast<const T*>(Cm), h0, y, hout, S, nh, L, st);
+      static_cast<const T*>(Cm), h0, y, hout, hin, S, nh, L, st);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD, int DS>
 int launch(const void* x, const float* dt, const float* A, const void* Bm,
-           const void* Cm, const float* h0, float* y, float* hout, float* ws,
-           int Bb, int S, int nh, int L, Strides st, int dtype, bool vec,
+           const void* Cm, const float* h0, float* y, float* hout, float* hin,
+           float* ws, int Bb, int S, int nh, int L, Strides st, int dtype, bool vec,
            cudaStream_t stream) {
   if (dtype == 0)
-    return launch_fma<float, HD, DS>(x, dt, A, Bm, Cm, h0, y, hout, Bb, S, nh, L, st,
+    return launch_fma<float, HD, DS>(x, dt, A, Bm, Cm, h0, y, hout, hin, Bb, S, nh, L, st,
                                      stream);
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (L > kMaxL)
-    return launch_fma<bf16, HD, DS>(x, dt, A, Bm, Cm, h0, y, hout, Bb, S, nh, L, st,
+    return launch_fma<bf16, HD, DS>(x, dt, A, Bm, Cm, h0, y, hout, hin, Bb, S, nh, L, st,
                                     stream);
   return launch_tc<HD, DS>(static_cast<const bf16*>(x), dt, A,
                            static_cast<const bf16*>(Bm), static_cast<const bf16*>(Cm),
-                           h0, y, hout, ws, Bb, S, nh, L, st, vec, stream);
+                           h0, y, hout, hin, ws, Bb, S, nh, L, st, vec, stream);
 }
 
 }  // namespace
@@ -776,23 +751,26 @@ long long ssd_scan_workspace(int Bb, int S, int nh, int hd, int ds, int L, int d
 }
 
 // x (Bb, S, nh, hd), B/C (Bb, S, ds): f32 (dtype 0) or bf16 (dtype 1), the
-// last dim contiguous; dt (Bb, S, nh) f32; A (nh,) f32; h0 (Bb, nh, hd, ds)
-// f32 contiguous and 16-byte aligned, or null (zeros). Writes y
-// (Bb, S, nh, hd) and hout (Bb, nh, hd, ds), f32 contiguous. `strides`
-// holds the ten element strides of Strides; `vec` says every row of x, B
-// and C is 16-byte aligned. `ws` is ssd_scan_workspace floats (or null if
-// that is 0). Requires S % L == 0 (the wrapper checks). Launches on
-// `stream` and does not synchronise; returns the launch error, or 0.
+// last dim contiguous; dt (Bb, S, nh) f32; A (nh,) or (Bb, nh) f32; h0
+// (Bb, nh, hd, ds) f32 contiguous and 16-byte aligned, or null (zeros).
+// Writes y (Bb, S, nh, hd) and hout (Bb, nh, hd, ds), f32 contiguous, and,
+// where `hin` is not null, the state entering each chunk into hin
+// (Bb, nh, S / L, hd, ds) f32 contiguous and 16-byte aligned (the
+// backward's input). `strides` holds the eleven element strides of Strides
+// (A's batch stride last: 0 for (nh,)); `vec` says every row of x, B and C
+// is 16-byte aligned. `ws` is ssd_scan_workspace floats (or null if that is
+// 0). Requires S % L == 0 (the wrapper checks). Launches on `stream` and
+// does not synchronise; returns the launch error, or 0.
 int ssd_scan_launch(const void* x, const float* dt, const float* A,
                     const void* Bm, const void* Cm, const float* h0, float* y,
-                    float* hout, float* ws, int Bb, int S, int nh, int hd, int ds,
-                    int L, const long long* strides, int dtype, int vec,
+                    float* hout, float* hin, float* ws, int Bb, int S, int nh, int hd,
+                    int ds, int L, const long long* strides, int dtype, int vec,
                     cudaStream_t stream) {
-  Strides st{strides[0], strides[1], strides[2], strides[3], strides[4],
-             strides[5], strides[6], strides[7], strides[8], strides[9]};
-#define SSD_CASE(HD_, DS_)                                                      \
-  if (hd == HD_ && ds == DS_)                                                   \
-    return launch<HD_, DS_>(x, dt, A, Bm, Cm, h0, y, hout, ws, Bb, S, nh, L, st, \
+  Strides st{strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
+             strides[6], strides[7], strides[8], strides[9], strides[10]};
+#define SSD_CASE(HD_, DS_)                                                            \
+  if (hd == HD_ && ds == DS_)                                                         \
+    return launch<HD_, DS_>(x, dt, A, Bm, Cm, h0, y, hout, hin, ws, Bb, S, nh, L, st, \
                             dtype, vec != 0, stream);
   SSD_CASE(32, 16)
   SSD_CASE(32, 64)

@@ -29,7 +29,8 @@ SOURCES = {"event_topk": CSRC / "event_topk.cu",
            "flash_attention_bwd": CSRC / "flash_attention_bwd.cu",
            "flash_decode": CSRC / "flash_decode.cu",
            "aoi_topk": CSRC / "aoi_topk.cu",
-           "ssd_scan": CSRC / "ssd_scan.cu"}
+           "ssd_scan": CSRC / "ssd_scan.cu",
+           "ssd_scan_bwd": CSRC / "ssd_scan_bwd.cu"}
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -45,7 +45,10 @@ from typing import Optional, Tuple
 
 import torch
 
-launches = 0  # kernel calls
+from repro_torch.kernels.flash_attention import _fold, _tracked, _unfold
+
+launches = 0  # forward kernel calls
+bwd_launches = 0  # backward kernel calls
 # (head_dim, d_state) pairs the kernel is built for
 SHAPES = ((32, 16), (32, 64), (32, 128), (64, 16), (64, 64), (64, 128))
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -53,14 +56,29 @@ PHASES = 4  # kernels of the bf16 tensor-core route, from one C call
 BF16_TERMS = 2  # bf16 terms each f32 operand of that route is split into
 
 
+def _wide(t):
+    """t in f32, or f64 where it is f64 (the plain versions run in either)."""
+    return t.to(_wide_dtype(t))
+
+
+def _wide_dtype(t):
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _rows(A, Bb):
+    """A as one (B, nh) row per batch row (a view)."""
+    return A if A.dim() == 2 else A[None].expand(Bb, A.shape[0])
+
+
 def ssd_chunked_plain(x, dt, A, B_, C_, chunk: int,
-                      h0: Optional[torch.Tensor] = None
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+                      h0: Optional[torch.Tensor] = None, return_h_in: bool = False):
     """The plain version: ``repro.models.ssm.ssd_chunked`` on torch
-    tensors. x (B, S, nh, hd), dt (B, S, nh) post-softplus, A (nh,)
-    negative, B_/C_ (B, S, ds); chunks of L = min(chunk, S) in order, the
-    state carried in f32. Returns (y (B, S, nh, hd) f32, h_final
-    (B, nh, hd, ds) f32)."""
+    tensors. x (B, S, nh, hd), dt (B, S, nh) post-softplus, A (nh,) (or
+    one (B, nh) row per batch row) negative, B_/C_ (B, S, ds); chunks of
+    L = min(chunk, S) in order, the state carried in f32. Returns (y
+    (B, S, nh, hd) f32, h_final (B, nh, hd, ds) f32), and with
+    ``return_h_in`` the state entering each chunk (B, nh, nc, hd, ds) f32
+    third."""
     Bb, S, nh, hd = x.shape
     ds = B_.shape[-1]
     L = min(chunk, S)
@@ -69,14 +87,16 @@ def ssd_chunked_plain(x, dt, A, B_, C_, chunk: int,
     dtr = dt.reshape(Bb, nc, L, nh)
     Br = B_.reshape(Bb, nc, L, ds)
     Cr = C_.reshape(Bb, nc, L, ds)
-    h = (torch.zeros((Bb, nh, hd, ds), dtype=torch.float32, device=x.device)
+    a = A if A.dim() == 1 else A[:, None, :]
+    h = (torch.zeros((Bb, nh, hd, ds), dtype=_wide_dtype(x), device=x.device)
          if h0 is None else h0)
     mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
-    ys = []
+    ys, h_in = [], []
     for c in range(nc):
-        xc, dtc = xr[:, c].float(), dtr[:, c]
-        Bc, Cc = Br[:, c].float(), Cr[:, c].float()
-        cs = torch.cumsum(dtc.float() * A, dim=1)  # (B, L, nh), inclusive
+        h_in.append(h)
+        xc, dtc = _wide(xr[:, c]), dtr[:, c]
+        Bc, Cc = _wide(Br[:, c]), _wide(Cr[:, c])
+        cs = torch.cumsum(_wide(dtc) * a, dim=1)  # (B, L, nh), inclusive
         total = cs[:, -1]  # (B, nh)
         # intra-chunk (dual, attention-like) term
         cb = torch.einsum("bin,bjn->bij", Cc, Bc)
@@ -91,7 +111,76 @@ def ssd_chunked_plain(x, dt, A, B_, C_, chunk: int,
         h_chunk = torch.einsum("blh,blhp,bln->bhpn", w, xc, Bc)
         h = torch.exp(total)[:, :, None, None] * h + h_chunk
         ys.append(y_intra + y_inter)
-    return torch.stack(ys, dim=1).reshape(Bb, S, nh, hd), h
+    y = torch.stack(ys, dim=1).reshape(Bb, S, nh, hd)
+    if return_h_in:
+        return y, h, _wide(torch.stack(h_in, dim=2))
+    return y, h
+
+
+def ssd_chunked_bwd_plain(x, dt, A, B_, C_, chunk: int, h_in, dy, dh_final=None):
+    """The plain backward of ``ssd_chunked_plain``, chunk by chunk in
+    reverse: ``h_in`` (B, nh, nc, hd, ds) f32 holds the state entering each
+    chunk, ``dy`` (B, S, nh, hd) and ``dh_final`` (B, nh, hd, ds, or None:
+    zeros) the output gradients. Returns (dx, ddt, dA, dB, dC, dh0), all
+    f32, dA of A's shape. Per chunk, with cs the cumsum of dt * A, T its
+    last entry, M_ij = C_i.B_j exp(cs_i - cs_j) dt_j (j <= i) and
+    w_j = exp(T - cs_j) dt_j: dx_j = sum_i M_ij dy_i + w_j dH B_j, dB_j and
+    dC_i through P_ij = dy_i.x_j exp(cs_i - cs_j) dt_j, d cs from
+    dy_i.x_j M_ij and the state terms, ddt = its direct part + A times the
+    reverse cumsum dl of d cs, dA = sum dt dl. Every ``exp`` takes a
+    difference masked to <= 0 first, so no 0 * inf enters a gradient (the
+    reference's ``jax.grad`` of ``ssd_chunked`` masks after its ``exp``)."""
+    Bb, S, nh, hd = x.shape
+    ds = B_.shape[-1]
+    L = min(chunk, S)
+    nc = S // L
+    xr = x.reshape(Bb, nc, L, nh, hd)
+    dtr = dt.reshape(Bb, nc, L, nh)
+    Br = B_.reshape(Bb, nc, L, ds)
+    Cr = C_.reshape(Bb, nc, L, ds)
+    dyr = dy.reshape(Bb, nc, L, nh, hd)
+    a = _wide(_rows(A, Bb))[:, None, :]  # (B, 1, nh)
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))[None, :, :, None]
+    dH = (torch.zeros((Bb, nh, hd, ds), dtype=_wide_dtype(x), device=x.device)
+          if dh_final is None else _wide(dh_final))
+    dxs, ddts, dBs, dCs = [], [], [], []
+    dA = torch.zeros((Bb, nh), dtype=_wide_dtype(x), device=x.device)
+    for c in reversed(range(nc)):
+        xc, dtc, dyc = _wide(xr[:, c]), _wide(dtr[:, c]), _wide(dyr[:, c])
+        Bc, Cc = _wide(Br[:, c]), _wide(Cr[:, c])
+        hc = h_in[:, :, c]
+        cs = torch.cumsum(dtc * a, dim=1)  # (B, L, nh)
+        total = cs[:, -1]  # (B, nh)
+        diff = cs[:, :, None, :] - cs[:, None, :, :]  # (B, i, j, nh)
+        decay = torch.exp(torch.where(mask, diff, -torch.inf))  # 0 above the diagonal
+        ecs = torch.exp(cs)
+        e_t = torch.exp(total[:, None, :] - cs)
+        w = e_t * dtc
+        cb = torch.einsum("bin,bjn->bij", Cc, Bc)[..., None]
+        dM = torch.einsum("bihp,bjhp->bijh", dyc, xc)
+        M = cb * decay * dtc[:, None]
+        P = dM * decay * dtc[:, None]
+        Q = dM * cb * decay  # ddt's direct part, before the sum over i
+        G = Q * dtc[:, None]  # dM M
+        V = torch.einsum("bjn,bhpn->bjhp", Bc, dH)  # dH B_j
+        Wx = torch.einsum("bjhp,bhpn->bjhn", xc, dH)  # dH^T x_j
+        R = torch.einsum("bihp,bhpn->bihn", dyc, hc)  # h_in^T dy_i
+        u = torch.einsum("bjhn,bjn->bjh", Wx, Bc)
+        dxs.append(torch.einsum("bijh,bihp->bjhp", M, dyc) + w[..., None] * V)
+        dBs.append(torch.einsum("bijh,bin->bjn", P, Cc)
+                   + torch.einsum("bjh,bjhn->bjn", w, Wx))
+        dCs.append(torch.einsum("bijh,bjn->bin", P, Bc)
+                   + torch.einsum("bih,bihn->bin", ecs, R))
+        dcs = G.sum(2) - G.sum(1) + ecs * torch.einsum("bihn,bin->bih", R, Cc) - w * u
+        last = torch.exp(total) * (dH * hc).sum((-2, -1)) + (w * u).sum(1)
+        dcs = torch.cat([dcs[:, :-1], dcs[:, -1:] + last[:, None]], dim=1)
+        dl = torch.flip(torch.cumsum(torch.flip(dcs, (1,)), 1), (1,))
+        ddts.append(Q.sum(1) + e_t * u + a * dl)
+        dA = dA + (dtc * dl).sum(1)
+        dH = torch.exp(total)[:, :, None, None] * dH + torch.einsum(
+            "bih,bihp,bin->bhpn", ecs, dyc, Cc)
+    cat = lambda ts: torch.cat(ts[::-1], dim=1)  # noqa: E731
+    return (cat(dxs), cat(ddts), dA if A.dim() == 2 else dA.sum(0), cat(dBs), cat(dCs), dH)
 
 
 @functools.cache
@@ -102,7 +191,7 @@ def _launcher():
 
     lib = library("ssd_scan")
     fn = lib.ssd_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ws = lib.ssd_scan_workspace
@@ -111,15 +200,32 @@ def _launcher():
     return fn, ws
 
 
+@functools.cache
+def _bwd_launcher():
+    """The built library's ``ssd_scan_bwd_launch`` and
+    ``ssd_scan_bwd_workspace``, typed (built at first use)."""
+    from repro_torch.kernels.build import library
+
+    lib = library("ssd_scan_bwd")
+    fn = lib.ssd_scan_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ws = lib.ssd_scan_bwd_workspace
+    ws.argtypes = [ctypes.c_int] * 6
+    ws.restype = ctypes.c_longlong
+    return fn, ws
+
+
 def _check(x, dt, A, B_, C_, chunk, h0):
-    if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or B_.dim() != 3 or C_.dim() != 3:
+    if x.dim() != 4 or dt.dim() != 3 or A.dim() not in (1, 2) or B_.dim() != 3 or C_.dim() != 3:
         raise ValueError(
             f"expected x (B, S, nh, hd), dt (B, S, nh), A (nh,), B_/C_ (B, S, ds); got "
             f"{tuple(x.shape)}, {tuple(dt.shape)}, {tuple(A.shape)}, "
             f"{tuple(B_.shape)}, {tuple(C_.shape)}")
     Bb, S, nh, hd = x.shape
     ds = B_.shape[-1]
-    if (tuple(dt.shape) != (Bb, S, nh) or tuple(A.shape) != (nh,)
+    if (tuple(dt.shape) != (Bb, S, nh) or tuple(A.shape) not in ((nh,), (Bb, nh))
             or tuple(B_.shape) != (Bb, S, ds) or tuple(C_.shape) != (Bb, S, ds)):
         raise ValueError("dt, A, B_ and C_ do not match x's (B, S, nh)")
     L = min(chunk, S)
@@ -131,8 +237,8 @@ def _check(x, dt, A, B_, C_, chunk, h0):
         raise ValueError("x, dt, A, B_ and C_ must be on one device")
 
 
-def _check_kernel(x, dt, A, B_, C_, h0):
-    """What the CUDA kernel takes beyond the reference's conditions."""
+def _check_kernel(x, dt, A, B_, C_):
+    """What the CUDA kernels take beyond the reference's conditions."""
     hd, ds = x.shape[-1], B_.shape[-1]
     if not (x.dtype == B_.dtype == C_.dtype) or x.dtype not in DTYPES:
         raise ValueError(f"the K6 kernel takes x, B_ and C_ all float32 or all "
@@ -144,37 +250,44 @@ def _check_kernel(x, dt, A, B_, C_, h0):
                          f"got {(hd, ds)}")
     if any(t.stride(-1) != 1 for t in (x, B_, C_)):
         raise ValueError("x, B_ and C_ must be contiguous in their last dim")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, dt, A, B_, C_) + ((h0,) if h0 is not None else ())):
-        raise RuntimeError(
-            "the K6 kernel has no backward yet: Mamba2 training on the GPU "
-            "arrives with ROADMAP queue 1, slice G2b (K6's backward); run it "
-            "under torch.no_grad()")
 
 
-def ssd_scan(x, dt, A, B_, C_, chunk: int = 256,
-             h0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(y (B, S, nh, hd) f32, h_final (B, nh, hd, ds) f32) of the chunked
-    scan, from ``h0`` or a zero state."""
+def _f32_aligned(t):
+    """``t`` as f32 contiguous and 16-byte aligned (the kernels read it 16
+    bytes at a time): itself where it already is."""
+    t = t.to(torch.float32).contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _strides(x, dt, A, B_, C_):
+    """The eleven element strides of the kernels' ``Strides``."""
+    a_stride = A.stride(0) if A.dim() == 2 else 0
+    return (ctypes.c_longlong * 11)(*x.stride()[:3], *B_.stride()[:2], *C_.stride()[:2],
+                                    *dt.stride(), a_stride)
+
+
+def _forward(x, dt, A, B_, C_, chunk, h0, with_h_in):
+    """(y, h_final, h_in or None): the plain version on the CPU, else the
+    kernel; ``h_in`` the (B, nh, nc, hd, ds) f32 state entering each chunk."""
     global launches
-    _check(x, dt, A, B_, C_, chunk, h0)
     if x.device.type == "cpu":
-        return ssd_chunked_plain(x, dt, A, B_, C_, chunk, h0)
+        if with_h_in:
+            return ssd_chunked_plain(x, dt, A, B_, C_, chunk, h0, return_h_in=True)
+        return (*ssd_chunked_plain(x, dt, A, B_, C_, chunk, h0), None)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cpu or cuda, got {x.device}")
     Bb, S, nh, hd = x.shape
     ds = B_.shape[-1]
     L = min(chunk, S)  # a chunk too long for shared memory fails the launch
-    _check_kernel(x, dt, A, B_, C_, h0)
+    _check_kernel(x, dt, A, B_, C_)
     A = A.contiguous()
     if h0 is not None:
-        h0 = h0.to(torch.float32).contiguous()
-        if h0.data_ptr() % 16:  # the state pass reads it 16 bytes at a time
-            h0 = h0.clone()
+        h0 = _f32_aligned(h0)
     y = torch.empty((Bb, S, nh, hd), dtype=torch.float32, device=x.device)
     h_final = torch.empty((Bb, nh, hd, ds), dtype=torch.float32, device=x.device)
+    h_in = (torch.empty((Bb, nh, S // L, hd, ds), dtype=torch.float32, device=x.device)
+            if with_h_in else None)
     row_strides = x.stride()[:3] + B_.stride()[:2] + C_.stride()[:2]
-    strides = (ctypes.c_longlong * 10)(*row_strides, *dt.stride())
     # every row of x, B and C 16-byte aligned: 16-byte loads
     vec = all(t.data_ptr() % 16 == 0 for t in (x, B_, C_)) and all(
         s % (16 // x.element_size()) == 0 for s in row_strides)
@@ -186,9 +299,154 @@ def ssd_scan(x, dt, A, B_, C_, chunk: int = 256,
         err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
                  C_.data_ptr(), h0.data_ptr() if h0 is not None else None,
                  y.data_ptr(), h_final.data_ptr(),
+                 h_in.data_ptr() if h_in is not None else None,
                  ws.data_ptr() if ws is not None else None, Bb, S, nh, hd, ds, L,
-                 strides, DTYPES[x.dtype], int(vec), stream)
+                 _strides(x, dt, A, B_, C_), DTYPES[x.dtype], int(vec), stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
     launches += 1
-    return y, h_final
+    return y, h_final, h_in
+
+
+def _backward(x, dt, A, B_, C_, chunk, h_in, dy, dh_final):
+    """(dx, ddt, dA, dB, dC, dh0) with dA one (B, nh) row per batch row:
+    the plain version on the CPU, else the backward kernel; dx, dB and dC
+    in x's dtype."""
+    global bwd_launches
+    Bb, S, nh, hd = x.shape
+    if x.device.type == "cpu":
+        dx, ddt, dA, dB, dC, dh0 = ssd_chunked_bwd_plain(
+            x, dt, _rows(A, Bb), B_, C_, chunk, h_in, dy, dh_final)
+        return dx.to(x.dtype), ddt, dA, dB.to(B_.dtype), dC.to(C_.dtype), dh0
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan runs on cpu or cuda, got {x.device}")
+    ds = B_.shape[-1]
+    L = min(chunk, S)
+    _check_kernel(x, dt, A, B_, C_)
+    A = A.contiguous()
+    h_in, dy = _f32_aligned(h_in), _f32_aligned(dy)
+    if dh_final is not None:
+        dh_final = _f32_aligned(dh_final)
+    dev = x.device
+    dx = torch.empty((Bb, S, nh, hd), dtype=x.dtype, device=dev)
+    ddt = torch.empty((Bb, S, nh), dtype=torch.float32, device=dev)
+    dA = torch.empty((Bb, nh), dtype=torch.float32, device=dev)
+    dB, dC = (torch.empty((Bb, S, ds), dtype=x.dtype, device=dev) for _ in range(2))
+    dh0 = torch.empty((Bb, nh, hd, ds), dtype=torch.float32, device=dev)
+    fn, workspace = _bwd_launcher()
+    ws = torch.empty((workspace(Bb, S, nh, hd, ds, L),), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(), C_.data_ptr(),
+                 h_in.data_ptr(), dy.data_ptr(),
+                 dh_final.data_ptr() if dh_final is not None else None,
+                 dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+                 dh0.data_ptr(), ws.data_ptr(), Bb, S, nh, hd, ds, L,
+                 _strides(x, dt, A, B_, C_), DTYPES[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan_bwd launch failed: CUDA error {err}")
+    bwd_launches += 1
+    return dx, ddt, dA, dB, dC, dh0
+
+
+def ssd_scan_with_h_in(x, dt, A, B_, C_, chunk: int = 256, h0=None):
+    """(y, h_final, h_in): the forward with the state entering each chunk,
+    outside autograd; the kernel on a CUDA tensor (one counted launch), the
+    plain version on a CPU tensor."""
+    _check(x, dt, A, B_, C_, chunk, h0)
+    return _forward(x, dt, A, B_, C_, chunk, h0, with_h_in=True)
+
+
+def ssd_scan_bwd(x, dt, A, B_, C_, chunk, h_in, dy, dh_final=None):
+    """(dx, ddt, dA, dB, dC, dh0) from the forward's ``h_in`` and the
+    output gradients, outside autograd, dA one (B, nh) row per batch row;
+    the backward kernel on a CUDA tensor (one counted launch of its four
+    kernels), the plain version on a CPU tensor."""
+    _check(x, dt, A, B_, C_, chunk, None)
+    return _backward(x, dt, A, B_, C_, chunk, h_in, dy, dh_final)
+
+
+def _fold_rows(A, d, n, rows):
+    """A under a ``vmap`` of n over a batch of ``rows`` rows folded into n *
+    rows: unbatched, as it is (its batch stride stays 0 where it is (nh,));
+    batched, one row per folded batch row."""
+    if d is None:
+        return A if A.dim() == 1 else A.repeat(n, 1)
+    A = A.movedim(d, 0)
+    if A.dim() == 2:  # (n, nh): each client's A for each of its rows
+        A = A[:, None].expand(n, rows, A.shape[-1])
+    return A.reshape(n * rows, A.shape[-1])
+
+
+class SSDScan(torch.autograd.Function):
+    """K6's forward with the entering states saved, differentiable through
+    ``SSDScanBwd``; returns (y, h_final, h_in), h_in not differentiable."""
+
+    @staticmethod
+    def forward(x, dt, A, B_, C_, h0, chunk):
+        return _forward(x, dt, A, B_, C_, chunk, h0, with_h_in=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, dt, A, B_, C_, h0, chunk = inputs
+        ctx.save_for_backward(x, dt, A, B_, C_, output[2])
+        ctx.chunk, ctx.has_h0 = chunk, h0 is not None
+        ctx.mark_non_differentiable(output[2])
+
+    @staticmethod
+    def backward(ctx, dy, dh_final, _dh_in):
+        x, dt, A, B_, C_, h_in = ctx.saved_tensors
+        dx, ddt, dA, dB, dC, dh0 = SSDScanBwd.apply(x, dt, A, B_, C_, h_in, dy, dh_final,
+                                                    ctx.chunk)
+        if A.dim() == 1:  # the rows' parts of A's gradient, summed in row order
+            dA = dA.sum(0)
+        return dx, ddt, dA, dB, dC, dh0 if ctx.has_h0 else None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, dt, A, B_, C_, h0, chunk):
+        n = info.batch_size
+        x, dt, B_, C_ = (_fold(t, d, n) for t, d in zip((x, dt, B_, C_),
+                                                        (in_dims[0], in_dims[1], *in_dims[3:5])))
+        A = _fold_rows(A, in_dims[2], n, x.shape[0] // n)
+        h0 = None if h0 is None else _fold(h0, in_dims[5], n)
+        out = SSDScan.apply(x, dt, A, B_, C_, h0, chunk)
+        return tuple(_unfold(t, n) for t in out), (0, 0, 0)
+
+
+class SSDScanBwd(torch.autograd.Function):
+    """K6's backward: (dx, ddt, dA, dB, dC, dh0), dA one (B, nh) row per
+    batch row, from the inputs, the forward's ``h_in`` and the output
+    gradients. Not differentiable itself."""
+
+    @staticmethod
+    def forward(x, dt, A, B_, C_, h_in, dy, dh_final, chunk):
+        return _backward(x, dt, A, B_, C_, chunk, h_in, dy, dh_final)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("K6's backward has no backward of its own")
+
+    @staticmethod
+    def vmap(info, in_dims, x, dt, A, B_, C_, h_in, dy, dh_final, chunk):
+        n = info.batch_size
+        folded = [None if t is None else _fold(t, d, n) for t, d in zip(
+            (x, dt, B_, C_, h_in, dy, dh_final),
+            (*in_dims[:2], *in_dims[3:8]))]
+        x, dt, B_, C_, h_in, dy, dh_final = folded
+        A = _fold_rows(A, in_dims[2], n, x.shape[0] // n)
+        grads = SSDScanBwd.apply(x, dt, A, B_, C_, h_in, dy, dh_final, chunk)
+        return tuple(_unfold(g, n) for g in grads), (0,) * 6
+
+
+def ssd_scan(x, dt, A, B_, C_, chunk: int = 256,
+             h0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y (B, S, nh, hd) f32, h_final (B, nh, hd, ds) f32) of the chunked
+    scan, from ``h0`` or a zero state; differentiable in every input."""
+    _check(x, dt, A, B_, C_, chunk, h0)
+    if _tracked(x, dt, A, B_, C_, *(() if h0 is None else (h0,))):
+        return SSDScan.apply(x, dt, A, B_, C_, h0, int(chunk))[:2]
+    return _forward(x, dt, A, B_, C_, chunk, h0, with_h_in=False)[:2]

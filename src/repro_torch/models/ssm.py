@@ -6,6 +6,10 @@ recurrence across chunks carrying the (heads, head_dim, d_state) f32
 state. ``ssm_fwd`` runs it through the K6 CUDA kernel
 (``kernels.ssd_scan``) where the reference calls ``ssd_chunked``: on a CPU
 tensor the wrapper takes the plain version, which is ``ssd_chunked`` here.
+Training differentiates it through K6's ``autograd.Function`` (its backward
+kernel on the card, the plain backward on the CPU); x, B and C reach it as
+strided views of the conv output, and autograd's slice backward places
+their gradients in that output's gradient.
 Decode is the O(1) single-step recurrence, updating its cache in place.
 Parameter names and layouts are the reference's, so a reference tree
 converts key for key.
@@ -77,19 +81,20 @@ def _gated_norm(p, y, z, eps=1e-5):
 
 
 def ssd_reference(x, dt, A, B_, C_, h0=None):
-    """Naive step-by-step recurrence (oracle for tests). Returns
-    (y (B, S, nh, hd) f32, h_final)."""
+    """Naive step-by-step recurrence (oracle for tests), in f32 (f64 for
+    f64 inputs). Returns (y (B, S, nh, hd), h_final)."""
     Bb, S, nh, hd = x.shape
     ds = B_.shape[-1]
-    h = (torch.zeros((Bb, nh, hd, ds), dtype=torch.float32, device=x.device)
+    wide = _ssd._wide
+    h = (torch.zeros((Bb, nh, hd, ds), dtype=_ssd._wide_dtype(x), device=x.device)
          if h0 is None else h0)
     ys = []
     for t in range(S):
-        dtt = dt[:, t].float()
+        dtt = wide(dt[:, t])
         a = torch.exp(dtt * A)  # (B, nh)
-        upd = torch.einsum("bh,bhp,bn->bhpn", dtt, x[:, t].float(), B_[:, t].float())
+        upd = torch.einsum("bh,bhp,bn->bhpn", dtt, wide(x[:, t]), wide(B_[:, t]))
         h = a[:, :, None, None] * h + upd
-        ys.append(torch.einsum("bn,bhpn->bhp", C_[:, t].float(), h))
+        ys.append(torch.einsum("bn,bhpn->bhp", wide(C_[:, t]), h))
     return torch.stack(ys, dim=1), h
 
 
@@ -114,7 +119,8 @@ def _ssm_fwd(p: Dict, x: torch.Tensor, spec: SSMSpec, h0=None):
 def ssm_fwd(p: Dict, x: torch.Tensor, spec: SSMSpec, h0=None,
             return_state: bool = False):
     """Full-sequence mamba2 block. x: (B, S, d_model). The scan is the K6
-    kernel on the GPU (``kernels.ssd_scan``), ``ssd_chunked`` on the CPU."""
+    kernel on the GPU (``kernels.ssd_scan``), ``ssd_chunked`` on the CPU;
+    under autograd or ``torch.func`` K6's Function, forward and backward."""
     out, h, _ = _ssm_fwd(p, x, spec, h0)
     if return_state:
         return out, h

@@ -190,6 +190,24 @@ def test_fl_async_arch_runs_on_the_cpu(shards):
     assert np.isfinite(hist["train_loss"]).all()
 
 
+def test_fl_async_mamba2_runs_on_the_cpu():
+    """mamba2 as the FL workload: the clients' ``vmap(grad)`` goes through
+    K6's Function (its plain routes here)."""
+    res = fl_async.main(["--arch", "mamba2-370m", "--device", "cpu", "--clients", "16",
+                         "--k", "4", "--rounds", "2", "--local-epochs", "1",
+                         "--batch-size", "4"])
+    hist = res.history()
+    assert len(hist["eval_loss"]) >= 1 and np.isfinite(hist["eval_loss"]).all()
+    assert np.isfinite(hist["train_loss"]).all()
+
+
+def test_train_driver_mamba2_ten_steps():
+    out = train.main(["--device", "cpu", "--arch", "mamba2-370m", "--steps", "10",
+                      "--batch", "2", "--seq", "32", "--log-every", "5"])
+    assert out["cfg"].name == "mamba2-370m-reduced" and out["cfg"].d_model == 1024
+    assert len(out["losses"]) == 10 and np.isfinite(out["losses"]).all()
+
+
 def test_train_driver_ten_steps_and_checkpoint_round_trip(tmp_path, capsys):
     ck = str(tmp_path / "ck")
     out = train.main(["--device", "cpu", "--steps", "10", "--batch", "2", "--seq", "128",

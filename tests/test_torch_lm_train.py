@@ -16,7 +16,11 @@
   1e-6 / rtol 1e-5 after each, each step from the reference's params);
   remat on and off give the same loss bitwise and gradients within 1e-6
   (f32 sums in another order); ``build_sized`` configs equal the
-  reference's; mamba2 trains on the CPU through K6's plain version.
+  reference's; mamba2 trains on the CPU through K6's Function (the forward
+  twice a layer, the plain backward once).
+- The reduced mamba2's ``model.loss`` gradients against ``jax.grad`` of the
+  reference's loss from the same converted weights (1e-4 of each leaf's
+  max), and one ``sgd_train_step`` against the reference's.
 """
 import dataclasses
 
@@ -36,6 +40,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.kernels import flash_attention as k4  # noqa: E402
+from repro_torch.kernels import ssd_scan as k6  # noqa: E402
 from repro_torch.launch.train import build_sized  # noqa: E402
 from repro_torch.models import factory  # noqa: E402
 
@@ -203,19 +208,71 @@ def test_remat_changes_no_gradient(lm):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-8)
 
 
-def test_mamba2_trains_on_the_cpu_through_k6_plain():
+def test_mamba2_trains_on_the_cpu_through_k6_plain(monkeypatch):
+    """A step goes through K6's Function, on the CPU its plain routes: the
+    forward twice a layer (remat), the plain backward once."""
     cfg = get_arch("mamba2-370m").reduced()
     m = factory.build(cfg)
     p = m.init(torch.Generator().manual_seed(0))
     toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=torch.Generator().manual_seed(1),
                          dtype=torch.int32)
+    calls = {"fwd": 0, "bwd": 0}
+    fwd, bwd = k6.ssd_chunked_plain, k6.ssd_chunked_bwd_plain
+    monkeypatch.setattr(k6, "ssd_chunked_plain",
+                        lambda *a, **kw: calls.__setitem__("fwd", calls["fwd"] + 1) or fwd(*a, **kw))
+    monkeypatch.setattr(k6, "ssd_chunked_bwd_plain",
+                        lambda *a, **kw: calls.__setitem__("bwd", calls["bwd"] + 1) or bwd(*a, **kw))
     new, met = m.sgd_train_step(p, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}, 1e-2)
+    assert calls == {"fwd": 2 * cfg.num_layers, "bwd": cfg.num_layers}
     assert bool(torch.isfinite(met["loss"]))
     assert any(not torch.equal(a, b) for a, b in zip(tree_leaves(p), tree_leaves(new)))
 
 
+SSM_ARCH = "mamba2-370m"
+
+
+@pytest.fixture(scope="module")
+def ssm_lm():
+    """(ref model, ref params, port model, port params) of the reduced
+    mamba2 in f32."""
+    mr = ref_factory.build(ref_get_arch(SSM_ARCH).reduced())
+    m = factory.build(get_arch(SSM_ARCH).reduced())
+    pr = mr.init(jax.random.PRNGKey(0))
+    return mr, pr, m, convert.lm_params_from_jax(jax.tree.map(np.asarray, pr), "cpu")
+
+
+@pytest.mark.parametrize("S", [32, 64])
+def test_ssm_loss_gradients_match_jax_grad(ssm_lm, S):
+    """The reduced mamba2's ``model.loss`` gradients (K6's Function with its
+    plain routes) against ``jax.grad`` of the reference's loss from the same
+    converted weights: each leaf within 1e-4 of its max."""
+    mr, pr, m, p = ssm_lm
+    br, bp = _batch(m.cfg, S, seed=S + 1)
+    loss, grads = _grads(m, p, bp)
+    loss_r, grads_r = jax.value_and_grad(lambda pp: mr.loss(pp, br)[0])(pr)
+    np.testing.assert_allclose(float(loss), float(loss_r), rtol=1e-6)
+    it = iter(grads)
+    got = convert.lm_params_to_jax(tree_map(lambda _: next(it), p))
+    for (path, g_r), g in zip(jax.tree_util.tree_leaves_with_path(grads_r),
+                              jax.tree.leaves(got)):
+        assert np.isfinite(np.asarray(g_r)).all()
+        _assert_rel(g, np.asarray(g_r), 1e-4, jax.tree_util.keystr(path))
+
+
+def test_ssm_sgd_train_step_matches_reference(ssm_lm):
+    mr, pr, m, p = ssm_lm
+    br, bp = _batch(m.cfg, 64, seed=12)
+    new_r, met_r = jax.jit(mr.sgd_train_step)(pr, br, 3e-3)
+    new, met = m.sgd_train_step(p, bp, 3e-3)
+    np.testing.assert_allclose(float(met["loss"]), float(met_r["loss"]), rtol=1e-6)
+    got = convert.lm_params_to_jax(new)
+    for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(new_r), jax.tree.leaves(got)):
+        np.testing.assert_allclose(b, np.asarray(a), atol=1e-6, rtol=1e-5,
+                                   err_msg=jax.tree_util.keystr(path))
+
+
 @pytest.mark.parametrize("arch,target", [("tinyllama-1.1b", 20e6), ("llama3-8b", 5e6),
-                                         ("tinyllama-1.1b", 1e9)])
+                                         ("tinyllama-1.1b", 1e9), ("mamba2-370m", 20e6)])
 def test_build_sized_matches_reference(arch, target):
     assert dataclasses.asdict(build_sized(arch, target)) == dataclasses.asdict(
         ref_build_sized(arch, target))

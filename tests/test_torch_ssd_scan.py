@@ -306,11 +306,29 @@ def test_kernel_equals_plain(cuda, B, S, nh, hd, ds, chunk, strided, dtype):
 
 
 @pytest.mark.cuda
-def test_kernel_raises_under_autograd(cuda):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_raises_under_autograd(cuda, dtype):
+    """Once K6 had no backward and raised here; now autograd through the
+    kernel (one forward with the entering states, one backward launch)
+    gives the plain route's gradients: within 1e-4 of each gradient's max
+    in f32, and one bf16 rounding for bf16 x, B and C."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    x, dt, A, B_, C_ = _model_like(1, 64, 2, 32, 16, torch.float32, gen)
-    with pytest.raises(RuntimeError, match="no backward yet.*slice G2b"):
-        ssd_scan.ssd_scan(x.detach().requires_grad_(), dt, A, B_, C_, 16)
+    x, dt, A, B_, C_ = _model_like(2, 128, 4, 32, 16, getattr(torch, dtype), gen)
+    dy = torch.randn((2, 128, 4, 32), generator=gen, device="cuda")
+
+    def grads(fn):
+        leaves = [t.detach().requires_grad_() for t in (x, dt, A, B_, C_)]
+        y, h = fn(*leaves)
+        return torch.autograd.grad((y * dy).sum() + h.square().sum(), leaves)
+
+    f0, b0 = ssd_scan.launches, ssd_scan.bwd_launches
+    got = grads(lambda *t: ssd_scan.ssd_scan(*t, 32))
+    assert (ssd_scan.launches - f0, ssd_scan.bwd_launches - b0) == (1, 1)
+    exp = grads(lambda *t: ssd_scan.ssd_chunked_plain(*t, 32))
+    tol = 1e-4 if dtype == "float32" else 2.0 ** -8
+    for g, e in zip(got, exp):
+        assert g.dtype == e.dtype
+        assert float((g.float() - e.float()).abs().max() / e.float().abs().max()) < tol
 
 
 @pytest.mark.cuda

@@ -262,6 +262,32 @@ prints one JSON line for each:
           settings for 10 rounds (K1 once a round: two grouped launches for
           the reduced LM's 21 leaves) and ``fl_async --arch`` at 16 384
           clients, k 256, 5 steps (K2 once a step): finite losses, peaks.
+  kernel_k6_bwd  K6's backward (``csrc/ssd_scan_bwd.cu``) against
+          ``ssd_chunked_bwd_plain`` on the card, TF32 off: mamba2-370m's
+          training shape (4, 2048, 32, 64, 128), chunk 256, bf16 strided
+          slices (the tensor-core route), f32 and bf16 at (hd, ds) = (32,
+          16), (64, 64), (64, 128) with chunks 16, 64, 100 and 256 (both
+          routes), h0 and dh_final absent and present, and a chunk whose
+          sum dt |A| passes exp's f32 range; the plain side given the plain
+          forward's entering states, the kernel forward's held to them at
+          K6_TOL and its y bitwise to the forward without them; gradients
+          within K6_BWD_TOL of each gradient's max, finite, two launches
+          bitwise equal; its time beside its bound and the plain version's.
+  ssm_train    mamba2-370m at full width and depth (48 layers, bf16,
+          weights from seed 0) trained by ``model.sgd_train_step`` at (4,
+          2048), lr 3e-3, 5 steps, remat on: K6 forward 2 x 48 and backward
+          48 launches a step, no plain scan, finite losses and params that
+          moved, no host sync in a step; ms a step, tokens/s, the share of
+          the bf16 peak, device-busy share, K6's backward's share and its
+          kernels' device time a launch, peak memory with remat on and off.
+  ssm_grad_parity  the reduced mamba2 in f32 (TF32 off) from the same
+          weights on the card and the CPU: ``model.loss`` gradients at S =
+          64 and 128 within 1e-4 of each leaf's max, then one
+          ``sgd_train_step``'s params allclose.
+  fl_ssm       ``fl_train`` and ``fl_async`` with ``--arch mamba2-370m`` at
+          ``fl_lm``'s settings (K1, K2, and K6 forward and backward under
+          the clients' ``vmap(grad)``), then ``launch/train.py --arch
+          mamba2-370m`` at ``train_main``'s settings: the loss falls.
 
 The main, async_oldest and sync_main phases run before the parity phases,
 which turn TF32 off; the slice C, D, E and F phases run after
@@ -270,7 +296,7 @@ which turn TF32 off; the slice C, D, E and F phases run after
 ``async_defense``, ``sync_defense``, ``sharded_main``) set TF32 back to
 what ``main`` ran with while they run.
 Then the ``{"kernels": [...]}`` line (K2, K1, K4, K5, K3, K6, K4's
-backward; each count the sum over the paths that launch it), the card's
+backward, K6's backward; each count the sum over the paths that launch it), the card's
 name and power limit as ``nvidia-smi`` reports them, and, last, the device
 line. Any failure exits non-zero; without a GPU, or outside a checkout of
 the repository, the script fails before printing a result. It imports
@@ -3878,12 +3904,14 @@ SSM_TRAIN_STEPS = 5
 SSM_TRAIN_LR = 3e-3
 # the K6 backward against the plain backward, of each gradient's max: f32
 # inputs; f32 outputs (ddt, dA, dh0) of bf16 inputs; outputs written in bf16
-# (dx, dB, dC: one bf16 rounding, 2^-9 of the value at most, and the f32
-# work's share), as tests/test_torch_ssd_scan_bwd.py settles them on the CPU
-K6_BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-3, "bf16_out": 2.0 ** -8}
+# (dx, dB, dC: one bf16 rounding, 2^-8 of the value at most, and the f32
+# outputs' share), as tests/test_torch_ssd_scan_bwd.py settles them on the CPU
+K6_BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-3, "bf16_out": 2.0 ** -8 + 1e-3}
 K6_BWD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dh0")
-K6_BWD_KERNELS = ("ssd_bwd_dstate_kernel", "ssd_bwd_pass_kernel", "ssd_bwd_chunk_kernel",
-                  "ssd_bwd_sum_kernel")
+# the backward's kernels by name (the bf16 route's phases 1 and 3 are the
+# "_tc_" ones; no name is a substring of another)
+K6_BWD_KERNELS = ("ssd_bwd_dstate_tc_kernel", "ssd_bwd_pass_kernel", "ssd_bwd_chunk_tc_kernel",
+                  "ssd_bwd_sum_kernel", "ssd_bwd_dstate_kernel", "ssd_bwd_chunk_kernel")
 SSM_TRAIN_ARGV = [SSM_ARCH if a == LM_ARCH else a for a in TRAIN_ARGV]
 FL_SSM_SYNC_ARGV = [SSM_ARCH if a == LM_ARCH else a for a in FL_LM_SYNC_ARGV]
 FL_SSM_ASYNC_ARGV = [SSM_ARCH if a == LM_ARCH else a for a in FL_LM_ASYNC_ARGV]
@@ -4017,7 +4045,8 @@ def phase_kernel_k6_bwd(torch, k6):
         torch.backends.cuda.matmul.allow_tf32 = tf32
     emit({"phase": "kernel_k6_bwd", "ok": True, "cases": len(errs), "shape": list(main),
           "chunk": 256, "dtype": "bfloat16", "inputs": "strided slices of (B, S, 2304)",
-          "tolerance_rel_to_max": K6_BWD_TOL, "h_in_tolerance": K6_TOL, **entry,
+          "tolerance_rel_to_max": K6_BWD_TOL, "h_in_tolerance": K6_TOL,
+          "bf16_terms": k6.BWD_TERMS, **entry,
           "device_ms": dev_ms, "gflop": ops / 1e9, "fma_gflop": fma_ops / 1e9,
           "mbytes": nbytes / 1e6, "workspace_mbytes": ws_bytes / 1e6,
           "fma_bound_ms": max(nbytes / HBM_BYTES_PER_S, fma_ops / FP32_OPS_PER_S) * 1e3,
@@ -4111,6 +4140,12 @@ def phase_ssm_train(torch, k6):
                              f"{K6_BWD_KERNELS}")
     ms = statistics.median(per_step[1:])  # step 0 warms up cuBLAS and the kernels
     tokens = B * S
+    kinds = {"gemm": ("gemm", "nvjet", "xmma", "cutlass"), "k6_backward": ("ssd_bwd",),
+             "k6_forward": ("ssd_",), "elementwise": ("elementwise", "copy")}
+    by_kind = dict.fromkeys(list(kinds) + ["other"], 0.0)
+    for name, v in by_name.items():  # each kernel under the first kind it matches
+        kind = next((k for k, keys in kinds.items() if any(n in name for n in keys)), "other")
+        by_kind[kind] += v / 2
     s = cfg.pattern[0].ssm
     scan_fwd, scan_bwd = _ssd_flops(B, S, s.num_heads, s.head_dim, s.d_state, s.chunk)
     flops = 6 * n_params * tokens + (scan_fwd + scan_bwd) * L
@@ -4130,6 +4165,7 @@ def phase_ssm_train(torch, k6):
               "device_busy_share": union / window,
               "k6_share_of_device_time": _share(by_name, "ssd_") - bwd_share,
               "k6_bwd_share_of_device_time": bwd_share,
+              "device_ms_per_step_by_kind": by_kind,
               "k6_bwd_ms_per_step": {n: sum(v for key, v in by_name.items() if n in key) / 2
                                      for n in K6_BWD_KERNELS},
               "k6_bwd_device_ms_a_launch": {

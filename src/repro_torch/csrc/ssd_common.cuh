@@ -1,11 +1,16 @@
 // ssd_common: what the Mamba2 SSD scan's forward (ssd_scan.cu) and backward
-// (ssd_scan_bwd.cu) share (Hopper, sm_90a): the CTA shape of their FMA
-// kernels, the strides of their inputs, the row loader into padded f32
-// shared tiles and the shared-memory cap.
+// (ssd_scan_bwd.cu) share (Hopper, sm_90a): the CTA shape of their kernels,
+// the strides of their inputs, the row loaders into padded f32 (FMA
+// kernels) and bf16 (tensor-core kernels) shared tiles, bf16 pair packing
+// and the shared-memory cap.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+#include "mma_tiles.cuh"
 
 namespace {
 
@@ -32,6 +37,46 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const T* src,
   for (int e = threadIdx.x; e < BLK * W; e += THREADS) {
     const int r = e / W, c = e % W;
     dst[r * ld + c] = (r0 + r < rows) ? widen(src[(r0 + r) * rs + c]) : 0.f;
+  }
+}
+
+constexpr int kMaxL = 256;  // longest chunk of this route (one row a thread)
+constexpr int PAD = 8;      // bf16 padding of a shared row: 16 B, so the
+                            // eight rows of an ldmatrix hit distinct banks
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t pack(__nv_bfloat162 v) {
+  uint32_t u;
+  memcpy(&u, &v, sizeof(u));
+  return u;
+}
+
+__device__ __forceinline__ float2 unpack(uint32_t u) {
+  __nv_bfloat162 v;
+  memcpy(&v, &u, sizeof(u));
+  return __bfloat1622float2(v);
+}
+
+// rows [0, LP) of a (rows, W) bf16 matrix (row stride rs, contiguous rows)
+// into shared memory with row stride W + PAD, zero from row `rows` on.
+// Where `vec` (every row 16-byte aligned) the rows come by cp.async, all
+// in flight; the caller commits and waits before it reads them.
+template <int W>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long rs,
+                                          int rows, int LP, bool vec) {
+  constexpr int CPR = W / 8;  // 16-byte pieces a row
+  for (int e = threadIdx.x; e < LP * CPR; e += THREADS) {
+    const int r = e / CPR, c = (e % CPR) * 8;
+    bf16* d = dst + r * (W + PAD) + c;
+    const bf16* p = src + r * rs + c;
+    if (r < rows && vec) {
+      cp_async16(d, p);
+    } else {
+      bf16 tmp[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) tmp[i] = r < rows ? p[i] : __float2bfloat16(0.f);
+      memcpy(d, tmp, sizeof(tmp));
+    }
   }
 }
 

@@ -262,23 +262,6 @@ constexpr size_t smem_bytes(int L) {
 // ---------------------------------------------------------------------------
 
 constexpr int kTerms = 2;   // bf16 terms an f32 operand is split into
-constexpr int kMaxL = 256;  // longest chunk of this route (one row a thread)
-constexpr int PAD = 8;      // bf16 padding of a shared row: 16 B, so the
-                            // eight rows of an ldmatrix hit distinct banks
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ uint32_t pack(__nv_bfloat162 v) {
-  uint32_t u;
-  memcpy(&u, &v, sizeof(u));
-  return u;
-}
-
-__device__ __forceinline__ float2 unpack(uint32_t u) {
-  __nv_bfloat162 v;
-  memcpy(&v, &u, sizeof(u));
-  return __bfloat1622float2(v);
-}
-
 // (v0, v1) as kTerms bf16 pairs whose sum is (v0, v1) to 8 * kTerms bits:
 // each term is the remainder of the ones before, rounded to bf16
 __device__ __forceinline__ void split(float v0, float v1, uint32_t (&a)[kTerms][4],
@@ -290,29 +273,6 @@ __device__ __forceinline__ void split(float v0, float v1, uint32_t (&a)[kTerms][
     const float2 f = __bfloat1622float2(h);
     v0 -= f.x;  // exact: f is v rounded
     v1 -= f.y;
-  }
-}
-
-// rows [0, LP) of a (rows, W) bf16 matrix (row stride rs, contiguous rows)
-// into shared memory with row stride W + PAD, zero from row `rows` on.
-// Where `vec` (every row 16-byte aligned) the rows come by cp.async, all
-// in flight; the caller commits and waits before it reads them.
-template <int W>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long rs,
-                                          int rows, int LP, bool vec) {
-  constexpr int CPR = W / 8;  // 16-byte pieces a row
-  for (int e = threadIdx.x; e < LP * CPR; e += THREADS) {
-    const int r = e / CPR, c = (e % CPR) * 8;
-    bf16* d = dst + r * (W + PAD) + c;
-    const bf16* p = src + r * rs + c;
-    if (r < rows && vec) {
-      cp_async16(d, p);
-    } else {
-      bf16 tmp[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) tmp[i] = r < rows ? p[i] : __float2bfloat16(0.f);
-      memcpy(d, tmp, sizeof(tmp));
-    }
   }
 }
 

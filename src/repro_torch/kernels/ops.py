@@ -55,7 +55,10 @@ def flash_decode(q, k, v, valid_len, *, scale, block_l=None):
 
 def ssd_scan(x, dt, A, B_, C_, *, chunk=256):
     """K6: the Mamba2 SSD chunked scan from a zero state, y (B, S, nh, hd) in
-    x's dtype (``ssd_scan.ssd_scan`` also gives the f32 y and final state)."""
+    x's dtype (``ssd_scan.ssd_scan`` also gives the f32 y and final state).
+    Differentiable: under autograd or ``torch.func`` it runs K6's autograd
+    Function (the forward with the entering states, then K6's backward
+    kernel)."""
     y, _ = _ssd.ssd_scan(x, dt, A, B_, C_, chunk)
     return y.to(x.dtype)
 

@@ -31,11 +31,32 @@ bound by bytes; the schedule's 151 MB of workspace traffic makes it 78 us.
 The FMA route's schedule at that shape needs 21.5 GFLOP of f32 FMA work
 (0.32 ms at 67 TFLOP/s).
 
-``ssd_scan(x, dt, A, B_, C_, chunk, h0=None)`` is the wrapper: a CPU tensor
-goes to the plain version ``ssd_chunked_plain`` (differentiable), a CUDA
-tensor to the kernel, which raises under autograd (K6's backward is
-ROADMAP queue 1's slice G2b) and on shapes it does not take. ``launches`` counts the
-kernel calls (one a call, whatever the number of phases).
+The backward (``csrc/ssd_scan_bwd.cu``) replaces no TPU kernel: the
+reference differentiates its jnp ``ssd_chunked`` with ``jax.grad`` and its
+Pallas kernel has no VJP. Given the state entering each chunk (``h_in``,
+which the forward writes in f32 when a gradient is wanted) it computes dx,
+ddt, dA, dB, dC and dh0 in four kernels: each chunk's own state term, the
+state gradient passed over the chunks in reverse, each chunk's gradients
+in 64-row blocks, and fixed-order sums over the heads (no float atomics).
+bf16 inputs with chunks of at most 256 and d_state of at least 64 take the
+tensor cores for the first and third, each f32 operand as two bf16 terms
+(``BWD_TERMS``); the rest f32 FMA. Every ``exp`` takes a difference
+masked to <= 0 first: the reference's ``jax.grad`` of ``ssd_chunked``
+gives NaN in ddt and dA once sum dt |A| over a chunk passes about 88, the
+backward stays finite. ``ssd_chunked_bwd_plain`` is its plain version.
+
+``ssd_scan(x, dt, A, B_, C_, chunk, h0=None)`` is the wrapper. Without
+autograd (and outside ``torch.func`` transforms) a CPU tensor goes to the
+plain version ``ssd_chunked_plain`` and a CUDA tensor to the forward kernel
+without ``h_in``, as serving runs it. When a gradient is wanted, or under
+``torch.func.vmap``/``grad``, the call goes through ``SSDScan``, an
+``autograd.Function`` whose forward saves ``h_in`` and whose backward runs
+``SSDScanBwd`` around the backward kernel; each has a ``vmap`` rule that
+folds the vmapped dimension into B (a vmapped A becomes one row per batch
+row, read through a batch stride). On the CPU both take their plain
+versions; a CUDA tensor reaches only the kernels, or raises on shapes they
+do not take. ``launches`` counts the forward kernel's calls (one a call,
+whatever the number of phases), ``bwd_launches`` the backward's.
 """
 from __future__ import annotations
 
@@ -54,6 +75,7 @@ SHAPES = ((32, 16), (32, 64), (32, 128), (64, 16), (64, 64), (64, 128))
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PHASES = 4  # kernels of the bf16 tensor-core route, from one C call
 BF16_TERMS = 2  # bf16 terms each f32 operand of that route is split into
+BWD_TERMS = 2  # the same, on the backward's tensor-core route
 
 
 def _wide(t):
@@ -209,7 +231,7 @@ def _bwd_launcher():
     lib = library("ssd_scan_bwd")
     fn = lib.ssd_scan_bwd_launch
     fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ws = lib.ssd_scan_bwd_workspace
     ws.argtypes = [ctypes.c_int] * 6
@@ -266,6 +288,13 @@ def _strides(x, dt, A, B_, C_):
                                     *dt.stride(), a_stride)
 
 
+def _vec(x, B_, C_) -> int:
+    """1 where every row of x, B and C is 16-byte aligned (16-byte loads)."""
+    row_strides = x.stride()[:3] + B_.stride()[:2] + C_.stride()[:2]
+    return int(all(t.data_ptr() % 16 == 0 for t in (x, B_, C_)) and all(
+        s % (16 // x.element_size()) == 0 for s in row_strides))
+
+
 def _forward(x, dt, A, B_, C_, chunk, h0, with_h_in):
     """(y, h_final, h_in or None): the plain version on the CPU, else the
     kernel; ``h_in`` the (B, nh, nc, hd, ds) f32 state entering each chunk."""
@@ -287,10 +316,6 @@ def _forward(x, dt, A, B_, C_, chunk, h0, with_h_in):
     h_final = torch.empty((Bb, nh, hd, ds), dtype=torch.float32, device=x.device)
     h_in = (torch.empty((Bb, nh, S // L, hd, ds), dtype=torch.float32, device=x.device)
             if with_h_in else None)
-    row_strides = x.stride()[:3] + B_.stride()[:2] + C_.stride()[:2]
-    # every row of x, B and C 16-byte aligned: 16-byte loads
-    vec = all(t.data_ptr() % 16 == 0 for t in (x, B_, C_)) and all(
-        s % (16 // x.element_size()) == 0 for s in row_strides)
     fn, workspace = _launcher()
     n_ws = workspace(Bb, S, nh, hd, ds, L, DTYPES[x.dtype])
     ws = torch.empty((n_ws,), dtype=torch.float32, device=x.device) if n_ws else None
@@ -301,7 +326,7 @@ def _forward(x, dt, A, B_, C_, chunk, h0, with_h_in):
                  y.data_ptr(), h_final.data_ptr(),
                  h_in.data_ptr() if h_in is not None else None,
                  ws.data_ptr() if ws is not None else None, Bb, S, nh, hd, ds, L,
-                 _strides(x, dt, A, B_, C_), DTYPES[x.dtype], int(vec), stream)
+                 _strides(x, dt, A, B_, C_), DTYPES[x.dtype], _vec(x, B_, C_), stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
     launches += 1
@@ -342,7 +367,7 @@ def _backward(x, dt, A, B_, C_, chunk, h_in, dy, dh_final):
                  dh_final.data_ptr() if dh_final is not None else None,
                  dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
                  dh0.data_ptr(), ws.data_ptr(), Bb, S, nh, hd, ds, L,
-                 _strides(x, dt, A, B_, C_), DTYPES[x.dtype], stream)
+                 _strides(x, dt, A, B_, C_), DTYPES[x.dtype], _vec(x, B_, C_), stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan_bwd launch failed: CUDA error {err}")
     bwd_launches += 1
@@ -363,6 +388,13 @@ def ssd_scan_bwd(x, dt, A, B_, C_, chunk, h_in, dy, dh_final=None):
     the backward kernel on a CUDA tensor (one counted launch of its four
     kernels), the plain version on a CPU tensor."""
     _check(x, dt, A, B_, C_, chunk, None)
+    Bb, S, nh, hd = x.shape
+    state = (Bb, nh, hd, B_.shape[-1])
+    entering = (Bb, nh, S // min(chunk, S), hd, B_.shape[-1])
+    if (tuple(h_in.shape) != entering or tuple(dy.shape) != tuple(x.shape)
+            or (dh_final is not None and tuple(dh_final.shape) != state)):
+        raise ValueError(f"h_in, dy and dh_final must be {entering}, {tuple(x.shape)} "
+                         f"and {state}")
     return _backward(x, dt, A, B_, C_, chunk, h_in, dy, dh_final)
 
 

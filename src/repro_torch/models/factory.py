@@ -10,9 +10,9 @@
 Port of ``repro.models.factory`` for dense attention decoders and pure
 Mamba2 (SSD) stacks. ``build`` raises for what the port cannot run yet,
 naming the slice that brings it. Training runs through autograd: on the
-card a dense decoder's attention takes K4 forward and backward; a Mamba2
-stack's ``sgd_train_step`` raises there until K6 has a backward (slice
-G2b), and trains on the CPU through K6's plain version.
+card a dense decoder's attention takes K4 forward and backward, a Mamba2
+stack's scan K6 forward and backward (their autograd Functions); on the
+CPU the same Functions take the plain versions.
 """
 from __future__ import annotations
 

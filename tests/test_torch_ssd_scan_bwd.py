@@ -21,7 +21,6 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch import convert  # noqa: E402
 from repro_torch.kernels import ssd_scan  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 

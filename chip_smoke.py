@@ -3908,10 +3908,17 @@ SSM_TRAIN_LR = 3e-3
 # outputs' share), as tests/test_torch_ssd_scan_bwd.py settles them on the CPU
 K6_BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-3, "bf16_out": 2.0 ** -8 + 1e-3}
 K6_BWD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dh0")
-# the backward's kernels by name (the bf16 route's phases 1 and 3 are the
-# "_tc_" ones; no name is a substring of another)
-K6_BWD_KERNELS = ("ssd_bwd_dstate_tc_kernel", "ssd_bwd_pass_kernel", "ssd_bwd_chunk_tc_kernel",
-                  "ssd_bwd_sum_kernel", "ssd_bwd_dstate_kernel", "ssd_bwd_chunk_kernel")
+# the backward's kernels by name (the bf16 tensor-core route: the pre-pass,
+# the reverse pass, the j-side and i-side wgmma kernels, the tail and the
+# sums; the FMA route: dstate, pass, chunk and sums; no name is a substring
+# of another). Its CB pass is the forward's ssd_cb_kernel, counted with K6's
+# forward.
+K6_BWD_KERNELS = ("ssd_bwd_prep_kernel", "ssd_bwd_pass_kernel", "ssd_bwd_jside_kernel",
+                  "ssd_bwd_iside_kernel", "ssd_bwd_tail_kernel", "ssd_bwd_sum_kernel",
+                  "ssd_bwd_dstate_kernel", "ssd_bwd_chunk_kernel")
+# the mma.sync design this route replaced, at the training shape (PERF.md
+# §6's K6 bwd row, H100 80GB HBM3 at 700.00 W)
+K6_BWD_MMA_SYNC_MS = {"ms": 1.116, "device_ms": 1.104}
 SSM_TRAIN_ARGV = [SSM_ARCH if a == LM_ARCH else a for a in TRAIN_ARGV]
 FL_SSM_SYNC_ARGV = [SSM_ARCH if a == LM_ARCH else a for a in FL_LM_SYNC_ARGV]
 FL_SSM_ASYNC_ARGV = [SSM_ARCH if a == LM_ARCH else a for a in FL_LM_ASYNC_ARGV]
@@ -3945,8 +3952,10 @@ def phase_kernel_k6_bwd(torch, k6):
     the plain forward; the kernel forward's h_in is held to it at K6_TOL,
     its y bitwise to the forward without h_in (and with A one row per
     batch row at the training shape). Gradients within K6_BWD_TOL of each
-    gradient's max, finite, two launches bitwise equal; the time beside its
-    bound, the FMA schedule's and the plain backward's."""
+    gradient's max, finite, two launches bitwise equal (three at the
+    training shape); the time beside its bound, the FMA schedule's, the
+    mma.sync design's and the plain backward's; the plan's grids and head
+    groups and the workspace's bytes."""
     gen = torch.Generator(device="cuda").manual_seed(24)
     bf16, f32 = torch.bfloat16, torch.float32
     B, S = TRAIN_SHAPE
@@ -4013,19 +4022,38 @@ def phase_kernel_k6_bwd(torch, k6):
         L, nc = 256, Sm // 256
         _, ops = _ssd_flops(Bm, Sm, nh, hd, ds, L)
         nb = L // 64
-        # the kernel's schedule: f32 FMA on whole 64 x 64 blocks, CB per head
-        fma_ops = Bm * nh * nc * (8 * L * hd * ds + nb * (nb + 1) // 2 * 2 * 64 * 64
-                                  * (3 * ds + 2 * hd))
+        pairs, blk = nb * (nb + 1) // 2, 64 * 64 * 2  # causal block pairs; 2 x 64 x 64
+        # the FMA route's schedule: f32 FMA on whole 64 x 64 blocks, CB per head
+        fma_ops = Bm * nh * nc * (8 * L * hd * ds + pairs * blk * (3 * ds + 2 * hd))
+        # the tensor-core route's wgmma work: per (b, head, chunk) the pre-pass's
+        # state term (2 terms), the j side's leaving-state terms (2 products of
+        # 2 terms a block) and its block pairs (dM^T 2, dx 3, dB 2 products),
+        # the i side's entering-state term (3 products a block) and block pairs
+        # (dM 2, dC 2); CB once per (b, chunk)
+        wgmma_ops = Bm * nh * nc * (2 * 2 * L * hd * ds + nb * 4 * 2 * 64 * hd * ds
+                                    + pairs * blk * (5 * hd + 2 * ds)
+                                    + nb * 3 * 2 * 64 * hd * ds + pairs * blk * (2 * hd + 2 * ds)) \
+            + Bm * nc * pairs * blk * ds
         n_state = Bm * nh * nc * hd * ds
         nbytes = (2 * x.numel() + 4 * B_.numel()) * 2 \
             + (2 * dt.numel() + nh + Bm * nh + x.numel() + n_state + Bm * nh * hd * ds) * 4
-        # the workspace: each chunk's term written, read and its dH_out
-        # written and read; the per-head dB and dC partials written and read
-        ws_bytes = 4 * n_state * 4 + 2 * 2 * Bm * nh * Sm * ds * 4
+        plan = k6.bwd_plan(Bm, Sm, nh, hd, ds, L,
+                           sms=torch.cuda.get_device_properties(0).multi_processor_count)
+        # the workspace's traffic, each region written once and read once by
+        # each kernel that reads it: the chunks' own terms (pre-pass, pass);
+        # dy's planes (pre-pass; j side, i side); dH_out's and h_in's planes
+        # (pass; j side, i side); CB (written; j side, i side); the head
+        # groups' dB and dC (j side, i side; sums); the row vectors are < 1%
+        ws_bytes = (2 * n_state * 4 + 3 * x.numel() * 4 + 2 * 2 * n_state * 4
+                    + 3 * Bm * nc * pairs * 64 * 64 * 4 + 2 * 2 * plan.groups * Bm * Sm * ds * 4)
         k6.bwd_launches = 0
         bound_s = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S)
         first = run()
+        again, third = run(), run()
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(first, again, third)):
+            raise AssertionError("K6 bwd: three launches at the training shape differ bitwise")
+        del again, third
         entry = {
             "name": "ssd_scan_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
@@ -4048,12 +4076,19 @@ def phase_kernel_k6_bwd(torch, k6):
           "tolerance_rel_to_max": K6_BWD_TOL, "h_in_tolerance": K6_TOL,
           "bf16_terms": k6.BWD_TERMS, **entry,
           "device_ms": dev_ms, "gflop": ops / 1e9, "fma_gflop": fma_ops / 1e9,
-          "mbytes": nbytes / 1e6, "workspace_mbytes": ws_bytes / 1e6,
+          "wgmma_gflop": wgmma_ops / 1e9, "device_wgmma_tflops": wgmma_ops / (dev_ms * 1e-3) / 1e12,
+          "mma_sync_design": {**K6_BWD_MMA_SYNC_MS, "source": "PERF.md §6, the K6 bwd row"},
+          "plan": {"group": plan.group, "groups": plan.groups, "items": plan.items,
+                   "j_grid": plan.j_grid, "i_grid": plan.i_grid, "j_smem": plan.j_smem,
+                   "i_smem": plan.i_smem, "launches": plan.launches,
+                   "workspace_mbytes": plan.workspace_bytes / 1e6},
+          "mbytes": nbytes / 1e6, "workspace_traffic_mbytes": ws_bytes / 1e6,
           "fma_bound_ms": max(nbytes / HBM_BYTES_PER_S, fma_ops / FP32_OPS_PER_S) * 1e3,
           "workspace_bound_ms": max((nbytes + ws_bytes) / HBM_BYTES_PER_S,
                                     ops / BF16_OPS_PER_S) * 1e3,
           "device_fma_tflops": fma_ops / (dev_ms * 1e-3) / 1e12,
           "share_of_bound": bound_s * 1e3 / dev_ms, "launches_bitwise": 2,
+          "launches_bitwise_at_training_shape": 3,
           "forward_bits_kept_with_h_in": True, "forward_bits_kept_with_a_rows": True,
           "rel_err_by_case": errs})
     return entry

@@ -214,15 +214,6 @@ struct WgBwd {
   long long dq_b, dq_h, dq_g, dq_s, dk_b, dk_h, dk_s, dv_b, dv_h, dv_s;
 };
 
-// the work item a persistent CTA takes in round r: rounds alternate
-// direction over the CTAs, so long items of early rounds pair with short
-// ones (-1 when none is left)
-__device__ __forceinline__ int round_item(int r, int total) {
-  const int n = static_cast<int>(gridDim.x), c = static_cast<int>(blockIdx.x);
-  const long long t = static_cast<long long>(r) * n + ((r & 1) ? n - 1 - c : c);
-  return t < total ? static_cast<int>(t) : -1;
-}
-
 // dK/dV: keys [kmin, kmin + 63] of one warpgroup against queries
 // [q0, q0 + bm - 1]: no allowed pair (skip), some (element mask), or all
 // (clean; a padded query row past S has P = 0 from its +inf lse). kind is 0

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks shared by K4's forward
-// (flash_attention.cu) and backward (flash_attention_bwd.cu): mbarriers, TMA
-// loads (4-D and 5-D tensor maps, and plain bulk copies), the wgmma
-// shared-memory descriptor and products (both operands in shared memory, or
-// A in registers and B N-major), named barriers, and the
-// tensor-map encoder reached through the CUDA runtime (no -lcuda).
+// (flash_attention.cu) and backward (flash_attention_bwd.cu) and K6's
+// backward (ssd_scan_bwd.cu): mbarriers, TMA loads (3-D to 5-D tensor maps,
+// and plain bulk copies), the wgmma shared-memory descriptor and products
+// (both operands in shared memory, either of them MN-major, or A in
+// registers and B N-major), named barriers, the generic-to-async proxy
+// fence, and the tensor-map encoder reached through the CUDA runtime (no
+// -lcuda).
 //
 // Fragment layouts (PTX ISA, wgmma m64nNk16): warp w of a warpgroup owns
 // rows 16w..16w+15; lane = 4 * gid + tid.
@@ -20,11 +22,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "mma_tiles.cuh"
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+namespace {
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
@@ -53,6 +53,15 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "memory");
     if (++tries == (1u << 24)) asm volatile("trap;");
   } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
 }
 
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -178,6 +187,58 @@ __device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint6
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// D (64 x N, f32) (+)= A (64 x 16) * B (16 x N), both in shared memory; TA
+// (TB) 1 where A (B) is stored MN-major, read through the transpose bit
+template <int N, int TA, int TB>
+struct WgmmaSS;
+
+template <int TA, int TB>
+struct WgmmaSS<32, TA, TB> {
+  static __device__ __forceinline__ void run(float* d, uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct WgmmaSS<64, TA, TB> {
+  static __device__ __forceinline__ void run(float* d, uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct WgmmaSS<128, TA, TB> {
+  static __device__ __forceinline__ void run(float* d, uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_sst(float* d, uint64_t a, uint64_t b, int scale_d) {
+  WgmmaSS<N, TA, TB>::run(d, a, b, scale_d);
+}
+
+// orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of them (wgmma operands, TMA stores)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // named barriers 1 and 2, over the 256 consumer threads
 __device__ __forceinline__ void named_sync(int id) {
   asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
@@ -198,6 +259,15 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// the work item a persistent CTA takes in round r: rounds alternate
+// direction over the CTAs, so long items of early rounds pair with short
+// ones (-1 when none is left)
+__device__ __forceinline__ int round_item(int r, int total) {
+  const int n = static_cast<int>(gridDim.x), c = static_cast<int>(blockIdx.x);
+  const long long t = static_cast<long long>(r) * n + ((r & 1) ? n - 1 - c : c);
+  return t < total ? static_cast<int>(t) : -1;
 }
 
 // cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
@@ -224,13 +294,15 @@ EncodeTiledFn encoder() {
   return fn;
 }
 
-// a bf16 tensor map: dims innermost first, byte strides of dims 1..rank-1
+// a bf16 (or `type`) tensor map: dims innermost first, byte strides of
+// dims 1..rank-1
 int encode_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-               const cuuint64_t* strides, const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+               const cuuint64_t* strides, const cuuint32_t* box, CUtensorMapSwizzle swizzle,
+               CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn fn = encoder();
   if (fn == nullptr) return 1000 + CUDA_ERROR_NOT_FOUND;
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
+  const CUresult r = fn(map, type, rank, const_cast<void*>(ptr), dims,
                         strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : 1000 + static_cast<int>(r);

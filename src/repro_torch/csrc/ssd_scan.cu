@@ -283,27 +283,6 @@ __device__ __forceinline__ uint32_t load_pair(const bf16* p, bool vec) {
   return pack(__halves2bfloat162(p[0], p[1]));
 }
 
-// cs[t] = inclusive cumsum of dt[t] * a over the chunk (t < L), in a fixed
-// order: a shuffle scan in each warp, then the warps' totals in order.
-// The state and output phases call this on the same inputs, so both see
-// the same bits. cs has THREADS entries (past L: the chunk total).
-__device__ __forceinline__ void chunk_cumsum(const float* dt_s, float a, float* cs,
-                                             float* warp_tot, int L) {
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  float v = t < L ? __fmul_rn(dt_s[t], a) : 0.f;  // no FMA contraction
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float u = __shfl_up_sync(0xffffffffu, v, off);
-    if (lane >= off) v = __fadd_rn(v, u);
-  }
-  if (lane == 31) warp_tot[warp] = v;
-  __syncthreads();
-  float base = 0.f;
-  for (int w = 0; w < warp; ++w) base = __fadd_rn(base, warp_tot[w]);
-  cs[t] = __fadd_rn(base, v);
-  __syncthreads();
-}
-
 // dt of (b, h, chunk) into dt_s (zero past L), then its cumsum into cs_s
 __device__ __forceinline__ void chunk_decay(const float* dt, float a, float* dt_s,
                                             float* cs_s, float* warp_tot, int b,
@@ -312,56 +291,6 @@ __device__ __forceinline__ void chunk_decay(const float* dt, float a, float* dt_
   dt_s[t] = t < L ? dt[b * st.db + (s0 + t) * st.ds + h * st.dh] : 0.f;
   __syncthreads();
   chunk_cumsum(dt_s, a, cs_s, warp_tot, L);
-}
-
-// Phase 1, per (b, chunk, 64 x 64 block at or below the diagonal):
-// CB[i][j] = C_i . B_j for every head at once (B and C have no head axis).
-// Exact products of bf16 inputs, summed in f32 by the tensor cores.
-template <int DS>
-__global__ void __launch_bounds__(THREADS)
-ssd_cb_kernel(const bf16* __restrict__ Bm, const bf16* __restrict__ Cm,
-              float* __restrict__ cb, int L, int ldc, Strides st, bool vec) {
-  constexpr int LD = DS + PAD;
-  __shared__ __align__(16) bf16 c_s[64 * LD];
-  __shared__ __align__(16) bf16 b_s[64 * LD];
-  int p = blockIdx.x, ib = 0;  // the block pair (ib, jb), jb <= ib
-  while (p > ib) p -= ++ib;
-  const int jb = p, c = blockIdx.y, b = blockIdx.z, nc = gridDim.y;
-  const int i0 = 64 * ib, j0 = 64 * jb, s0 = c * L;
-  load_tile<DS>(c_s, Cm + b * st.cb + (s0 + i0) * st.cs, st.cs, L - i0, 64, vec);
-  load_tile<DS>(b_s, Bm + b * st.bb + (s0 + j0) * st.bs, st.bs, L - j0, 64, vec);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int mi = lane >> 3, rr = lane & 7, g = lane >> 2, t4 = lane & 3;
-  const int mt = warp & 3, nq = warp >> 2;  // rows 16 mt, columns 32 nq
-  float acc[4][4] = {};
-#pragma unroll
-  for (int kk = 0; kk < DS / 16; ++kk) {
-    uint32_t a[4];
-    ldsm(a, c_s + (16 * mt + (mi & 1) * 8 + rr) * LD + 16 * kk + (mi >> 1) * 8);
-#pragma unroll
-    for (int np = 0; np < 2; ++np) {
-      uint32_t bq[4];  // B[k][j] = B_j[k], stored (j, k): no transpose
-      ldsm(bq, b_s + (32 * nq + 16 * np + (mi >> 1) * 8 + rr) * LD + 16 * kk +
-                   (mi & 1) * 8);
-      mma(acc[2 * np], a, bq[0], bq[1]);
-      mma(acc[2 * np + 1], a, bq[2], bq[3]);
-    }
-  }
-  float* out = cb + static_cast<long long>(b * nc + c) * L * ldc;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int i = i0 + 16 * mt + g + 8 * half;
-    if (i >= L) continue;
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const int j = j0 + 32 * nq + 8 * n + 2 * t4;
-      if (j < L) out[i * ldc + j] = acc[n][2 * half];
-      if (j + 1 < L) out[i * ldc + j + 1] = acc[n][2 * half + 1];
-    }
-  }
 }
 
 // Phase 2, per (b, head, chunk): the chunk's own state contribution

@@ -35,15 +35,20 @@ The backward (``csrc/ssd_scan_bwd.cu``) replaces no TPU kernel: the
 reference differentiates its jnp ``ssd_chunked`` with ``jax.grad`` and its
 Pallas kernel has no VJP. Given the state entering each chunk (``h_in``,
 which the forward writes in f32 when a gradient is wanted) it computes dx,
-ddt, dA, dB, dC and dh0 in four kernels: each chunk's own state term, the
-state gradient passed over the chunks in reverse, each chunk's gradients
-in 64-row blocks, and fixed-order sums over the heads (no float atomics).
-bf16 inputs with chunks of at most 256 and d_state of at least 64 take the
-tensor cores for the first and third, each f32 operand as two bf16 terms
-(``BWD_TERMS``); the rest f32 FMA. Every ``exp`` takes a difference
-masked to <= 0 first: the reference's ``jax.grad`` of ``ssd_chunked``
-gives NaN in ddt and dA once sum dt |A| over a chunk passes about 88, the
-backward stays finite. ``ssd_chunked_bwd_plain`` is its plain version.
+ddt, dA, dB, dC and dh0 with no float atomics. bf16 inputs with chunks of
+at most 256 and d_state of at least 64 (``tc_route``) take seven kernels on
+``wgmma``: CB once per (batch, chunk); a pre-pass (the warp-scan cumsum,
+dy's two bf16 planes, each chunk's own state term); the state gradient
+passed over the chunks in reverse (dH_out's and h_in's planes); a j-side
+and an i-side kernel, persistent and warp-specialised, fed by TMA and bulk
+copies through mbarrier rings, whose work items are (batch, chunk, 64-row
+block, group of heads) in the order of ``bwd_plan``; a tail and the sums
+over the head groups. Each f32 operand goes in as two bf16 terms
+(``BWD_TERMS``). f32 inputs and the other bf16 shapes take the f32 FMA
+route (four kernels). Every ``exp`` takes a difference masked to <= 0
+first: the reference's ``jax.grad`` of ``ssd_chunked`` gives NaN in ddt and
+dA once sum dt |A| over a chunk passes about 88, the backward stays
+finite. ``ssd_chunked_bwd_plain`` is its plain version.
 
 ``ssd_scan(x, dt, A, B_, C_, chunk, h0=None)`` is the wrapper. Without
 autograd (and outside ``torch.func`` transforms) a CPU tensor goes to the
@@ -56,17 +61,18 @@ folds the vmapped dimension into B (a vmapped A becomes one row per batch
 row, read through a batch stride). On the CPU both take their plain
 versions; a CUDA tensor reaches only the kernels, or raises on shapes they
 do not take. ``launches`` counts the forward kernel's calls (one a call,
-whatever the number of phases), ``bwd_launches`` the backward's.
+whatever the number of phases), ``bwd_launches`` the backward's (one a
+call, whatever the number of kernels).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.flash_attention import _fold, _tracked, _unfold
+from repro_torch.kernels.flash_attention import _fold, _order_on, _tracked, _unfold
 
 launches = 0  # forward kernel calls
 bwd_launches = 0  # backward kernel calls
@@ -225,18 +231,145 @@ def _launcher():
 @functools.cache
 def _bwd_launcher():
     """The built library's ``ssd_scan_bwd_launch`` and
-    ``ssd_scan_bwd_workspace``, typed (built at first use)."""
+    ``ssd_scan_bwd_workspace``, typed (built at first use); the tensor-core
+    route's shared memory checked against ``bwd_plan``'s for every shape."""
     from repro_torch.kernels.build import library
 
     lib = library("ssd_scan_bwd")
+    cfg = lib.ssd_scan_bwd_config
+    cfg.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    cfg.restype = ctypes.c_int
+    for hd, ds in SHAPES:
+        if ds >= 64:
+            out = (ctypes.c_int * 4)()
+            if cfg(hd, ds, out) != 0 or tuple(out) != _bwd_smem(hd, ds):
+                raise RuntimeError(f"csrc/ssd_scan_bwd.cu's shared memory at {(hd, ds)} is "
+                                   f"{tuple(out)}, bwd_plan's {_bwd_smem(hd, ds)}")
     fn = lib.ssd_scan_bwd_launch
     fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ws = lib.ssd_scan_bwd_workspace
-    ws.argtypes = [ctypes.c_int] * 6
+    ws.argtypes = [ctypes.c_int] * 8
     ws.restype = ctypes.c_longlong
     return fn, ws
+
+
+# --- the bf16 backward's schedule (csrc/ssd_scan_bwd.cu's tensor-core route) --
+
+BWD_BLOCK = 64  # rows of a j or i block
+BWD_GROUP = 8  # heads of a work item (all of them where there are fewer)
+BWD_STAGES = 2  # ring slots of the j-side and i-side kernels
+TC_MAX_CHUNK = 256
+
+
+def tc_route(dtype, ds: int, L: int) -> bool:
+    """Whether the backward takes the tensor-core route: bf16 inputs,
+    d_state of at least 64, chunks of at most 256."""
+    return dtype == torch.bfloat16 and ds >= 64 and L <= TC_MAX_CHUNK
+
+
+def _round1024(n: int) -> int:
+    return -(-n // 1024) * 1024
+
+
+@functools.cache
+def _bwd_smem(hd: int, ds: int) -> tuple:
+    """``TcCfg<hd, ds>`` of the CUDA source in ``ssd_scan_bwd_config``'s
+    order: (j-side bytes, i-side bytes, pre-pass bytes, ring slots)."""
+    x, bc, st, cb, rows = 64 * hd * 2, 64 * ds * 2, hd * ds * 2, 64 * 64 * 4, 64 * 4
+    bars = 8 * (8 + 2 * BWD_STAGES) + 1024  # mbarriers and the 1024-byte alignment slack
+    j_slot = _round1024(max(bc + cb + 4 * x + 2 * rows, 4 * st))
+    j_smem = 2 * bc + 2 * _round1024(2 * x) + BWD_STAGES * j_slot + bars
+    i_slot = _round1024(max(bc + cb + 2 * x + 4 * rows, 4 * st))
+    i_smem = 2 * bc + 2 * _round1024(4 * x) + BWD_STAGES * i_slot + bars
+    prep_smem = bc + 2 * x + 4 * (2 * 256 + 8) + 1024
+    return (j_smem, i_smem, prep_smem, BWD_STAGES)
+
+
+def bwd_workspace_floats(B: int, S: int, nh: int, hd: int, ds: int, L: int,
+                         group: int) -> int:
+    """``ssd_scan_bwd_workspace`` of the tensor-core route, in floats: the
+    chunks' own state terms; their totals and dA parts; cs and dt; dy's bf16
+    planes;
+    dH_out's and h_in's; CB once per (batch, chunk); <dH_out, h_in>'s warp
+    partials; d cs's row and column parts, ddt's direct part and w u; the
+    head groups' dB and dC. Each region is whole KB."""
+    nc, lp, ldc = S // L, -(-L // BWD_BLOCK) * BWD_BLOCK, (L + 3) // 4 * 4
+    bhc, ng = B * nh * nc, -(-nh // group)
+    sizes = [bhc * hd * ds, bhc, bhc, bhc * lp, bhc * lp, bhc * lp * hd, bhc * hd * ds,
+             bhc * hd * ds, B * nc * L * ldc, bhc * hd * ds // 128] + [B * nh * S] * 4 + [
+        ng * B * S * ds] * 2
+    return sum(-(-n // 256) * 256 for n in sizes)
+
+
+class SSDBwdPlan(NamedTuple):
+    B: int
+    S: int
+    nh: int
+    hd: int
+    ds: int
+    L: int
+    chunks: int
+    blocks: int  # 64-row blocks a chunk
+    group: int  # heads a work item, in pairs (one a consumer warpgroup)
+    groups: int
+    j_order: tuple  # j blocks, longest walk (most i blocks) first
+    i_order: tuple  # i blocks, longest walk (most j blocks) first
+    items: int  # work items of each main kernel: (b, chunk, block, group)
+    j_grid: int  # persistent CTAs: min(items, the card's SMs)
+    i_grid: int
+    j_smem: int
+    i_smem: int
+    prep_smem: int
+    stages: int
+    workspace_bytes: int
+    launches: int  # kernels a call: CB, pre-pass, pass, j side, i side, tail, sums
+
+
+def bwd_item(plan: SSDBwdPlan, t: int, side: str) -> tuple:
+    """(b, chunk, block, group) of work item t of the "j" or "i" kernel, as
+    the kernels decode it: the block from the plan's order, then (b, chunk,
+    group) with the group fastest."""
+    order = plan.j_order if side == "j" else plan.i_order
+    per = plan.B * plan.chunks * plan.groups
+    rest = t % per
+    bc = rest // plan.groups
+    return bc // plan.chunks, bc % plan.chunks, order[t // per], rest % plan.groups
+
+
+def bwd_walk(plan: SSDBwdPlan, t: int, side: str) -> list:
+    """The (b, chunk, head, i block, j block) pairs work item t visits, in
+    order: its heads in turn, each walking i blocks from j's (j side) or j
+    blocks up to i's (i side)."""
+    b, c, blk, g = bwd_item(plan, t, side)
+    heads = range(g * plan.group, min(plan.nh, (g + 1) * plan.group))
+    if side == "j":
+        return [(b, c, h, ib, blk) for h in heads for ib in range(blk, plan.blocks)]
+    return [(b, c, h, blk, jb) for h in heads for jb in range(blk + 1)]
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(B: int, S: int, nh: int, hd: int, ds: int, L: int, *, sms: int) -> SSDBwdPlan:
+    """The tensor-core backward's schedule at (B, S, nh, hd, ds), chunks of
+    L, on a card of ``sms`` SMs (one persistent CTA per SM, fewer when
+    there are fewer work items). The head-group size depends on nh alone,
+    so a cohort folded into B sums its heads as each client's call does."""
+    if (hd, ds) not in SHAPES or ds < 64 or not 0 < L <= TC_MAX_CHUNK or S % L:
+        raise ValueError(f"no tensor-core backward at (hd, ds, L, S) = {(hd, ds, L, S)}")
+    nc, nb = S // L, -(-L // BWD_BLOCK)
+    group = min(nh, BWD_GROUP)
+    groups = -(-nh // group)
+    items = B * nc * nb * groups
+    j_smem, i_smem, prep_smem, stages = _bwd_smem(hd, ds)
+    return SSDBwdPlan(
+        B, S, nh, hd, ds, L, nc, nb, group, groups,
+        j_order=tuple(sorted(range(nb), key=lambda j: (-(nb - j), j))),
+        i_order=tuple(sorted(range(nb), key=lambda i: (-(i + 1), i))),
+        items=items, j_grid=min(items, sms), i_grid=min(items, sms), j_smem=j_smem,
+        i_smem=i_smem, prep_smem=prep_smem, stages=stages,
+        workspace_bytes=4 * bwd_workspace_floats(B, S, nh, hd, ds, L, group), launches=7)
 
 
 def _check(x, dt, A, B_, C_, chunk, h0):
@@ -272,6 +405,12 @@ def _check_kernel(x, dt, A, B_, C_):
                          f"got {(hd, ds)}")
     if any(t.stride(-1) != 1 for t in (x, B_, C_)):
         raise ValueError("x, B_ and C_ must be contiguous in their last dim")
+
+
+@functools.lru_cache(maxsize=16)
+def _sms(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _f32_aligned(t):
@@ -359,7 +498,16 @@ def _backward(x, dt, A, B_, C_, chunk, h_in, dy, dh_final):
     dB, dC = (torch.empty((Bb, S, ds), dtype=x.dtype, device=dev) for _ in range(2))
     dh0 = torch.empty((Bb, nh, hd, ds), dtype=torch.float32, device=dev)
     fn, workspace = _bwd_launcher()
-    ws = torch.empty((workspace(Bb, S, nh, hd, ds, L),), dtype=torch.float32, device=dev)
+    order, j_grid, i_grid, group = None, 0, 0, 1
+    if tc_route(x.dtype, ds, L):
+        plan = bwd_plan(Bb, S, nh, hd, ds, L, sms=_sms(dev))
+        order = _order_on(plan.j_order + plan.i_order, dev)
+        j_grid, i_grid, group = plan.j_grid, plan.i_grid, plan.group
+    n_ws = workspace(Bb, S, nh, hd, ds, L, DTYPES[x.dtype], group)
+    if order is not None and 4 * n_ws != plan.workspace_bytes:
+        raise RuntimeError(f"csrc/ssd_scan_bwd.cu's workspace is {4 * n_ws} bytes, "
+                           f"bwd_plan's {plan.workspace_bytes}")
+    ws = torch.empty((n_ws,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(), C_.data_ptr(),
@@ -367,7 +515,9 @@ def _backward(x, dt, A, B_, C_, chunk, h_in, dy, dh_final):
                  dh_final.data_ptr() if dh_final is not None else None,
                  dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
                  dh0.data_ptr(), ws.data_ptr(), Bb, S, nh, hd, ds, L,
-                 _strides(x, dt, A, B_, C_), DTYPES[x.dtype], _vec(x, B_, C_), stream)
+                 _strides(x, dt, A, B_, C_), DTYPES[x.dtype], _vec(x, B_, C_),
+                 order.data_ptr() if order is not None else None, j_grid, i_grid, group,
+                 stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan_bwd launch failed: CUDA error {err}")
     bwd_launches += 1
@@ -385,8 +535,9 @@ def ssd_scan_with_h_in(x, dt, A, B_, C_, chunk: int = 256, h0=None):
 def ssd_scan_bwd(x, dt, A, B_, C_, chunk, h_in, dy, dh_final=None):
     """(dx, ddt, dA, dB, dC, dh0) from the forward's ``h_in`` and the
     output gradients, outside autograd, dA one (B, nh) row per batch row;
-    the backward kernel on a CUDA tensor (one counted launch of its four
-    kernels), the plain version on a CPU tensor."""
+    the backward kernels on a CUDA tensor (one counted launch: seven kernels
+    on the tensor-core route, four on the FMA route), the plain version on a
+    CPU tensor."""
     _check(x, dt, A, B_, C_, chunk, None)
     Bb, S, nh, hd = x.shape
     state = (Bb, nh, hd, B_.shape[-1])

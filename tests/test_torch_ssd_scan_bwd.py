@@ -1,6 +1,6 @@
 """K6's backward (``kernels/ssd_scan.py``): the plain backward
 ``ssd_chunked_bwd_plain``, the autograd Functions ``SSDScan``/``SSDScanBwd``
-and ``emulate_bwd``, the backward kernel's four phases replayed on CPU
+and ``emulate_bwd``, the backward kernels' schedule replayed on CPU
 tensors.
 
 The plain backward is held to ``torch.autograd`` of ``ssd_chunked_plain``
@@ -284,20 +284,43 @@ def _mm(eq, a, b, terms, exact):
                for t in range(terms - s)).float()
 
 
+def warp_scan_cumsum(v):
+    """Inclusive cumsum of v (..., L), L <= 256, in f32 and in the kernels'
+    fixed order (``ssd_common.cuh::chunk_cumsum``): a shuffle scan in each
+    warp of 32 rows, then the warps' totals added in order."""
+    L = v.shape[-1]
+    x = torch.zeros(v.shape[:-1] + (256,), dtype=torch.float32)
+    x[..., :L] = v.float()
+    x = x.reshape(*v.shape[:-1], 8, 32)
+    lane = torch.arange(32)
+    for off in (1, 2, 4, 8, 16):
+        up = torch.zeros_like(x)
+        up[..., off:] = x[..., :-off]
+        x = torch.where(lane >= off, x + up, x)
+    base, run = torch.zeros(x.shape[:-1]), torch.zeros(x.shape[:-2])
+    for w in range(8):
+        base[..., w] = run
+        run = run + x[..., w, 31]
+    return (base[..., None] + x).reshape(*v.shape[:-1], 256)[..., :L]
+
+
 def emulate_bwd(x, dt, A, B_, C_, chunk, h_in, dy, dh_final=None, terms=None):
-    """The backward kernel's four phases on CPU tensors, in f32, each
-    (batch, head, chunk) at once: (1) each chunk's own term sum_i
-    exp(cs_i) dy_i (x) C_i; (2) the reverse pass giving each chunk's dH_out
-    and dh0; (3) per chunk, 64-row j blocks outside and i >= j blocks
-    inside: the leaving state's terms of the j rows, the entering state's
-    terms of the i rows while j is the first block, the block pair's CB,
-    dM, M, P, G and Q (masked before exp), d cs's row and column sums, dx
-    and dB of the j rows and dC of the i rows; then d cs's state terms, its
-    reverse cumsum, ddt and each chunk's dA; (4) dB and dC summed over the
-    heads in head order in x's dtype, dA over the chunks. Phases 1 and 3's
-    products as the FMA kernels take them (``terms`` None) or as the
-    tensor-core kernels do (``terms`` bf16 terms of each f32 operand: dy,
-    dH_out, h_in, M and P). Returns what ``ssd_scan_bwd`` returns (dA one row per batch
+    """The backward kernels' schedule on CPU tensors, in f32, each (batch,
+    head, chunk) at once, products as the tensor-core route takes them
+    (``terms`` bf16 terms of each f32 operand) or in f32 (``terms`` None):
+    CB once per (batch, chunk); the pre-pass's warp-scan cumsum, dy's terms
+    (made once) and each chunk's own state term (exp(cs) dy)^T C; the reverse
+    pass giving dH_out, dh0 and <dH_out, h_in>; the j side, per 64-row j block
+    and head: the leaving state's terms (dx_j = w_j dH_out B_j, dB_j, u_j),
+    then for each i block >= j dM^T = x_j dy_i^T, M^T and P^T masked before
+    exp, d cs's and ddt's column sums, dx_j += M^T dy_i (hi hi, hi lo, lo
+    hi), dB_j += P^T C_i; the i side, per i block and head: the entering
+    state's R = exp(cs_i) dy_i h_in (three products) into dC_i and C_i . R_i
+    into d cs_i, then for each j block <= i dM = dy_i x_j^T, G's row sums
+    and dC_i += P B_j; each head group's dB and dC as its two consumers'
+    sums (heads 0, 2, .. then 1, 3, ..), the groups summed in order; the
+    tail's reverse cumsum (the same warp scan over the reversed rows), ddt
+    and dA. Returns what ``ssd_scan_bwd`` returns (dA one row per batch
     row)."""
     Bb, S, nh, hd = x.shape
     ds = B_.shape[-1]
@@ -315,9 +338,10 @@ def emulate_bwd(x, dt, A, B_, C_, chunk, h_in, dy, dh_final=None, terms=None):
     Bs, Cs = shared(B_), shared(C_)
     dts = heads(dt[..., None])[..., 0]  # (B, nh, nc, L)
     a = ssd_scan._rows(A, Bb).float()[:, :, None, None]  # (B, nh, 1, 1)
-    cs = torch.cumsum(dts * a, dim=-1)
+    cs = warp_scan_cumsum(dts * a)
     total = cs[..., -1:]
-    # (1) and (2)
+    cb = torch.einsum("bxcin,bxcjn->bxcij", Cs, Bs)  # CB once per (b, chunk)
+    # the pre-pass and the pass
     own = _mm("bhcip,bxcin->bhcpn", torch.exp(cs)[..., None] * dys, Cs, terms, "b")
     g = torch.zeros((Bb, nh, hd, ds), dtype=f) if dh_final is None else dh_final.float()
     d_out = torch.empty((Bb, nh, nc, hd, ds), dtype=f)
@@ -325,61 +349,71 @@ def emulate_bwd(x, dt, A, B_, C_, chunk, h_in, dy, dh_final=None, terms=None):
         d_out[:, :, c] = g
         g = torch.exp(total[:, :, c])[..., None] * g + own[:, :, c]
     dh0 = g
-    # (3)
+    dot = (d_out * h_in.float()).sum((-2, -1))
     w = torch.exp(total - cs) * dts
-    dcs = torch.zeros_like(cs)
-    ddt_dir = torch.zeros_like(cs)
-    dx = torch.zeros_like(xs)
-    dBp = torch.zeros((Bb, nh, nc, L, ds), dtype=f)
-    dCp = torch.zeros((Bb, nh, nc, L, ds), dtype=f)
-    wu = torch.zeros_like(cs)
     blocks = [slice(r, min(r + BLK, L)) for r in range(0, L, BLK)]
+    idx = torch.arange(L)
+
+    def pair(I, J):  # the block pair's decay, masked before exp
+        diff = cs[..., I][..., :, None] - cs[..., J][..., None, :]
+        return torch.exp(torch.where(idx[J][None, :] <= idx[I][:, None], diff, -torch.inf))
+
+    # the j side
+    dx = torch.zeros_like(xs)
+    dBh = torch.zeros((Bb, nh, nc, L, ds), dtype=f)
+    col = torch.zeros_like(cs)
+    ddt_dir = torch.zeros_like(cs)
+    wu = torch.zeros_like(cs)
     for jb, J in enumerate(blocks):
-        xj, bj = xs[..., J, :], Bs[..., J, :]
-        wj = w[..., J]
+        xj, bj, wj, dtj = xs[..., J, :], Bs[..., J, :], w[..., J], dts[..., J][..., None, :]
         vx = _mm("bxcjn,bhcpn->bhcjp", bj, d_out, terms, "a")  # dH_out B_j
         wx = _mm("bhcjp,bhcpn->bhcjn", xj, d_out, terms, "a")  # dH_out^T x_j
         u = (wx * bj).sum(-1)
         dxa, dba = wj[..., None] * vx, wj[..., None] * wx
-        wu[..., J] = wj * u
-        dcs[..., J] -= wj * u
-        ddt_dir[..., J] += torch.exp(total - cs[..., J]) * u
+        sg, sq = torch.zeros_like(wj), torch.zeros_like(wj)
         for I in blocks[jb:]:
-            dyi, ci = dys[..., I, :], Cs[..., I, :]
-            rowg = torch.zeros_like(cs[..., I])
-            if jb == 0:
-                r = torch.exp(cs[..., I])[..., None] * _mm(
-                    "bhcip,bhcpn->bhcin", dyi, h_in.float(), terms, None)
-                dCp[..., I, :] = r
-                rowg = (r * ci).sum(-1)
-            sc = torch.einsum("bxcin,bxcjn->bxcij", ci, bj)
-            dm = _mm("bhcip,bhcjp->bhcij", dyi, xj, terms, "b")
-            i_idx = torch.arange(L)[I][:, None]
-            j_idx = torch.arange(L)[J][None, :]
-            diff = cs[..., I][..., :, None] - cs[..., J][..., None, :]
-            e = torch.exp(torch.where(j_idx <= i_idx, diff, -torch.inf))
-            dtj = dts[..., J][..., None, :]
-            M, P = sc * e * dtj, dm * e * dtj
-            Q = dm * sc * e
-            G = Q * dtj
-            dcs[..., I] += rowg + G.sum(-1)
-            dcs[..., J] -= G.sum(-2)
-            ddt_dir[..., J] += Q.sum(-2)
-            dxa = dxa + _mm("bhcij,bhcip->bhcjp", M, dyi, terms, None)
-            dba = dba + _mm("bhcij,bxcin->bhcjn", P, ci, terms, "b")
-            dCp[..., I, :] += _mm("bhcij,bxcjn->bhcin", P, bj, terms, "b")
+            e = pair(I, J)
+            dm = _mm("bhcip,bhcjp->bhcij", dys[..., I, :], xj, terms, "b")
+            cbe = cb[..., I, J] * e
+            Q = dm * cbe
+            sq = sq + Q.sum(-2)
+            sg = sg + (Q * dtj).sum(-2)
+            dxa = dxa + _mm("bhcij,bhcip->bhcjp", cbe * dtj, dys[..., I, :], terms, None)
+            dba = dba + _mm("bhcij,bxcin->bhcjn", dm * e * dtj, Cs[..., I, :], terms, "b")
         dx[..., J, :] = dxa
-        dBp[..., J, :] = dba
-    last = torch.exp(total[..., 0]) * (d_out * h_in.float()).sum((-2, -1)) + wu.sum(-1)
-    dcs[..., -1] += last
-    dl = torch.flip(torch.cumsum(torch.flip(dcs, (-1,)), -1), (-1,))
-    ddt = ddt_dir + a * dl
-    dA = (dts * dl).sum(-1).sum(-1)  # over the chunk's rows, then the chunks in order
-    # (4)
+        dBh[..., J, :] = dba
+        wu[..., J] = wj * u
+        col[..., J] = -(wj * u + sg)
+        ddt_dir[..., J] = torch.exp(total - cs[..., J]) * u + sq
+    # the i side
+    dCh = torch.zeros((Bb, nh, nc, L, ds), dtype=f)
+    row = torch.zeros_like(cs)
+    for ib, I in enumerate(blocks):
+        dyi, ci = dys[..., I, :], Cs[..., I, :]
+        r = torch.exp(cs[..., I])[..., None] * _mm("bhcip,bhcpn->bhcin", dyi, h_in.float(),
+                                                    terms, None)
+        dca, rg = r, (r * ci).sum(-1)
+        for J in blocks[:ib + 1]:
+            e = pair(I, J)
+            dtj = dts[..., J][..., None, :]
+            dm = _mm("bhcip,bhcjp->bhcij", dyi, xs[..., J, :], terms, "b")
+            rg = rg + (dm * cb[..., I, J] * e * dtj).sum(-1)
+            dca = dca + _mm("bhcij,bxcjn->bhcin", dm * e * dtj, Bs[..., J, :], terms, "b")
+        dCh[..., I, :] = dca
+        row[..., I] = rg
+    # the head groups, then the tail
+    group = min(nh, ssd_scan.BWD_GROUP)
     dB = torch.zeros((Bb, nc, L, ds), dtype=f)
     dC = torch.zeros((Bb, nc, L, ds), dtype=f)
-    for h in range(nh):
-        dB, dC = dB + dBp[:, h], dC + dCp[:, h]
+    for g0 in range(0, nh, group):
+        parts = [range(g0 + k, min(nh, g0 + group), 2) for k in (0, 1)]
+        dB = dB + sum((sum(dBh[:, h] for h in hs) for hs in parts if len(hs)), 0)
+        dC = dC + sum((sum(dCh[:, h] for h in hs) for hs in parts if len(hs)), 0)
+    dcs = row + col
+    dcs[..., -1] += torch.exp(total[..., 0]) * dot + wu.sum(-1)
+    dl = torch.flip(warp_scan_cumsum(torch.flip(dcs, (-1,))), (-1,))
+    ddt = ddt_dir + a * dl
+    dA = (dts * dl).sum(-1).sum(-1)  # over the chunk's rows, then the chunks in order
     return (dx.permute(0, 2, 3, 1, 4).reshape(Bb, S, nh, hd).to(x.dtype),
             ddt.permute(0, 2, 3, 1).reshape(Bb, S, nh), dA,
             dB.reshape(Bb, S, ds).to(x.dtype), dC.reshape(Bb, S, ds).to(x.dtype), dh0)
@@ -535,6 +569,35 @@ def test_backward_kernel_is_finite_past_the_overflow_on_gpu(cuda):
     for name, g, e in zip(GRADS, got, exp):
         assert bool(torch.isfinite(g).all()), name
         assert _rel(g.cpu(), e.cpu()) < 1e-4, (name, _rel(g.cpu(), e.cpu()))
+
+
+@pytest.mark.cuda
+def test_three_launches_and_a_cohort_repeat_bitwise_at_the_training_shape_on_gpu(cuda):
+    """mamba2-370m's training shape, bf16, the tensor-core route: three
+    launches give the same bits; ``vmap(grad)`` over a cohort of 4 clients of
+    (1, 2048) each is one forward and one backward launch, each client's
+    gradients bitwise its own call's (the head groups depend on nh alone)."""
+    x, dt, A, B_, C_, dy = _on_card(4, 2048, 32, 64, 128, torch.bfloat16, 7)
+    _, _, h_in = ssd_scan.ssd_scan_with_h_in(x, dt, A, B_, C_, 256)
+    runs = [ssd_scan.ssd_scan_bwd(x, dt, A, B_, C_, 256, h_in, dy) for _ in range(3)]
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(GRADS, *runs):
+        assert torch.equal(a, b) and torch.equal(a, c), name
+    del runs
+
+    def loss(x_, dt_, A_, B__, C__, dy_):
+        return (ssd_scan.ssd_scan(x_, dt_, A_, B__, C__, 256)[0] * dy_).sum()
+
+    grad = torch.func.grad(loss, argnums=(0, 1, 2, 3, 4))
+    cohort = [t[:, None] for t in (x, dt, B_, C_, dy)]  # 4 clients of batch 1
+    f0, b0 = ssd_scan.launches, ssd_scan.bwd_launches
+    batched = torch.func.vmap(grad, in_dims=(0, 0, None, 0, 0, 0))(
+        cohort[0], cohort[1], A, cohort[2], cohort[3], cohort[4])
+    assert (ssd_scan.launches - f0, ssd_scan.bwd_launches - b0) == (1, 1)
+    for i in range(4):
+        one = grad(*(t[i] for t in cohort[:2]), A, *(t[i] for t in cohort[2:]))
+        for name, b, s in zip(GRADS, batched, one):
+            assert torch.equal(b[i], s), name
 
 
 @pytest.mark.cuda

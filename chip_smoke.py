@@ -169,7 +169,9 @@ prints one JSON line for each:
           different splits); the cluster size and CTA count; its time with
           the host's call and on the device;
           ``scaled_dot_product_attention`` with a boolean prefix mask as
-          yardstick.
+          yardstick; and the serving tier's pool shape (8, 4, 8, 96, 64)
+          with a ragged per-row valid_len from 1 to L, timed beside its
+          plain version (``per_row_valid_len``).
   serve_main   tinyllama-1.1b at full width (22 layers, bf16, weights from
           seed 0): ``model.prefill`` at (B, S) = (4, 2048) must launch K4 22
           times; then ``repro_torch.launch.serve.serve`` at batch 8, prompt
@@ -229,6 +231,32 @@ prints one JSON line for each:
           ``prefill_tokens`` for logits, state and conv window, and against
           the CPU's plain route; then mamba2-370m at full width, f32 held to
           CONSISTENCY_TOL and the bf16 gap and top-1 agreement reported.
+  serve_loop   slice H's serving tier on tinyllama-1.1b at full width and
+          depth (bf16, weights from seed 0), over a ring of SERVE_RING_H
+          versions (slot v holds the params times 1 + 0.01 v, 8.8 GB). (a)
+          Contracts: six requests joining and leaving around each other on
+          2 replicas x 4 slots (round_robin, prompt 16, gen 3-5), each
+          stream's tokens bitwise its decode alone in a pool of the same
+          width on the same version, Var[X] = 0 and E[X] = 2; then three
+          replicas at stagger 0 under ``replica_crash`` at 0.15: crashes
+          and failovers happen, every stream completes, the tokens equal
+          the calm run's. (b) SERVE_TRACE timed: a ``sample_requests`` trace
+          (lognormal, rate 1 a tick, prompt 32, median gen 32, 24 ticks)
+          through the markov router on 2 replicas x 8 slots: ms a tick,
+          decode tokens/s, TTFT in ticks and ms, staleness, Var[X] and E[X]
+          over replicas, host reads a tick, peak memory. Each part's K5
+          launches are exactly 22 a decode step it counts (every pool tick
+          and every join token); no plain version runs; the pool tick makes
+          no host sync; its device-busy share, and the tick replayed from a
+          CUDA graph (logits bitwise the eager tick's) beside eager ticks.
+  serve_fleet  ``repro_torch.launch.serve_fleet.main`` at the reference's
+          defaults (reduced tinyllama, 32 clients, k 8, 8 steps in chunks of
+          4, ring H = 8, 2 replicas x 4 slots, markov, rate 1, prompt 8, gen
+          8, 12 ticks a chunk), then with ``--crash-rate 0.1``: every
+          chunk's head read of ``VersionStore.from_engine`` bitwise the
+          engine's params, finite losses, every stream served (none dropped
+          under crashes, and a crash happens), K5 once per layer per decode
+          step; the driver's summary.
 
   kernel_k4_bwd  K4's backward (``csrc/flash_attention_bwd.cu``) against
           ``flash_attention_bwd_plain`` on the card: the training shape
@@ -296,7 +324,9 @@ which turn TF32 off; the slice C, D, E and F phases run after
 ``async_defense``, ``sync_defense``, ``sharded_main``) set TF32 back to
 what ``main`` ran with while they run.
 Then the ``{"kernels": [...]}`` line (K2, K1, K4, K5, K3, K6, K4's
-backward, K6's backward; each count the sum over the paths that launch it), the card's
+backward, K6's backward; each count the sum over the paths that launch it:
+K5's over ``serve_main``, ``serve_loop``'s timed run and ``serve_fleet``'s
+default run), the card's
 name and power limit as ``nvidia-smi`` reports them, and, last, the device
 line. Any failure exits non-zero; without a GPU, or outside a checkout of
 the repository, the script fails before printing a result. It imports
@@ -348,6 +378,13 @@ OLDEST_ARGV = ["--dataset", "mnist", "--data-scale", "5", "--clients", "16384",
 K6_TOL = 1e-4
 SSM_ARCH = "mamba2-370m"
 SSM_SERVE_ARGS = dict(batch=8, prompt_len=256, gen=128, temperature=0.8, seed=0)
+# slice H, the serving tier: serve_loop's ring, contracts and timed trace
+SERVE_RING_H = 4
+SERVE_CONTRACT = dict(requests=6, prompt_len=16, slots=4)  # gen 3-5, one arrival a tick
+SERVE_CRASH = dict(n_replicas=3, rate=0.15, seed=1)
+SERVE_TRACE = dict(profile="lognormal", rate=1.0, prompt_len=32, gen_len=32, ticks=24,
+                   n_replicas=2, slots=8, router="markov", seed=0)
+SERVE_FLEET_ARGV = ["--device", "cuda"]  # the reference driver's defaults otherwise
 
 
 def emit(obj) -> None:
@@ -2669,6 +2706,10 @@ def phase_kernel_k5(torch, k5):
               ((2, 2, 4, 643, 64), (81, 600), bf16), (main, 1, bf16),
               (main, split // 2, bf16), (main, split, bf16), (main, 0, bf16),
               (main, (1, split, split + 1, 2 * split, P + G_ - 1, P + G_, 0, P - 1), bf16)]
+    # serve_loop's slot pool: 8 rows of one replica, each at its own position
+    pool_ctx = SERVE_TRACE["prompt_len"] + 2 * SERVE_TRACE["gen_len"]
+    pool_shape, pool_vlen = (8, 4, 8, pool_ctx, 64), (1, pool_ctx, 33, 40, 64, 2, pool_ctx - 1, 50)
+    cases.append((pool_shape, pool_vlen, bf16))
     errs = {}
     for shape, vlen, dt in cases:
         q, k, v = _attn_inputs(torch, gen, shape, dt, decode=True)
@@ -2700,11 +2741,24 @@ def phase_kernel_k5(torch, k5):
         else "operations",
         "library_ms": cuda_ms(torch, lib),
     }
+    qp, kp, vp = _attn_inputs(torch, gen, pool_shape, bf16, decode=True)
+    vlp = torch.tensor(pool_vlen, dtype=torch.int32, device="cuda")
+    valid_rows = sum(pool_vlen)  # the K/V rows the ragged call must read
+    pool_bytes = (2 * valid_rows * 4 * 64 + 2 * qp.numel()) * 2
+    per_row = {"shape": list(pool_shape), "valid_len": list(pool_vlen),
+               "max_abs_err": errs[f"{pool_shape}_v{pool_vlen}_bfloat16"],
+               "ms": cuda_ms(torch, lambda: k5.flash_decode(qp, kp, vp, vlp, scale=0.125)),
+               "plain_ms": cuda_ms(torch, lambda: k5.flash_decode_plain(qp, kp, vp, vlp,
+                                                                        scale=0.125)),
+               "device_ms": device_ms(torch, lambda: k5.flash_decode(qp, kp, vp, vlp,
+                                                                     scale=0.125)),
+               "bound_ms": pool_bytes / HBM_BYTES_PER_S * 1e3}
     emit({"phase": "kernel_k5", "ok": True, "cases": len(cases), "shape": list(main),
           "dtype": "bfloat16", "cluster_size": nsplit, "split_slots": split,
           "ctas": nsplit * Bm * Hk * -(-G // 8), "sms": torch.cuda.get_device_properties(
               0).multi_processor_count, **entry, "device_ms": device_ms(torch, run),
-          "library_device_ms": device_ms(torch, lib), "max_abs_err_by_case": errs})
+          "library_device_ms": device_ms(torch, lib), "max_abs_err_by_case": errs,
+          "per_row_valid_len": per_row})
     return entry
 
 
@@ -3463,6 +3517,283 @@ def phase_ssm_parity(torch, k6, model, params):
           "prompt_len": 128, "k6_launches": launched, "max_abs_gap": gaps,
           "full_width": {"arch": model.cfg.name, **consistency},
           "params_reduced": sum(t.numel() for t in tree_leaves(weights)), "tf32": False})
+
+
+# ---------------------------------------------------------------------------
+# slice H: the serving tier (version store, routers, slot pool, serving loop,
+# train-and-serve driver)
+# ---------------------------------------------------------------------------
+
+
+def _ring_store(torch, params, h):
+    """The reference test's ring (``tests/test_serve.py``): slot v holds
+    version v's params times 1 + 0.01 v, versions 0 .. h - 1, head h - 1."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.serve import VersionStore
+
+    hist = tree_map(lambda p: torch.stack([p * (1.0 + 0.01 * v) for v in range(h)]), params)
+    version = torch.tensor(h - 1, dtype=torch.int32, device=hist["embed"].device)
+    return VersionStore(hist, version, h)
+
+
+def _solo_tokens(model, store, req, version, slots, ctx, device):
+    """``req`` decoded alone in a one-replica pool of ``slots`` slots pinned
+    to ``version``: the join/evict contract's reference."""
+    from repro_torch.serve import ReplicaPool
+
+    pool = ReplicaPool(model, 1, slots, ctx, device=device)
+    pool.params[0] = store.read(version).params
+    done, t = pool.join(0, req, 0), 0
+    while done is None:
+        finished = pool.decode_tick(t)
+        done, t = (finished[0] if finished else None), t + 1
+    return done.tokens
+
+
+def serve_contracts(model, store, device):
+    """serve_loop (a): round_robin over 2 replicas x SERVE_CONTRACT's slots,
+    six requests that join and leave around each other, each stream's
+    tokens bitwise its decode alone in a pool of the same width on the same
+    version, Var[X] = 0 and E[X] = 2; then SERVE_CRASH's replicas at
+    stagger 0 under ``replica_crash``: every stream completes and the
+    tokens equal the calm run's. Returns what it checked."""
+    import numpy as np
+
+    from repro_torch.faults import make_fault
+    from repro_torch.serve import Request, run_serve_loop
+
+    n, P, slots = (SERVE_CONTRACT[k] for k in ("requests", "prompt_len", "slots"))
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, tick=i, prompt=rng.integers(0, model.cfg.vocab_size, P)
+                    .astype(np.int32), gen_len=3 + i % 3) for i in range(n)]
+    ctx = P + 5
+    churn = run_serve_loop(model, store, reqs, router="round_robin", n_replicas=2,
+                           slots=slots, ctx=ctx, device=device)
+    if len(churn.results) != n or churn.queue_left:
+        raise AssertionError(f"serve_loop: {len(churn.results)} of {n} streams served")
+    for res in churn.results:
+        solo = _solo_tokens(model, store, reqs[res.rid], res.version, slots, ctx, device)
+        if res.tokens != solo:
+            raise AssertionError(f"serve_loop: stream {res.rid} {res.tokens} differs from "
+                                 f"its solo decode {solo}")
+    ss = churn.serve_stats
+    if ss["var_X"] != 0.0 or ss["mean_X"] != 2.0:
+        raise AssertionError(f"serve_loop: round_robin Var[X] {ss['var_X']} E[X] {ss['mean_X']}")
+    kw = dict(router="round_robin", n_replicas=SERVE_CRASH["n_replicas"], slots=slots,
+              ctx=ctx, stagger=0, seed=SERVE_CRASH["seed"], device=device)
+    calm = run_serve_loop(model, store, reqs, **kw)
+    chaos = run_serve_loop(model, store, reqs, faults=[make_fault(
+        "replica_crash", SERVE_CRASH["n_replicas"], SERVE_CRASH["rate"])], **kw)
+    cs = chaos.serve_stats
+    if cs["crashes"] == 0 or cs["failed_over"] == 0:
+        raise AssertionError(f"serve_loop: the crash run crashed nothing: {cs}")
+    if len(chaos.results) != n or chaos.queue_left:
+        raise AssertionError(f"serve_loop: {len(chaos.results)} of {n} streams survived")
+    calm_tokens = {r.rid: r.tokens for r in calm.results}
+    for res in chaos.results:
+        if res.tokens != calm_tokens[res.rid]:
+            raise AssertionError(f"serve_loop: stream {res.rid} diverged across failover")
+    return {"streams": n, "prompt_len": P, "slots": slots, "bitwise_vs_solo": True,
+            "stalenesses": sorted({r.staleness for r in churn.results}),
+            "var_X": ss["var_X"], "mean_X": ss["mean_X"],
+            "crash": {"crashes": cs["crashes"], "failed_over": cs["failed_over"],
+                      "migrations": sum(r.migrations for r in chaos.results),
+                      "tokens_equal_calm": True}}
+
+
+def serve_trace(model, store, device, pool=None):
+    """serve_loop (b): SERVE_TRACE's request trace (``sample_requests`` under
+    the lognormal profile) through the markov router; returns the trace, the
+    pool and the report."""
+    from repro_torch.core.draws import GeneratorDraws
+    from repro_torch.serve import ReplicaPool, run_serve_loop
+    from repro_torch.sim import arrivals, get_profile
+
+    tr = SERVE_TRACE
+    proc = arrivals.from_profile(get_profile(tr["profile"]), tr["rate"], tr["prompt_len"],
+                                 tr["gen_len"])
+    reqs = arrivals.sample_requests(GeneratorDraws(tr["seed"], "cpu"), proc, tr["ticks"],
+                                    model.cfg.vocab_size)
+    if pool is None:
+        pool = ReplicaPool(model, tr["n_replicas"], tr["slots"],
+                           tr["prompt_len"] + 2 * tr["gen_len"], device=device)
+        pool.refresh(store)
+    report = run_serve_loop(model, store, reqs, router=tr["router"], pool=pool,
+                            seed=tr["seed"])
+    if len(report.results) != len(reqs) or report.queue_left:
+        raise AssertionError(f"serve_loop: {len(report.results)} of {len(reqs)} streams "
+                             "served")
+    return reqs, pool, report
+
+
+def phase_serve_loop(torch, k5):
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.models import factory, transformer
+
+    t_phase = time.time()
+    cfg = get_arch(LM_ARCH)
+    model = factory.build(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    store = _ring_store(torch, params, SERVE_RING_H)
+    del params
+    ring_gb = sum(t.numel() * t.element_size() for t in tree_leaves(store.hist)) / 1e9
+    counts, plain = {}, {}
+    restore = [_count_calls(transformer, ["decode_step"], counts),
+               _count_calls(k5, ["flash_decode_plain"], plain)]
+    try:
+        k5.launches = 0
+        contracts = serve_contracts(model, store, "cuda")
+        steps_a, k5_a = counts.pop("decode_step"), k5.launches
+        if k5_a != cfg.num_layers * steps_a:
+            raise AssertionError(f"serve_loop: K5 launched {k5_a} times in {steps_a} decode "
+                                 f"steps of {cfg.num_layers} layers (contracts)")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k5.launches = 0
+        t0 = time.perf_counter()
+        reqs, pool, rep = serve_trace(model, store, "cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        steps_b, k5_b = counts.pop("decode_step"), k5.launches
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        if k5_b != cfg.num_layers * steps_b:
+            raise AssertionError(f"serve_loop: K5 launched {k5_b} times in {steps_b} decode "
+                                 f"steps of {cfg.num_layers} layers (timed run)")
+        if plain:
+            raise AssertionError(f"serve_loop: plain versions ran on the card: {plain}")
+    finally:
+        for fn in restore:
+            fn()
+    toks = [t for r in rep.results for t in r.tokens]
+    if min(toks) < 0 or max(toks) >= cfg.vocab_size:
+        raise AssertionError("serve_loop: tokens out of range")
+    joins = len(reqs)
+    ticks_busy = steps_b - joins * SERVE_TRACE["prompt_len"]  # pool ticks of busy replicas
+    # the pool tick alone (8 rows of one replica): device-busy share, and a
+    # CUDA-graph replay of it against eager ticks (``_graph_decode``)
+    tick_pool, params0 = pool.pools[0], pool.params[0]
+    tok = torch.randint(0, cfg.vocab_size, (SERVE_TRACE["slots"], 1), device="cuda",
+                        dtype=torch.int32, generator=torch.Generator(device="cuda").manual_seed(4))
+    with torch.no_grad():
+        state = {"pool": tick_pool}
+
+        def tick():
+            _, state["pool"] = model.decode_step(params0, state["pool"], tok)
+
+        d_union, d_window, d_by, d_kernels = _profile(torch, tick, 10)
+        syncs = _syncs_in(torch, lambda: [tick() for _ in range(2)])
+        if syncs:
+            raise AssertionError(f"serve_loop: the pool tick synchronized: {syncs[:3]}")
+        graph = _graph_decode(torch, model, params0, tick_pool, tok, tree_map,
+                              sum(t.numel() * t.element_size()
+                                  for t in tree_leaves(params0)))
+    ss = rep.serve_stats
+    emit({"phase": "serve_loop", "ok": True, "arch": cfg.name, "layers": cfg.num_layers,
+          "dtype": cfg.param_dtype, "ring_versions": SERVE_RING_H, "ring_gb": ring_gb,
+          "contracts": {**contracts, "decode_steps": steps_a, "k5_launches": k5_a},
+          "trace": {**SERVE_TRACE, "requests": joins, "ticks_run": rep.ticks,
+                    "decisions": rep.decisions, "rejections": rep.rejections,
+                    "tokens_out": rep.tokens_out, "decode_steps": steps_b,
+                    "pool_ticks": ticks_busy, "join_decode_steps": joins * SERVE_TRACE[
+                        "prompt_len"], "k5_launches": k5_b, "run_s": run_s,
+                    "ms_per_tick": rep.wall_s * 1e3 / rep.ticks,
+                    "decode_ms_per_tick": rep.decode_wall_s * 1e3 / rep.ticks,
+                    "decode_tokens_per_s": rep.tok_s, "ttft_ticks_mean": rep.ttft_ticks_mean,
+                    "ttft_ms_mean": rep.ttft_s_mean * 1e3,
+                    "staleness_mean": rep.staleness_mean, "staleness_max": rep.staleness_max,
+                    "var_X": ss["var_X"], "mean_X": ss["mean_X"],
+                    "replica_mean_X": ss["replica_mean_X"],
+                    "host_reads": pool.host_reads,
+                    "host_reads_per_tick": pool.host_reads / rep.ticks,
+                    "peak_mem_gib": peak_gib},
+          "pool_tick_profile_10": {
+              "device_union_ms_per_tick": d_union / 10, "window_ms_per_tick": d_window / 10,
+              "device_busy_share": d_union / d_window,
+              "k5_share_of_device_time": _share(d_by, "decode_kernel"),
+              "kernels_per_tick": d_kernels / 10},
+          "host_syncs_in_2_pool_ticks": 0, "pool_tick_graph": graph,
+          "seconds": time.time() - t_phase})
+    return k5_b
+
+
+def phase_serve_fleet(torch, k5):
+    """``repro_torch.launch.serve_fleet.main`` at the reference's defaults,
+    then with ``--crash-rate 0.1``: every chunk's head read bitwise the
+    engine's live params, finite losses, every stream served, K5 launched
+    once per layer per decode step. Returns the default run's K5 count."""
+    import math as _math
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import serve_fleet as sf
+    from repro_torch.models import transformer
+
+    t_phase = time.time()
+    layers = get_arch(LM_ARCH).reduced().num_layers
+    rec = {}
+    saved = (sf.VersionStore, sf.AsyncEngine, sf.run_serve_loop)
+    real_store, real_engine, real_loop = saved
+
+    class CheckedStore(real_store):
+        @classmethod
+        def from_engine(cls, engine, state):
+            store = real_store.from_engine(engine, state)
+            head = store.read(store.latest).params
+            rec["heads"].append(all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(head), tree_leaves(state["params"]))))
+            return store
+
+    class RecordedEngine(real_engine):
+        def run_chunk(self, state, r0, length, with_history):
+            state, aux = super().run_chunk(state, r0, length, with_history)
+            rec["losses"].extend(aux["loss"].tolist())
+            return state, aux
+
+    def recorded_loop(model, store, reqs, **kw):
+        report = real_loop(model, store, reqs, **kw)
+        rec["served"].append((len(reqs), len(report.results), report.queue_left))
+        return report
+
+    runs, counts = {}, {}
+    restore = _count_calls(transformer, ["decode_step"], counts)
+    sf.VersionStore, sf.AsyncEngine, sf.run_serve_loop = (CheckedStore, RecordedEngine,
+                                                          recorded_loop)
+    try:
+        for name, extra in (("defaults", []), ("crash_rate_0.1", ["--crash-rate", "0.1"])):
+            rec.update(heads=[], losses=[], served=[])
+            counts.clear()
+            k5.launches = 0
+            t0 = time.perf_counter()
+            summary = sf.main(SERVE_FLEET_ARGV + extra)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            steps, launched = counts.get("decode_step", 0), k5.launches
+            if not rec["heads"] or not all(rec["heads"]):
+                raise AssertionError(f"serve_fleet {name}: a head read differs from the "
+                                     "engine's params")
+            if not all(_math.isfinite(x) for x in rec["losses"]):
+                raise AssertionError(f"serve_fleet {name}: losses {rec['losses']}")
+            if any(n != got or left for n, got, left in rec["served"]):
+                raise AssertionError(f"serve_fleet {name}: streams dropped {rec['served']}")
+            if not launched or launched != layers * steps:
+                raise AssertionError(f"serve_fleet {name}: K5 launched {launched} times in "
+                                     f"{steps} decode steps of {layers} layers")
+            crashes = sum(s["crashes"] for s in summary["serve_stats"])
+            if extra and not crashes:
+                raise AssertionError(f"serve_fleet {name}: no replica crashed")
+            runs[name] = {"run_s": run_s, "decode_steps": steps, "k5_launches": launched,
+                          "losses": rec["losses"], "head_reads_bitwise": len(rec["heads"]),
+                          "requests": sum(n for n, _, _ in rec["served"]),
+                          "crashes": crashes,
+                          "failed_over": sum(s["failed_over"] for s in summary["serve_stats"]),
+                          "summary": {k: v for k, v in summary.items() if k != "cli_args"}}
+    finally:
+        sf.VersionStore, sf.AsyncEngine, sf.run_serve_loop = saved
+        restore()
+    emit({"phase": "serve_fleet", "ok": True, "argv": SERVE_FLEET_ARGV, "layers": layers,
+          **runs, "seconds": time.time() - t_phase})
+    return runs["defaults"]["k5_launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -4389,6 +4720,8 @@ def main() -> int:
     k6_entry["launches"], model, params = phase_ssm_serve_main(torch, ssd_scan)
     phase_ssm_parity(torch, ssd_scan, model, params)
     del model, params
+    k5_entry["launches"] += phase_serve_loop(torch, flash_decode)
+    k5_entry["launches"] += phase_serve_fleet(torch, flash_decode)
     bwd_entry = phase_kernel_k4_bwd(torch, flash_attention)
     fwd, bwd = phase_lm_train(torch, flash_attention)
     k4_entry["launches"] += fwd

@@ -55,6 +55,13 @@ sub-streams, as ``ReplayDraws`` names them:
   the defense is armed, in that order; the reference's fold-108 sub-folds
   0 and 1).
 
+The serving tier (``repro_torch.serve``, ``sim.arrivals``) draws from the
+sub-streams ``router`` (the router's ``policy_init`` at init and its
+``select`` per decision: ``step(d)`` is decision ``d``), ``crash`` (site
+``hit``, uniform ``(R,)`` per tick: ``step(t)`` is tick ``t``) and, for a
+request trace, the sites ``counts`` (Poisson), ``gen_len`` (normal) and
+``prompt`` (integers).
+
 A replayed Bernoulli coin is the reference's ``uniform(key, shape) < p``
 (that is how ``jax.random.bernoulli`` draws), so the port compares the
 fed uniform with the rate.
@@ -135,6 +142,14 @@ class GeneratorDraws:
         out = torch.empty(shape, device=self.device)
         return out.exponential_(generator=self.generator)
 
+    def poisson(self, site: str, rate: float, shape):
+        lam = torch.full(tuple(shape), float(rate), device=self.device)
+        return torch.poisson(lam, generator=self.generator).to(torch.int64)
+
+    def randint(self, site: str, low: int, high: int, shape):
+        return torch.randint(low, high, tuple(shape), generator=self.generator,
+                             device=self.device)
+
     def gumbel(self, site: str, shape):
         u = self.uniform(site, shape).clamp_min(_TINY)
         return -torch.log(-torch.log(u))
@@ -207,6 +222,12 @@ class ReplayDraws:
 
     def gumbel(self, site, shape):
         return self._get(site, shape, torch.float32)
+
+    def poisson(self, site, rate, shape):
+        return self._get(site, shape, torch.int64)
+
+    def randint(self, site, low, high, shape):
+        return self._get(site, shape, torch.int64)
 
     def permutation(self, site, n, batch=()):
         return self._get(site, tuple(batch) + (n,), torch.int64)

@@ -488,3 +488,61 @@ def tier_stats_from_accum(acc) -> dict:
         "tier_mean_X": [float(v) for v in mean],
         "tier_var_X": [float(v) for v in var],
     }
+
+
+# ---------------------------------------------------------------------------
+# Per-replica accumulators: the serving tier's load metric
+# ---------------------------------------------------------------------------
+#
+# The serving tier (repro_torch.serve) applies the same Var[X] argument to
+# inference replicas: X = number of routing decisions between subsequent
+# assignments of a replica (one decision = one epoch of the age chain, so
+# the paper's closed forms for n := replicas, k := 1 apply verbatim). It is
+# the tier accumulator under the identity grouping, each replica its own
+# node: the per-replica moments are (R,) vectors under the same Kahan
+# compensation, and the fleet-wide moments are their sums.
+
+
+def init_replica_accum(n_replicas: int, device="cpu"):
+    """Fresh per-replica assignment-gap accumulator for ``n_replicas``
+    serving replicas (one node per replica; identity grouping)."""
+    return init_tier_accum(n_replicas, n_replicas, device)
+
+
+def update_replica_accum(acc, assigned):
+    """Fold one routing decision's (R,) bool assignment vector into the
+    accumulator (all-False advances the epoch without a sample: a rejected
+    admission still ages every replica's chain). The identity grouping's
+    table is (R, 1), row ``r`` holding replica ``r``."""
+    import torch
+
+    r = assigned.shape[0]
+    blocks = torch.arange(r, device=assigned.device)[:, None]
+    return update_tier_accum(acc, assigned, blocks)
+
+
+def replica_stats_from_accum(acc) -> dict:
+    """``serve_stats``: fleet-wide mean/Var of the replica assignment gap
+    X (from the summed per-replica moments) plus the per-replica
+    breakdown, with the reference's keys."""
+    a = {
+        name: np.asarray(acc[name].cpu(), np.float64)
+        - np.asarray(acc["c_" + name].cpu(), np.float64)
+        for name in _TIER_MOMENTS
+    }
+    cnt = float(a["gap_cnt"].sum())
+    if cnt > 0:
+        mean = float(a["gap_sum"].sum()) / cnt
+        var = max(float(a["gap_sumsq"].sum()) / cnt - mean * mean, 0.0)
+    else:
+        mean = var = float("nan")
+    per = tier_stats_from_accum(acc)
+    return {
+        "num_samples": int(cnt),
+        "mean_X": mean,
+        "var_X": var,
+        "decisions": int(acc["steps"]),
+        "replica_num_samples": per["tier_num_samples"],
+        "replica_mean_X": per["tier_mean_X"],
+        "replica_var_X": per["tier_var_X"],
+    }

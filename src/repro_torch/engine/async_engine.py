@@ -170,6 +170,14 @@ class AsyncEngine:
     def eval_params(self, state: Dict):
         return state["params"]
 
+    def ring_snapshot(self, state: Dict):
+        """The retained-version ring for the serving tier
+        (``repro_torch.serve.VersionStore``): ``(hist, version,
+        max_versions)``, the state's own tensors by reference: no copy and
+        no host read, so serving reads versions without synchronizing
+        training."""
+        return state["hist"], state["version"], self.cfg.max_versions
+
     def evaluate(self, state: Dict) -> Dict:
         """Held-out eval on the current global params."""
         return self.task.eval_fn(self.eval_params(state))

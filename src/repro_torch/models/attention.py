@@ -3,7 +3,8 @@ masks): train/prefill forward and cached single-token decode.
 
 Port of ``repro.models.attention``, same names, parameter layouts
 (``w_q`` (d_model, H, D), ``w_o`` (H, D, d_model)) and cache layout
-(``k``/``v`` (B, L, Hk, D) ring buffers with a 0-d int32 ``index``).
+(``k``/``v`` (B, L, Hk, D) ring buffers with a 0-d int32 ``index``; the
+serving tier's slot pool gives each row its own index, a (B,) one).
 
 Full-sequence attention goes through K4 (``kernels.flash_attention``)
 when ``set_kernel_attention`` is on (the default here, the reference's
@@ -230,13 +231,15 @@ def _slot_positions(spec: AttentionSpec, L: int, index):
     """Absolute position held in each ring slot when writing at ``index``.
 
     Slot s holds the newest position p <= index with p == s (mod L);
-    the slot being written now holds ``index`` itself.
-    """
+    the slot being written now holds ``index`` itself. A (B,) ``index``
+    gives (B, L) positions."""
     s = torch.arange(L, dtype=torch.int32, device=index.device)
+    index = index[..., None]
     return index - torch.remainder(index - s, L)
 
 
 def _slot_valid(spec: AttentionSpec, slot_pos, index):
+    index = index[..., None]
     ok = (slot_pos >= 0) & (slot_pos <= index)
     if spec.kind == "sliding" and spec.window > 0:
         ok &= slot_pos > index - spec.window
@@ -258,22 +261,34 @@ def attention_decode(
     ``cache["k"]``/``cache["v"]`` at slot ``index % L`` and ``cache["index"]``
     is incremented; the returned dict holds those same tensors. A caller
     that needs the old cache keeps a copy. The slot, the RoPE position and
-    K5's ``valid_len`` are all computed on the device: no host sync."""
+    K5's ``valid_len`` are all computed on the device: no host sync.
+
+    ``index`` is 0-d (every row at one position) or (B,) (the slot pool:
+    each row at its own position, with its own RoPE angle, ring slot,
+    ``valid_len`` and window mask, so a row's result depends on that row's
+    cache alone)."""
     if spec.is_mla:
         raise _mla_not_ported()
     H, Hk, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
     G = H // Hk
     B = x.shape[0]
     index = cache["index"]
+    per_row = index.dim() == 1
     L = cache["k"].shape[1]
     q, k, v = _project_qkv(p, x, spec)
-    pos = index[None]  # (1,)
+    pos = index[:, None] if per_row else index[None][None]  # (B or 1, 1)
     if spec.rope and rope is not None:
-        q = apply_rope(q, pos[None], rope.inv_freq, rope.rot)
-        k = apply_rope(k, pos[None], rope.inv_freq, rope.rot)
-    slot = torch.remainder(index, L).reshape(1).long()
-    cache["k"].index_copy_(1, slot, k)
-    cache["v"].index_copy_(1, slot, v)
+        q = apply_rope(q, pos, rope.inv_freq, rope.rot)
+        k = apply_rope(k, pos, rope.inv_freq, rope.rot)
+    if per_row:
+        rows = torch.arange(B, device=index.device)
+        slot = torch.remainder(index, L).long()
+        cache["k"].index_put_((rows, slot), k[:, 0])
+        cache["v"].index_put_((rows, slot), v[:, 0])
+    else:
+        slot = torch.remainder(index, L).reshape(1).long()
+        cache["k"].index_copy_(1, slot, k)
+        cache["v"].index_copy_(1, slot, v)
     k_cache, v_cache = cache["k"], cache["v"]
     qg = q.reshape(B, Hk, G, D)
     kg = k_cache.permute(0, 2, 1, 3)  # (B, Hk, L, D) views, no copy
@@ -285,6 +300,8 @@ def attention_decode(
         out = kops.flash_decode(qg, kg, vg, valid_len, scale=scale)
     else:
         valid = _slot_valid(spec, _slot_positions(spec, L, index), index)
+        if per_row:
+            valid = valid[:, None, None]  # (B, 1, 1, L)
         s = torch.einsum("bhgd,bhld->bhgl", qg, kg).float() * scale
         s = torch.where(valid, s, -1e30)
         w = torch.softmax(s, dim=-1)

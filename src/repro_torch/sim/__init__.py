@@ -1,5 +1,12 @@
 """Event-driven asynchronous fleet simulator (torch): latency profiles and
-the event engine the async training loop runs over."""
+the event engine the async training loop runs over, and the serving
+tier's request arrivals."""
+from repro_torch.sim.arrivals import (  # noqa: F401
+    ArrivalProcess,
+    sample_arrival_counts,
+    sample_gen_lens,
+    sample_requests,
+)
 from repro_torch.sim.latency import (  # noqa: F401
     PROFILES,
     LatencyProfile,

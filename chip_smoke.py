@@ -316,6 +316,25 @@ prints one JSON line for each:
           ``fl_lm``'s settings (K1, K2, and K6 forward and backward under
           the clients' ``vmap(grad)``), then ``launch/train.py --arch
           mamba2-370m`` at ``train_main``'s settings: the loss falls.
+  g3_serve     slice G3: gemma3-27b at full width and depth (62 layers, 52
+          sliding with W = 1024 and 10 full, bf16): ``model.prefill`` at
+          (2, 2048) with 62 K4 launches, 32 greedy decode steps with 62 K5
+          launches each (the window rings are prefixes), no plain
+          attention, no host sync in a step; prefill tokens/s, decode ms a
+          step, device-busy share, peak memory; prefill of S - 1 tokens
+          plus a decode step against prefill of S, held in f32 on one
+          repeat of the pattern and reported in bf16 at full depth.
+  g3_train     gemma3-27b at full width, one repeat (8 layers), 3
+          ``sgd_train_step``s at (2, 2048) with remat: K4's sliding forward
+          (14 launches a step) and backward (8), the loss falls.
+  g3_families  deepseek-v2 (MLA + MoE, depth cut to 2 layers: prefill,
+          decode, f32 absorbed-vs-decompressed and no-drop consistency, a
+          train step), jamba (one repeat: K6 x 7, K4 x 1, K5 x 1 a step),
+          pixtral-12b (full: 256 frontend embeddings + 1792 tokens), whisper
+          (full, the serve driver with frames: K4 x 4, K5 x 4 a step) and
+          llama4 reduced; seconds, peak memory and launches per family.
+  g3_pool      the slot pool's churn and failover contracts for gemma3,
+          deepseek-v2 and whisper (reduced) on the card.
 
 The main, async_oldest and sync_main phases run before the parity phases,
 which turn TF32 off; the slice C, D, E and F phases run after
@@ -325,8 +344,8 @@ which turn TF32 off; the slice C, D, E and F phases run after
 what ``main`` ran with while they run.
 Then the ``{"kernels": [...]}`` line (K2, K1, K4, K5, K3, K6, K4's
 backward, K6's backward; each count the sum over the paths that launch it:
-K5's over ``serve_main``, ``serve_loop``'s timed run and ``serve_fleet``'s
-default run), the card's
+K5's over ``serve_main``, ``serve_loop``'s timed run, ``serve_fleet``'s
+default run and the G3 phases), the card's
 name and power limit as ``nvidia-smi`` reports them, and, last, the device
 line. Any failure exits non-zero; without a GPU, or outside a checkout of
 the repository, the script fails before printing a result. It imports
@@ -2631,6 +2650,10 @@ def phase_kernel_k4(torch, k4):
     cases += [((1, 2, G, Sx, D), kind, w, bf16, "model")
               for kind in ("sliding", "chunked") for w in (100, 128)
               for G, Sx, D in ((4, 384, 64), (5, 200, 32), (8, 2048, 128))]
+    # gemma3's local layers; f32 holds the window of 1024 tightly, since at
+    # bf16's tolerance a window off by a few keys would pass
+    cases += [(G3_K4_SHAPE, "sliding", G3_WINDOW, bf16, "model"),
+              (G3_K4_SHAPE, "sliding", G3_WINDOW, f32, "contiguous")]
     errs = {}
     for shape, kind, w, dt, layout in cases:
         q, k, v = (_model_layout(torch, gen, shape, dt) if layout == "model"
@@ -2710,6 +2733,11 @@ def phase_kernel_k5(torch, k5):
     pool_ctx = SERVE_TRACE["prompt_len"] + 2 * SERVE_TRACE["gen_len"]
     pool_shape, pool_vlen = (8, 4, 8, pool_ctx, 64), (1, pool_ctx, 33, 40, 64, 2, pool_ctx - 1, 50)
     cases.append((pool_shape, pool_vlen, bf16))
+    # gemma3-27b's decode on its window rings (L = W = 1024): sliding rows
+    # past the wrap and not, chunked rows at index % W + 1; f32 holds each
+    # valid_len tightly (one slot more or fewer moves a row by about 1e-3)
+    cases += [(G3_K5_SHAPE, vlen, dt) for dt in (bf16, f32)
+              for vlen in ((1024, 301), (905, 1))]
     errs = {}
     for shape, vlen, dt in cases:
         q, k, v = _attn_inputs(torch, gen, shape, dt, decode=True)
@@ -2753,12 +2781,21 @@ def phase_kernel_k5(torch, k5):
                "device_ms": device_ms(torch, lambda: k5.flash_decode(qp, kp, vp, vlp,
                                                                      scale=0.125)),
                "bound_ms": pool_bytes / HBM_BYTES_PER_S * 1e3}
+    qg, kg, vg = _attn_inputs(torch, gen, G3_K5_SHAPE, bf16, decode=True)
+    vlg = torch.tensor((1024, 301), dtype=torch.int32, device="cuda")
+    g3_bytes = (2 * sum((1024, 301)) * 16 * 128 + 2 * qg.numel()) * 2
+    window = {"shape": list(G3_K5_SHAPE), "valid_len": [1024, 301],
+              "max_abs_err": errs[f"{G3_K5_SHAPE}_v(1024, 301)_bfloat16"],
+              "ms": cuda_ms(torch, lambda: k5.flash_decode(qg, kg, vg, vlg, scale=128**-0.5)),
+              "device_ms": device_ms(torch, lambda: k5.flash_decode(qg, kg, vg, vlg,
+                                                                    scale=128**-0.5)),
+              "bound_ms": g3_bytes / HBM_BYTES_PER_S * 1e3}
     emit({"phase": "kernel_k5", "ok": True, "cases": len(cases), "shape": list(main),
           "dtype": "bfloat16", "cluster_size": nsplit, "split_slots": split,
           "ctas": nsplit * Bm * Hk * -(-G // 8), "sms": torch.cuda.get_device_properties(
               0).multi_processor_count, **entry, "device_ms": device_ms(torch, run),
           "library_device_ms": device_ms(torch, lib), "max_abs_err_by_case": errs,
-          "per_row_valid_len": per_row})
+          "per_row_valid_len": per_row, "gemma3_window": window})
     return entry
 
 
@@ -3867,6 +3904,8 @@ def phase_kernel_k4_bwd(torch, k4):
     cases += [((1, 2, G, Sx, D), kind, w, bf16, "model")
               for kind in ("sliding", "chunked") for w in (100, 128)
               for G, Sx, D in ((4, 384, 64), (5, 200, 32), (8, 2048, 128))]
+    cases += [(G3_K4_SHAPE, "sliding", G3_WINDOW, dt, layout)  # gemma3's training
+              for dt, layout in ((bf16, "model"), (f32, "contiguous"))]
     cases += [(shape, kind, w, f32, "contiguous") for shape, kind, w in [
         ((1, 2, 2, 256, 64), "full", 0), ((2, 1, 4, 512, 32), "full", 0),
         ((1, 2, 1, 512, 128), "sliding", 128), ((1, 1, 2, 512, 64), "chunked", 128),
@@ -4666,6 +4705,579 @@ def phase_fl_ssm(torch, event_topk, fedavg_reduce, k6):
             sum(out[n]["k6_bwd_launches"] for n in ("sync", "async", "train")))
 
 
+# ---------------------------------------------------------------------------
+# slice G3: the other LM families (gemma3's windows, MoE, MLA, the hybrid
+# jamba, the vision stub, whisper's encoder-decoder)
+# ---------------------------------------------------------------------------
+
+G3_ARCH = "gemma3-27b"
+G3_WINDOW = 1024
+G3_K4_SHAPE = (2, 16, 2, 2048, 128)  # gemma3's prefill and training: (B, Hk, G, S, D)
+G3_K5_SHAPE = (2, 16, 2, 1024, 128)  # gemma3's decode on a window ring
+G3_PREFILL = (2, 2048)
+G3_DECODE_STEPS = 32
+G3_TRAIN_SHAPE = (2, 2048)
+G3_TRAIN_STEPS = 3
+G3_TRAIN_LR = 3e-2
+G3_FAMILY_PREFILL = 2048  # the (1, 2048) prefills of deepseek-v2, jamba and pixtral
+G3_FAMILY_DECODE = 8
+G3_CHECK_S = 512  # the prompt of deepseek-v2's absorbed-vs-decompressed check
+# the no-drop check's prompt: MoE groups are min(128, tokens), so S and
+# S - 1 both split into whole groups only up to 128 tokens
+G3_NODROP_S = 128
+
+
+def _by_shape(new, old):
+    """``old`` in a tensor shaped as ``new`` (``old``'s dtype): whole, or
+    along the one axis where the ring of ``new`` is longer."""
+    new = new.to(old.dtype)
+    diff = [i for i, (a, b) in enumerate(zip(new.shape, old.shape)) if a != b]
+    (new.narrow(diff[0], 0, old.shape[diff[0]]) if diff else new).copy_(old)
+    return new
+
+
+def _grown(model, caches, batch, ctx):
+    """A prefill's caches in a fresh ring of ``ctx`` slots: the prefill's
+    ring has one slot a prompt token, so a decode step straight after it
+    would overwrite position 0 of a full layer. Position p stays at slot p
+    (at p mod W in a window ring, whose length does not change)."""
+    from repro_torch.core.tree import tree_map
+
+    return tree_map(_by_shape, model.init_decode_caches(batch, ctx, "cuda"), caches)
+
+
+def _g3_counts(k4, k5, k6):
+    """(K4 forward, K4 backward, K5, K6 forward) launches."""
+    return (k4.launches, k4.bwd_launches, k5.launches, k6.launches)
+
+
+def _zero(*mods):
+    for m in mods:
+        m.launches = 0
+        if hasattr(m, "bwd_launches"):
+            m.bwd_launches = 0
+
+
+def _free(torch):
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _last_step_gap(model, params, toks, full=None):
+    """Prefill of S tokens against prefill of S - 1 plus one decode step of
+    token S - 1 (the prefill's ring grown by a slot): the max abs logit
+    gap, the logits' largest magnitude and top-1 agreement. ``full`` is the
+    prefill of S's logits when the caller has them."""
+    B, S = toks.shape
+    if full is None:
+        full, _ = model.prefill(params, {"tokens": toks})
+    _, caches = model.prefill(params, {"tokens": toks[:, :-1]})
+    step, _ = model.decode_step(params, _grown(model, caches, B, S), toks[:, -1:])
+    full, step = full.float(), step.float()
+    return {"max_abs_gap": float((full - step).abs().max()),
+            "max_abs_logit": float(full.abs().max()),
+            "top1_agree": float((full.argmax(-1) == step.argmax(-1)).float().mean())}
+
+
+def _consistent(gap) -> bool:
+    return gap["max_abs_gap"] <= CONSISTENCY_TOL * (1 + gap["max_abs_logit"])
+
+
+def phase_g3_serve(torch, k4, k5):
+    """gemma3-27b at full width and depth (62 layers: 52 sliding, W = 1024,
+    and 10 full; bf16, weights from seed 0): ``model.prefill`` at
+    G3_PREFILL with 62 K4 launches and none of K5, then G3_DECODE_STEPS
+    greedy decode steps on the prefill's caches grown to their context, 62
+    K5 launches a step (sliding rings of L = W and full rings: each a
+    prefix); no plain or kernel-off attention, no host sync in a decode
+    step; prefill tokens/s, decode ms a step, the device-busy share of
+    decode steps, peak memory (the init's apart). Consistency: in f32 with
+    TF32 off, on one repeat of the pattern at full width (the 6-layer
+    pattern and the 2-layer remainder; the full depth does not fit in f32),
+    prefill of S - 1 tokens plus one decode step against prefill of S =
+    2048 within CONSISTENCY_TOL (relative to the largest logit); the same
+    gap of the full-depth bf16 model is reported beside it."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import factory
+
+    t_phase = time.time()
+    cfg = get_arch(G3_ARCH)
+    n_layers = cfg.num_layers
+    B, S = G3_PREFILL
+    toks = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", dtype=torch.int32,
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    # (a) f32 consistency on one repeat of the pattern
+    cut = dataclasses.replace(cfg, repeats=1)
+    m32 = factory.build(cut)
+    with _TF32(torch, {"cudnn": False, "matmul": False}), torch.no_grad():
+        p32 = tree_map(lambda t: t.float(), m32.init(
+            torch.Generator(device="cuda").manual_seed(0)))
+        gap32 = _last_step_gap(m32, p32, toks)
+    del p32
+    if not _consistent(gap32):
+        raise AssertionError(f"g3_serve: f32 prefill vs prefill + decode gap {gap32}")
+    _free(torch)
+
+    # (b) full depth, bf16
+    model = factory.build(cfg)
+    t0 = time.time()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    plain = {}
+    restore = [_count_calls(k4, ["flash_attention_plain"], plain),
+               _count_calls(k5, ["flash_decode_plain"], plain),
+               _count_calls(attn_mod, ["_attend_direct", "_attend_flash_jnp"], plain)]
+    try:
+        with torch.no_grad():
+            prefill = lambda: model.prefill(params, {"tokens": toks})  # noqa: E731
+            prefill()  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero(k4, k5)
+            t0 = time.perf_counter()
+            logits, caches = prefill()
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            k4_prefill, k5_prefill = k4.launches, k5.launches
+            if k4_prefill != n_layers or k5_prefill:
+                raise AssertionError(f"g3_serve: prefill launched K4 {k4_prefill} and K5 "
+                                     f"{k5_prefill} times ({n_layers} layers)")
+            if not bool(torch.isfinite(logits).all()) or logits.shape != (B, 1, cfg.vocab_size):
+                raise AssertionError("g3_serve: prefill logits not finite / of shape")
+            caches = _grown(model, caches, B, S + G3_DECODE_STEPS + 8)
+            tok = logits[:, -1:].argmax(-1).to(torch.int32)
+            _zero(k4, k5)
+            out = []
+            t0 = time.perf_counter()
+            for _ in range(G3_DECODE_STEPS):
+                lg, caches = model.decode_step(params, caches, tok)
+                tok = lg[:, -1:].argmax(-1).to(torch.int32)
+                out.append(tok)
+            toks_out = torch.cat(out, 1).cpu()  # the loop's one sync
+            decode_s = time.perf_counter() - t0
+            k5_decode, k4_decode = k5.launches, k4.launches
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            if k5_decode != n_layers * G3_DECODE_STEPS or k4_decode:
+                raise AssertionError(f"g3_serve: {G3_DECODE_STEPS} decode steps launched K5 "
+                                     f"{k5_decode} and K4 {k4_decode} times")
+            if plain:
+                raise AssertionError(f"g3_serve: plain or kernel-off attention ran: {plain}")
+            state = {"c": caches}
+
+            def step():
+                _, state["c"] = model.decode_step(params, state["c"], tok)
+
+            syncs = _syncs_in(torch, lambda: [step() for _ in range(2)])
+            if syncs:
+                raise AssertionError(f"g3_serve: decode_step synchronized: {syncs[:3]}")
+            d_union, d_window, d_by, d_kernels = _profile(torch, step, 5)
+            del caches, state
+    finally:
+        for fn in restore:
+            fn()
+    with torch.no_grad():
+        gap16 = _last_step_gap(model, params, toks, full=logits)
+    if not ((toks_out >= 0) & (toks_out < cfg.vocab_size)).all():
+        raise AssertionError("g3_serve: tokens out of range")
+    kinds = [s.attn.kind for s in cfg.all_layers()]
+    emit({"phase": "g3_serve", "ok": True, "arch": cfg.name, "layers": n_layers,
+          "layer_kinds": {k: kinds.count(k) for k in sorted(set(kinds))},
+          "window": G3_WINDOW, "params": sum(t.numel() for t in tree_leaves(params)),
+          "param_gb": param_bytes / 1e9, "init_s": init_s, "init_peak_gib": init_peak,
+          "prefill": {"batch": B, "seq": S, "k4_launches": k4_prefill, "k5_launches": 0,
+                      "ms": prefill_s * 1e3, "tokens_per_s": B * S / prefill_s},
+          "decode": {"batch": B, "steps": G3_DECODE_STEPS, "k5_launches": k5_decode,
+                     "k5_launches_per_step": k5_decode / G3_DECODE_STEPS,
+                     "ms_per_step": decode_s * 1e3 / G3_DECODE_STEPS,
+                     "weight_read_bound_ms_per_step": param_bytes / HBM_BYTES_PER_S * 1e3,
+                     "first_tokens": toks_out[0, :8].tolist()},
+          "decode_profile_5_steps": {
+              "device_union_ms_per_step": d_union / 5, "window_ms_per_step": d_window / 5,
+              "device_busy_share": d_union / d_window,
+              "k5_share_of_device_time": _share(d_by, "decode_kernel"),
+              "kernels_per_step": d_kernels / 5},
+          "peak_mem_gib": peak, "host_syncs_in_2_decode_steps": 0, "plain_calls": 0,
+          "consistency": {"f32_one_repeat": {**gap32, "layers": cut.num_layers,
+                                             "tolerance": CONSISTENCY_TOL, "tf32": False},
+                          "bf16_full_depth_reported": gap16},
+          "seconds": time.time() - t_phase})
+    del params, logits
+    _free(torch)
+    return k4_prefill, k5_decode
+
+
+def phase_g3_train(torch, k4):
+    """gemma3-27b at full width with depth cut to one repeat (the 6-layer
+    pattern and the 2-layer remainder: 7 sliding layers of W = 1024 and one
+    full; bf16, weights from seed 0; full depth cannot hold params,
+    gradients and new params on one card), G3_TRAIN_STEPS
+    ``sgd_train_step``s on one batch at G3_TRAIN_SHAPE with remat: K4
+    forward 2 x 6 (the repeated layers, recomputed) + 2 (the remainder) and
+    backward 8 launches a step, with W < S so the window mask is real; no
+    plain attention; the loss falls, params (so gradients) stay finite and
+    move; ms a step, tokens/s, peak memory."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import factory
+
+    t_phase = time.time()
+    cfg = dataclasses.replace(get_arch(G3_ARCH), repeats=1)
+    model = factory.build(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    B, S = G3_TRAIN_SHAPE
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), device="cuda", dtype=torch.int32,
+                         generator=torch.Generator(device="cuda").manual_seed(2))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    lr = torch.full((), G3_TRAIN_LR, device="cuda")
+    want = (2 * len(cfg.pattern) + len(cfg.remainder), cfg.num_layers)
+    plain = {}
+    restore = [_count_calls(k4, ["flash_attention_plain", "flash_attention_bwd_plain"], plain),
+               _count_calls(attn_mod, ["_attend_direct", "_attend_flash_jnp"], plain)]
+    first = [t.clone() for t in tree_leaves(params)[:3]]
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        per_step, losses = [], []
+        _zero(k4)
+        for _ in range(G3_TRAIN_STEPS):
+            f0, b0 = k4.launches, k4.bwd_launches
+            t0 = time.perf_counter()
+            params, metrics = model.sgd_train_step(params, batch, lr)
+            torch.cuda.synchronize()
+            per_step.append((time.perf_counter() - t0) * 1e3)
+            launched = (k4.launches - f0, k4.bwd_launches - b0)
+            if launched != want:
+                raise AssertionError(f"g3_train: K4 forward/backward launched {launched} "
+                                     f"times in a step (want {want})")
+            losses.append(float(metrics["loss"]))
+        counts = (k4.launches, k4.bwd_launches)
+        if plain:
+            raise AssertionError(f"g3_train: plain or kernel-off attention ran: {plain}")
+    finally:
+        for fn in restore:
+            fn()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    leaves = tree_leaves(params)
+    if not (all(map(math.isfinite, losses)) and all(bool(torch.isfinite(t).all())
+                                                   for t in leaves)):
+        raise AssertionError(f"g3_train: non-finite loss {losses} or params (gradients)")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"g3_train: the loss did not fall: {losses}")
+    if all(torch.equal(a, b) for a, b in zip(first, leaves[:3])):
+        raise AssertionError("g3_train: the params did not move")
+    ms = statistics.median(per_step[1:])
+    emit({"phase": "g3_train", "ok": True, "arch": cfg.name, "layers": cfg.num_layers,
+          "depth_cut": "one repeat of the 6-layer pattern plus the 2-layer remainder",
+          "params": n_params, "batch": B, "seq": S, "window": G3_WINDOW,
+          "steps": G3_TRAIN_STEPS, "lr": G3_TRAIN_LR, "remat": True,
+          "same_batch_each_step": True, "k4_launches_per_step": want[0],
+          "k4_bwd_launches_per_step": want[1], "plain_calls": 0, "losses": losses,
+          "ms_per_step": ms, "ms_per_step_all": per_step, "tokens_per_s": B * S / ms * 1e3,
+          "peak_mem_gib": peak, "seconds": time.time() - t_phase})
+    del params, batch
+    _free(torch)
+    return counts
+
+
+def _family_run(torch, model, params, batch, steps, kernels):
+    """``model.prefill`` of ``batch`` (timed after a warm-up prefill), then
+    ``steps`` greedy decode steps on the prefill's caches grown to their
+    context. Returns the ``_g3_counts`` of the timed prefill and of the
+    decode steps, and the times."""
+    B = batch["tokens"].shape[0]
+    S = batch["tokens"].shape[1] + (batch["frontend"].shape[1] if "frontend" in batch else 0)
+    with torch.no_grad():
+        model.prefill(params, batch)
+        torch.cuda.synchronize()
+        _zero(*kernels)
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        pre = _g3_counts(*kernels)
+        caches = _grown(model, caches, B, S + steps)
+        tok = logits[:, -1:].argmax(-1).to(torch.int32)
+        _zero(*kernels)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, caches = model.decode_step(params, caches, tok)
+            tok = logits[:, -1:].argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        dec = _g3_counts(*kernels)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"g3_families: {model.cfg.name} logits not finite")
+    return pre, dec, {"prefill_ms": prefill_s * 1e3,
+                      "prefill_tokens_per_s": B * S / prefill_s,
+                      "decode_ms_per_step": decode_s * 1e3 / steps}
+
+
+def _deepseek_checks(torch, cfg, params):
+    """deepseek-v2's f32 checks (TF32 off) at G3_CHECK_S tokens: absorbed
+    against decompressed MLA decode over G3_FAMILY_DECODE steps from the
+    same caches, and, on a copy with capacity_factor = E / top_k (no route
+    dropped, so a prefill's group and a decode step's group of one route
+    alike), prefill of G3_NODROP_S tokens against prefill of one fewer
+    plus a decode step; both within CONSISTENCY_TOL of the largest
+    logit."""
+    import dataclasses
+
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import factory
+
+    S, n = G3_CHECK_S, G3_FAMILY_DECODE
+    toks = torch.randint(0, cfg.vocab_size, (1, S + n), device="cuda", dtype=torch.int32,
+                         generator=torch.Generator(device="cuda").manual_seed(7))
+    with _TF32(torch, {"cudnn": False, "matmul": False}), torch.no_grad():
+        p32 = tree_map(lambda t: t.float(), params)
+        routes = {}
+        for absorb in (True, False):
+            m = factory.build(cfg, mla_absorb=absorb)
+            _, c = m.prefill(p32, {"tokens": toks[:, :S]})
+            c, outs = _grown(m, c, 1, S + n), []
+            for t in range(S, S + n):
+                lg, c = m.decode_step(p32, c, toks[:, t:t + 1])
+                outs.append(lg.float())
+            routes[absorb] = torch.cat(outs, 1)
+        absorb_gap = {"max_abs_gap": float((routes[True] - routes[False]).abs().max()),
+                      "max_abs_logit": float(routes[True].abs().max())}
+        if not _consistent(absorb_gap):
+            raise AssertionError(f"g3_families: MLA absorbed vs decompressed decode "
+                                 f"{absorb_gap}")
+        spec = cfg.pattern[0].mlp.moe
+        cf = spec.num_experts / spec.top_k
+        nodrop = dataclasses.replace(cfg, pattern=tuple(
+            dataclasses.replace(s, mlp=dataclasses.replace(s.mlp, moe=dataclasses.replace(
+                s.mlp.moe, capacity_factor=cf)))
+            for s in cfg.pattern))
+        gap = _last_step_gap(factory.build(nodrop), p32, toks[:, :G3_NODROP_S])
+        if not _consistent(gap):
+            raise AssertionError(f"g3_families: no-drop MoE prefill vs decode {gap}")
+    del p32
+    return {"seq": S, "dtype": "float32", "tf32": False, "tolerance": CONSISTENCY_TOL,
+            "absorbed_vs_decompressed": {"steps": n, **absorb_gap},
+            "no_drop_prefill_vs_decode": {"seq": G3_NODROP_S, "capacity_factor": cf, **gap}}
+
+
+def phase_g3_families(torch, k4, k5, k6):
+    """One run per family, each freed before the next; per family its
+    seconds, peak memory and kernel launches (held exactly):
+
+    deepseek-v2 at full width, depth cut to its dense prefix plus one MoE
+    layer (MLA: no K4, no K5): prefill (1, 2048) and G3_FAMILY_DECODE
+    decode steps in bf16, ``_deepseek_checks`` in f32, an
+    ``sgd_train_step`` at (1, 2048) timed twice from the same params; jamba at full width, one repeat (8
+    layers: 7 mamba, 1 attention without RoPE; MoE on alternate layers):
+    prefill (1, 2048) with K6 x 7 and K4 x 1, decode steps with K5 x 1
+    each; pixtral-12b at full width and depth: prefill of 256 frontend
+    embeddings and 1792 tokens (K4 x 40), decode (K5 x 40 a step);
+    whisper-tiny at full size through ``launch.serve.serve`` with frames
+    and a 128-token prompt (the decoder's prefill self-attention on K4 x 4,
+    the bidirectional encoder on no kernel), then 16 greedy decode steps
+    (K5 x 4 a step); llama4 reduced (at full width one repeat holds two
+    16.1 B-parameter MoE layers, about 70 GB before the stacking copy):
+    prefill of 16 frontend embeddings and 112 tokens (chunked layers of
+    W = 32: K4 x 2), decode (rings of L = W: K5 x 2 a step)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import factory
+
+    out, totals = {}, [0, 0, 0, 0]  # K4, K4 backward, K5, K6
+    kernels = (k4, k5, k6)
+    n_dec = G3_FAMILY_DECODE
+
+    def seeded(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    def tokens(cfg, B, n, seed):
+        return torch.randint(0, cfg.vocab_size, (B, n), device="cuda", dtype=torch.int32,
+                             generator=seeded(seed))
+
+    def held(name, pre, dec, want_pre, want_dec):
+        if pre != want_pre or dec != want_dec:
+            raise AssertionError(f"g3_families: {name} launched (K4, K4 bwd, K5, K6) {pre} "
+                                 f"in the prefill and {dec} in the decode steps, want "
+                                 f"{want_pre} and {want_dec}")
+        for i in range(4):
+            totals[i] += pre[i] + dec[i]
+        return {"prefill_k4": pre[0], "prefill_k6": pre[3], "decode_k5": dec[2]}
+
+    def n_params(params):
+        return sum(t.numel() for t in tree_leaves(params))
+
+    # deepseek-v2: the dense prefix layer and one MoE layer
+    t0 = time.time()
+    cfg = dataclasses.replace(get_arch("deepseek-v2-236b"), repeats=1)
+    model = factory.build(cfg)
+    params = model.init(seeded(0))
+    pre, dec, times = _family_run(torch, model, params,
+                                  {"tokens": tokens(cfg, 1, G3_FAMILY_PREFILL, 1)}, n_dec,
+                                  kernels)
+    launched = held("deepseek-v2", pre, dec, (0, 0, 0, 0), (0, 0, 0, 0))
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
+    checks = _deepseek_checks(torch, cfg, params)
+    _free(torch)
+    toks = tokens(cfg, 1, G3_FAMILY_PREFILL + 1, 2)
+    train_ms = []
+    for _ in range(2):  # the first step warms up the backward's kernels
+        t1 = time.perf_counter()
+        new, metrics = model.sgd_train_step(params, {"tokens": toks[:, :-1],
+                                                     "labels": toks[:, 1:]}, 1e-2)
+        torch.cuda.synchronize()
+        train_ms.append((time.perf_counter() - t1) * 1e3)
+    if not (math.isfinite(float(metrics["loss"])) and float(metrics["moe_aux"]) > 0
+            and all(bool(torch.isfinite(t).all()) for t in tree_leaves(new))):
+        raise AssertionError(f"g3_families: deepseek-v2's train step: {metrics}")
+    out["deepseek-v2"] = {
+        "layers": cfg.num_layers, "params": n_params(params),
+        "prefill": [1, G3_FAMILY_PREFILL], "decode_steps": n_dec, **times,
+        "launches": launched, "serve_peak_mem_gib": serve_peak, "f32_checks": checks,
+        "train_step": {"seq": G3_FAMILY_PREFILL, "ms_first_then_second": train_ms,
+                       "loss": float(metrics["loss"]), "moe_aux": float(metrics["moe_aux"]),
+                       "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30},
+        "seconds": time.time() - t0}
+    del model, params, new
+    _free(torch)
+
+    # jamba: one repeat of the 8-layer pattern
+    t0 = time.time()
+    cfg = dataclasses.replace(get_arch("jamba-v0.1-52b"), repeats=1)
+    model = factory.build(cfg)
+    params = model.init(seeded(0))
+    n_mamba = sum(s.kind == "mamba" for s in cfg.all_layers())
+    n_attn = cfg.num_layers - n_mamba
+    pre, dec, times = _family_run(torch, model, params,
+                                  {"tokens": tokens(cfg, 1, G3_FAMILY_PREFILL, 3)}, n_dec,
+                                  kernels)
+    out["jamba"] = {
+        "layers": cfg.num_layers, "mamba_layers": n_mamba, "attn_layers": n_attn,
+        "params": n_params(params), "prefill": [1, G3_FAMILY_PREFILL],
+        "decode_steps": n_dec, **times,
+        "launches": held("jamba", pre, dec, (n_attn, 0, 0, n_mamba),
+                         (0, 0, n_attn * n_dec, 0)),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "seconds": time.time() - t0}
+    del model, params
+    _free(torch)
+
+    # pixtral-12b: full width and depth, the vision stub's embeddings first
+    t0 = time.time()
+    cfg = get_arch("pixtral-12b")
+    model = factory.build(cfg)
+    params = model.init(seeded(0))
+    ft, L = cfg.frontend_tokens, cfg.num_layers
+    batch = {"tokens": tokens(cfg, 1, G3_FAMILY_PREFILL - ft, 4),
+             "frontend": torch.randn((1, ft, cfg.d_model), generator=seeded(5),
+                                     device="cuda").to(torch.bfloat16)}
+    pre, dec, times = _family_run(torch, model, params, batch, n_dec, kernels)
+    out["pixtral-12b"] = {
+        "layers": L, "params": n_params(params), "frontend_tokens": ft,
+        "text_tokens": G3_FAMILY_PREFILL - ft, "decode_steps": n_dec, **times,
+        "launches": held("pixtral-12b", pre, dec, (L, 0, 0, 0), (0, 0, L * n_dec, 0)),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "seconds": time.time() - t0}
+    del model, params
+    _free(torch)
+
+    # whisper-tiny: the serve driver, frames drawn from its seed
+    t0 = time.time()
+    cfg = get_arch("whisper-tiny")
+    L, gen = cfg.num_layers, 16
+    _zero(*kernels)
+    res = serve_mod.serve(cfg, 4, 128, gen, temperature=0.0, device="cuda", seed=0)
+    launched = held("whisper-tiny", _g3_counts(*kernels), (0, 0, 0, 0),
+                    (L, 0, L * gen, 0), (0, 0, 0, 0))
+    if not ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
+        raise AssertionError("g3_families: whisper-tiny's tokens out of range")
+    out["whisper-tiny"] = {
+        "decoder_layers": L, "encoder_layers": cfg.encoder.num_layers,
+        "frames": cfg.encoder.source_len, "batch": 4, "prompt_len": 128, "gen": gen,
+        "prefill_ms": res.prefill_s * 1e3, "decode_ms_per_step": res.decode_s * 1e3 / gen,
+        "launches": {"prefill_k4": launched["prefill_k4"], "decode_k5": L * gen},
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "seconds": time.time() - t0}
+    _free(torch)
+
+    # llama4, reduced
+    t0 = time.time()
+    cfg = get_arch("llama4-maverick-400b-a17b").reduced()
+    model = factory.build(cfg)
+    params = model.init(seeded(0))
+    ft, L = cfg.frontend_tokens, cfg.num_layers
+    batch = {"tokens": tokens(cfg, 2, 128 - ft, 6),
+             "frontend": torch.randn((2, ft, cfg.d_model), generator=seeded(7), device="cuda")}
+    pre, dec, times = _family_run(torch, model, params, batch, n_dec, kernels)
+    out["llama4-reduced"] = {
+        "layers": L, "d_model": cfg.d_model, "dtype": cfg.param_dtype,
+        "kinds": [s.attn.kind for s in cfg.all_layers()],
+        "window": cfg.pattern[0].attn.window, "batch": 2, "seq": 128,
+        "frontend_tokens": ft, "decode_steps": n_dec, **times,
+        "launches": held("llama4", pre, dec, (L, 0, 0, 0), (0, 0, L * n_dec, 0)),
+        "seconds": time.time() - t0}
+    del model, params
+    _free(torch)
+    emit({"phase": "g3_families", "ok": True, **out})
+    return totals
+
+
+def phase_g3_pool(torch, k5):
+    """The slot pool's contracts (``serve_contracts``: join/evict churn
+    bitwise each stream's solo decode in a same-width pool, failover under
+    ``replica_crash`` equal to the calm run) for a windowed arch (gemma3),
+    an MLA + MoE arch (deepseek-v2: each row its own MoE group) and the
+    encoder-decoder (whisper), reduced, on the card: K5 once per non-MLA
+    layer a decode step, no plain version."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import encdec, factory, transformer
+
+    t_phase = time.time()
+    out, total = {}, 0
+    for name in ("gemma3-27b", "deepseek-v2-236b", "whisper-tiny"):
+        cfg = get_arch(name).reduced()
+        model = factory.build(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        store = _ring_store(torch, params, SERVE_RING_H)
+        del params
+        k5_layers = sum(not s.attn.is_mla for s in cfg.all_layers() if s.attn is not None)
+        counts, plain = {}, {}
+        restore = [_count_calls(transformer, ["decode_step"], counts),
+                   _count_calls(encdec, ["decode_step"], counts),
+                   _count_calls(k5, ["flash_decode_plain"], plain)]
+        try:
+            k5.launches = 0
+            contracts = serve_contracts(model, store, "cuda")
+            steps = sum(counts.values())
+            if k5.launches != k5_layers * steps:
+                raise AssertionError(f"g3_pool: {name}: K5 launched {k5.launches} times in "
+                                     f"{steps} decode steps of {k5_layers} K5 layers")
+            if plain:
+                raise AssertionError(f"g3_pool: {name}: plain versions ran: {plain}")
+        finally:
+            for fn in restore:
+                fn()
+        total += k5.launches
+        out[name] = {**contracts, "decode_steps": steps, "k5_layers": k5_layers,
+                     "k5_launches": k5.launches}
+        del store, model
+    _free(torch)
+    emit({"phase": "g3_pool", "ok": True, "archs": out, "seconds": time.time() - t_phase})
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -4742,6 +5354,19 @@ def main() -> int:
     entry["launches"] += k2
     k6_entry["launches"] += fwd
     k6_bwd_entry["launches"] += bwd
+    _free(torch)
+    fwd, k5 = phase_g3_serve(torch, flash_attention, flash_decode)
+    k4_entry["launches"] += fwd
+    k5_entry["launches"] += k5
+    fwd, bwd = phase_g3_train(torch, flash_attention)
+    k4_entry["launches"] += fwd
+    bwd_entry["launches"] += bwd
+    fwd, bwd, k5, k6 = phase_g3_families(torch, flash_attention, flash_decode, ssd_scan)
+    k4_entry["launches"] += fwd
+    bwd_entry["launches"] += bwd
+    k5_entry["launches"] += k5
+    k6_entry["launches"] += k6
+    k5_entry["launches"] += phase_g3_pool(torch, flash_decode)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{key: e[key] for key in keys}

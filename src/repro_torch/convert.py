@@ -90,7 +90,9 @@ def lm_params_to_jax(params) -> Dict:
 
 def lm_caches_from_jax(caches, device) -> Dict:
     """Port decode caches from the reference's (``init_decode_caches`` or
-    ``prefill`` output): ``(B, L, Hk, D)`` K/V and the int32 ``index``."""
+    ``prefill`` output): ``(B, L, Hk, D)`` K/V or MLA's ``c_kv``/``k_rope``
+    latents, SSM states, whisper's ``self``/``cross_k``/``cross_v`` tree,
+    and the int32 ``index``."""
     return _to_torch(caches, device)
 
 

@@ -6,12 +6,18 @@ reference, ``main`` serves the arch's ``reduced()`` variant with weights
 drawn from a seed (the published checkpoints are not in the repository).
 Every decode step's attention runs through the K5 CUDA kernel
 (``kernels.flash_decode``), one launch per layer; a Mamba2 layer's decode
-step is the O(1) recurrence, in plain torch. The prompt goes in through
-``prefill_tokens`` (one decode step a token), as in the reference, so
-``serve`` reaches neither K4 nor K6; ``model.prefill`` does.
+step is the O(1) recurrence, in plain torch. A decoder's prompt goes in
+through ``prefill_tokens`` (one decode step a token), as in the reference,
+so ``serve`` reaches neither K4 nor K6 there; ``model.prefill`` does. An
+encoder-decoder (whisper) gets random ``frames`` and goes through
+``model.prefill`` (the encoder, the decoder's self-attention on K4 where
+the prompt is a multiple of 128 tokens, the cross K/V), as the reference's
+driver does.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
       --batch 4 --prompt-len 32 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu   # CPU run
 """
@@ -29,6 +35,7 @@ from repro_torch.configs import get_arch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import factory
+from repro_torch.models.common import dtype_of
 from repro_torch.serve.batching import prefill_tokens
 
 
@@ -42,11 +49,11 @@ class ServeResult:
 
 
 def _generators(seed: int, device) -> Dict[str, torch.Generator]:
-    """Independent generators for params, prompts and sampling, as the
-    reference splits one key."""
-    seeds = np.random.SeedSequence(seed).generate_state(3)
+    """Independent generators for params, prompts, sampling and encoder
+    frames, as the reference splits one key."""
+    seeds = np.random.SeedSequence(seed).generate_state(4)
     return {name: torch.Generator(device=device).manual_seed(int(s))
-            for name, s in zip(("init", "prompt", "sample"), seeds)}
+            for name, s in zip(("init", "prompt", "sample", "frames"), seeds)}
 
 
 def sample(logits: torch.Tensor, temperature: float,
@@ -66,10 +73,12 @@ def serve(cfg: ArchConfig, batch: int, prompt_len: int, gen: int,
           temperature: float = 0.8, device=None, seed: int = 0,
           params=None, prompts: Optional[torch.Tensor] = None) -> ServeResult:
     """Prefill ``batch`` prompts of ``prompt_len`` tokens into ring caches
-    of ``prompt_len + gen`` slots with ``prefill_tokens``, then run ``gen``
-    decode steps, sampling at ``temperature``. ``params`` and ``prompts``
-    default to draws from ``seed``; the first token is the argmax of the
-    prefill logits, as in the reference."""
+    of ``prompt_len + gen`` slots with ``prefill_tokens`` (an
+    encoder-decoder: ``model.prefill`` of ``frames`` and the prompts), then
+    run ``gen`` decode steps, sampling at ``temperature``. ``params`` and
+    ``prompts`` default to draws from ``seed``; an encoder-decoder's frames
+    are always drawn from it (standard normal in the compute dtype). The
+    first token is the argmax of the prefill logits, as in the reference."""
     dev = resolve_device(device)
     model = factory.build(cfg)
     gens = _generators(seed, dev)
@@ -84,8 +93,15 @@ def serve(cfg: ArchConfig, batch: int, prompt_len: int, gen: int,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        caches = model.init_decode_caches(batch, ctx, dev)
-        logits, caches = prefill_tokens(model.decode_step, params, caches, prompts)
+        if cfg.encoder is not None:
+            frames = torch.randn((batch, cfg.encoder.source_len, cfg.d_model),
+                                 generator=gens["frames"], device=dev).to(
+                                     dtype_of(cfg.compute_dtype))
+            logits, caches = model.prefill(
+                params, {"frames": frames, "tokens": prompts, "seq_len": ctx})
+        else:
+            caches = model.init_decode_caches(batch, ctx, dev)
+            logits, caches = prefill_tokens(model.decode_step, params, caches, prompts)
         prefill_logits = logits
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)

@@ -6,7 +6,10 @@ The same flags as ``repro.launch.train`` plus ``--device`` and ``--seed``
 (the params' generator and the token stream's seed; 0 is the reference's
 stream). On the card every attention layer runs K4 forward and backward
 (with ``build``'s default remat, the forward twice a layer a step); on the
-CPU their plain versions.
+CPU their plain versions. An arch with the vision stub (pixtral, llama4)
+gets one draw of frontend embeddings prepended to every step's tokens, with
+the labels of those positions ignored (-1); an encoder-decoder (whisper)
+one draw of frames, as the reference's driver reuses one ``synth_batch``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
       --steps 200 --batch 8 --seq 128
@@ -83,11 +86,19 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         args.steps, B, S + 1)
     lrs = warmup_cosine(args.lr, args.steps // 10, args.steps)(
         torch.arange(args.steps, device=dev))
+    ft = cfg.frontend_tokens if cfg.frontend != "none" else 0
+    stub = factory.synth_batch(torch.Generator(device=dev).manual_seed(args.seed), cfg,
+                               B, S + ft)
+    stub = {k: v for k, v in stub.items() if k in ("frontend", "frames")}
+    ignored = torch.full((B, ft), -1, dtype=docs.dtype, device=dev)
 
     losses = []
     t0 = time.time()
     for step in range(args.steps):
-        batch = {"tokens": docs[step, :, :-1], "labels": docs[step, :, 1:]}
+        labels = docs[step, :, 1:]
+        if ft:
+            labels = torch.cat([ignored, labels], dim=1)
+        batch = {"tokens": docs[step, :, :-1], "labels": labels, **stub}
         params, metrics = model.sgd_train_step(params, batch, lrs[step])
         losses.append(metrics["loss"])
         if (step + 1) % args.log_every == 0:

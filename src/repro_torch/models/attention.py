@@ -1,10 +1,14 @@
-"""Attention layers (GQA/MHA, with causal, sliding-window and chunked
-masks): train/prefill forward and cached single-token decode.
+"""Attention layers: GQA/MHA with causal, sliding-window and chunked
+masks, MLA (multi-head latent attention, deepseek-v2), bidirectional
+(whisper's encoder) and cross attention; train/prefill forward and cached
+single-token decode.
 
 Port of ``repro.models.attention``, same names, parameter layouts
-(``w_q`` (d_model, H, D), ``w_o`` (H, D, d_model)) and cache layout
-(``k``/``v`` (B, L, Hk, D) ring buffers with a 0-d int32 ``index``; the
-serving tier's slot pool gives each row its own index, a (B,) one).
+(``w_q`` (d_model, H, D), ``w_o`` (H, D, d_model); MLA's ``w_dq``,
+``w_uq``, ``w_dkv``, ``w_k_rope``, ``w_uk``, ``w_uv``) and cache layouts
+(``k``/``v`` (B, L, Hk, D) ring buffers, MLA's latent ``c_kv`` (B, L, r)
+and ``k_rope`` (B, L, dr), each with a 0-d int32 ``index``; the serving
+tier's slot pool gives each row its own index, a (B,) one).
 
 Full-sequence attention goes through K4 (``kernels.flash_attention``)
 when ``set_kernel_attention`` is on (the default here, the reference's
@@ -13,10 +17,30 @@ otherwise it takes the reference's kernel-off route (``_attend_direct``
 or the blocked online softmax ``_attend_flash_jnp``). In training the K4
 route is differentiable through K4's autograd Function, whose backward is
 a kernel too; the reference trains with its kernel off, so its gradient
-there is autodiff of the direct route (the same function). The decode step of a
-``full`` layer goes through K5 (``kernels.flash_decode``): its ring mask
-keeps exactly the slots ``0 .. min(index + 1, L) - 1``, a prefix, which is
-what K5's ``valid_len`` masks. MLA and cross attention are not ported yet.
+there is autodiff of the direct route (the same function). MLA never
+reaches K4: its query and key width D + dr is not its value width, as the
+reference's kernel condition says. A bidirectional layer (``causal``
+False) does not either: K4 is causal.
+
+The decode step goes through K5 (``kernels.flash_decode``) wherever the
+ring's valid slots are a prefix ``0 .. valid_len - 1``, which is what K5
+masks. The route is picked on the host from the spec and the cache length
+L alone (``_k5_valid_len``):
+
+* ``full``: ``valid_len = min(index + 1, L)``;
+* ``sliding`` with L <= window (every cache ``init_cache`` or a prefill
+  makes: L = min(window, context)): slot s holds position
+  ``index - ((index - s) mod L)``, inside ``(index - L, index]`` and so
+  inside the window, so the valid slots are those already written,
+  ``valid_len = min(index + 1, L)``;
+* ``chunked`` with L == window: the valid slots are those of the current
+  chunk, ``0 .. index mod W``, so ``valid_len = index mod W + 1``.
+
+A ``chunked`` ring shorter than its chunk (L < W: a context below the
+chunk) stops being a prefix once ``index >= L`` (the chunk's start can sit
+anywhere in the wrapped ring), so that layer keeps the masked route
+(``_slot_valid``), the one windowed decode route that K5 does not take.
+MLA decode and cross attention are plain torch, as in the reference.
 """
 from __future__ import annotations
 
@@ -44,13 +68,6 @@ def set_kernel_attention(enabled: bool) -> None:
     _USE_KERNEL = enabled
 
 
-def _mla_not_ported():
-    return NotImplementedError(
-        "MLA attention (deepseek-v2) is not ported to repro_torch yet: it "
-        "arrives with ROADMAP queue 1, slice G3 (MoE, MLA, SSM and windowed "
-        "models)")
-
-
 # ---------------------------------------------------------------------------
 # Params
 # ---------------------------------------------------------------------------
@@ -58,15 +75,25 @@ def _mla_not_ported():
 
 def init_attention(gen: torch.Generator, d_model: int, spec: AttentionSpec,
                    dtype) -> Dict:
-    if spec.is_mla:
-        raise _mla_not_ported()
     H, Hk, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
-    p: Dict = {
-        "w_q": dense_init(gen, (d_model, H, D), 0, dtype),
-        "w_k": dense_init(gen, (d_model, Hk, D), 0, dtype),
-        "w_v": dense_init(gen, (d_model, Hk, D), 0, dtype),
-        "w_o": dense_init(gen, (H, D, d_model), 0, dtype),
-    }
+    p: Dict = {}
+    if spec.is_mla:
+        r, dr = spec.kv_lora, spec.rope_dim
+        if spec.q_lora:
+            p["w_dq"] = dense_init(gen, (d_model, spec.q_lora), 0, dtype)
+            p["w_uq"] = dense_init(gen, (spec.q_lora, H, D + dr), 0, dtype)
+        else:
+            p["w_uq"] = dense_init(gen, (d_model, H, D + dr), 0, dtype)
+        p["w_dkv"] = dense_init(gen, (d_model, r), 0, dtype)
+        p["w_k_rope"] = dense_init(gen, (d_model, dr), 0, dtype)
+        p["w_uk"] = dense_init(gen, (r, H, D), 0, dtype)
+        p["w_uv"] = dense_init(gen, (r, H, D), 0, dtype)
+        p["w_o"] = dense_init(gen, (H, D, d_model), 0, dtype)
+    else:
+        p["w_q"] = dense_init(gen, (d_model, H, D), 0, dtype)
+        p["w_k"] = dense_init(gen, (d_model, Hk, D), 0, dtype)
+        p["w_v"] = dense_init(gen, (d_model, Hk, D), 0, dtype)
+        p["w_o"] = dense_init(gen, (H, D, d_model), 0, dtype)
     if spec.qk_norm:
         p["q_norm"] = torch.ones((D,), dtype=dtype, device=gen.device)
         p["k_norm"] = torch.ones((D,), dtype=dtype, device=gen.device)
@@ -191,7 +218,7 @@ def attention_fwd(
 ) -> torch.Tensor:
     """Full-sequence (train / prefill) attention."""
     if spec.is_mla:
-        raise _mla_not_ported()
+        return _mla_fwd(p, x, spec, rope, positions)
     H, Hk, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
     G = H // Hk
     q, k, v = _project_qkv(p, x, spec)
@@ -216,9 +243,13 @@ def attention_fwd(
 def init_cache(spec: AttentionSpec, batch: int, seq_len: int, dtype,
                device=None) -> Dict:
     """Cache sized for a context of ``seq_len`` (bounded by window/chunk)."""
-    if spec.is_mla:
-        raise _mla_not_ported()
     L = spec.cache_len(seq_len)
+    if spec.is_mla:
+        return {
+            "c_kv": torch.zeros((batch, L, spec.kv_lora), dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, L, spec.rope_dim), dtype=dtype, device=device),
+            "index": torch.zeros((), dtype=torch.int32, device=device),
+        }
     shape = (batch, L, spec.num_kv_heads, spec.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
@@ -248,27 +279,58 @@ def _slot_valid(spec: AttentionSpec, slot_pos, index):
     return ok
 
 
+def _k5_valid_len(spec: AttentionSpec, L: int, index):
+    """K5's ``valid_len`` (() or (B,), on the device) for a ring of L slots
+    at ``index``, or None where the ring's valid slots are not a prefix
+    (the masked route). The route depends on the spec and L alone."""
+    if spec.kind == "full" or spec.window <= 0 or (
+            spec.kind == "sliding" and L <= spec.window):
+        return torch.clamp(index + 1, max=L)
+    if spec.kind == "chunked" and L == spec.window:
+        return torch.remainder(index, L) + 1
+    return None
+
+
+def _write_ring(cache: Dict, names, rows_new, index, per_row: bool) -> None:
+    """Write each (B, 1, ...) new row into ``cache[name]`` (B, L, ...) at
+    the ring slot ``index % L``, in place (one slot for a 0-d index, each
+    row's own for a (B,) index)."""
+    L = cache[names[0]].shape[1]
+    if per_row:
+        rows = torch.arange(index.shape[0], device=index.device)
+        slot = torch.remainder(index, L).long()
+        for name, new in zip(names, rows_new):
+            cache[name].index_put_((rows, slot), new[:, 0])
+    else:
+        slot = torch.remainder(index, L).reshape(1).long()
+        for name, new in zip(names, rows_new):
+            cache[name].index_copy_(1, slot, new)
+
+
 def attention_decode(
     p: Dict,
     x: torch.Tensor,  # (B, 1, d)
     spec: AttentionSpec,
     rope: Optional[RopeTable],
     cache: Dict,
+    mla_absorb: bool = True,
 ) -> Tuple[torch.Tensor, Dict]:
     """Single-token decode with a ring-buffer cache update.
 
-    Updates the cache IN PLACE: the new K/V row is written into
-    ``cache["k"]``/``cache["v"]`` at slot ``index % L`` and ``cache["index"]``
-    is incremented; the returned dict holds those same tensors. A caller
-    that needs the old cache keeps a copy. The slot, the RoPE position and
-    K5's ``valid_len`` are all computed on the device: no host sync.
+    Updates the cache IN PLACE: the new K/V row (MLA: latent and RoPE key)
+    is written at slot ``index % L`` and ``cache["index"]`` is incremented;
+    the returned dict holds those same tensors. A caller that needs the old
+    cache keeps a copy. The slot, the RoPE position and K5's ``valid_len``
+    are all computed on the device: no host sync.
 
     ``index`` is 0-d (every row at one position) or (B,) (the slot pool:
     each row at its own position, with its own RoPE angle, ring slot,
     ``valid_len`` and window mask, so a row's result depends on that row's
-    cache alone)."""
+    cache alone). K5 takes every layer whose valid slots are a prefix
+    (module docstring); a ``chunked`` ring shorter than its chunk keeps
+    the masked route."""
     if spec.is_mla:
-        raise _mla_not_ported()
+        return _mla_decode(p, x, spec, rope, cache, absorb=mla_absorb)
     H, Hk, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
     G = H // Hk
     B = x.shape[0]
@@ -280,23 +342,13 @@ def attention_decode(
     if spec.rope and rope is not None:
         q = apply_rope(q, pos, rope.inv_freq, rope.rot)
         k = apply_rope(k, pos, rope.inv_freq, rope.rot)
-    if per_row:
-        rows = torch.arange(B, device=index.device)
-        slot = torch.remainder(index, L).long()
-        cache["k"].index_put_((rows, slot), k[:, 0])
-        cache["v"].index_put_((rows, slot), v[:, 0])
-    else:
-        slot = torch.remainder(index, L).reshape(1).long()
-        cache["k"].index_copy_(1, slot, k)
-        cache["v"].index_copy_(1, slot, v)
-    k_cache, v_cache = cache["k"], cache["v"]
+    _write_ring(cache, ("k", "v"), (k, v), index, per_row)
     qg = q.reshape(B, Hk, G, D)
-    kg = k_cache.permute(0, 2, 1, 3)  # (B, Hk, L, D) views, no copy
-    vg = v_cache.permute(0, 2, 1, 3)
+    kg = cache["k"].permute(0, 2, 1, 3)  # (B, Hk, L, D) views, no copy
+    vg = cache["v"].permute(0, 2, 1, 3)
     scale = spec.softmax_scale or (1.0 / D**0.5)
-    if spec.kind == "full":
-        # the ring mask of a full layer is the prefix 0 .. min(index+1, L)-1
-        valid_len = torch.clamp(index + 1, max=L)
+    valid_len = _k5_valid_len(spec, L, index)
+    if valid_len is not None:
         out = kops.flash_decode(qg, kg, vg, valid_len, scale=scale)
     else:
         valid = _slot_valid(spec, _slot_positions(spec, L, index), index)
@@ -310,3 +362,131 @@ def attention_decode(
     y = torch.einsum("bshe,hed->bsd", out, p["w_o"])
     index.add_(1)
     return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2)
+# ---------------------------------------------------------------------------
+
+
+def _rope_one_head(t, pos, rope):
+    """RoPE of a (B, S, dr) single shared head at positions ``pos``."""
+    return apply_rope(t[:, :, None, :], pos, rope.inv_freq, rope.rot)[:, :, 0]
+
+
+def _mla_q(p, x, spec, rope, pos):
+    """(q_nope (B, S, H, D), q_rope (B, S, H, dr)); ``pos`` (1 or B, S)."""
+    D = spec.head_dim
+    if spec.q_lora:
+        cq = x @ p["w_dq"]
+        q = torch.einsum("bsr,rhe->bshe", cq, p["w_uq"])  # (B, S, H, D + dr)
+    else:
+        q = torch.einsum("bsd,dhe->bshe", x, p["w_uq"])
+    q_nope, q_rope = q[..., :D], q[..., D:]
+    if rope is not None:
+        q_rope = apply_rope(q_rope, pos, rope.inv_freq, rope.rot)
+    return q_nope, q_rope
+
+
+def _mla_fwd(p, x, spec, rope, positions):
+    """Prefill/train MLA: decompress K/V and run standard attention (MHA,
+    G = 1). The key width D + dr differs from the value width D, so the
+    grouped attention takes the kernel-off route (direct up to 2048
+    tokens, the blocked online softmax above)."""
+    B, S, _ = x.shape
+    H, D, dr = spec.num_heads, spec.head_dim, spec.rope_dim
+    q_nope, q_rope = _mla_q(p, x, spec, rope, positions[None])
+    c_kv = x @ p["w_dkv"]
+    k_rope = x @ p["w_k_rope"]  # single shared head
+    if rope is not None:
+        k_rope = _rope_one_head(k_rope, positions[None], rope)
+    k_nope = torch.einsum("bsr,rhe->bshe", c_kv, p["w_uk"])
+    v = torch.einsum("bsr,rhe->bshe", c_kv, p["w_uv"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, dr)], dim=-1)
+    scale = spec.softmax_scale or (1.0 / (D + dr) ** 0.5)
+    qg = q.permute(0, 2, 1, 3)[:, :, None]  # (B, H, 1, S, D + dr)
+    kg = k.permute(0, 2, 1, 3)
+    vg = v.permute(0, 2, 1, 3)
+    out = _grouped_attention(qg, kg, vg, spec, positions, positions, scale)
+    out = out[:, :, 0].permute(0, 2, 1, 3).to(x.dtype)  # (B, S, H, D)
+    return torch.einsum("bshe,hed->bsd", out, p["w_o"])
+
+
+def _mla_decode(p, x, spec, rope, cache, absorb: bool):
+    """Cached decode against the compressed latent cache, in place.
+
+    ``absorb=True`` scores the latent cache directly through q' = q W_uk
+    per head and takes the output as (w c_kv) W_uv: O(L r) a head instead
+    of decompressing O(L H D) keys and values every step. ``absorb=False``
+    decompresses (the reference's roofline baseline). The valid slots are
+    the prefix ``slot_pos >= 0 and <= index`` (MLA layers are ``full``),
+    with a 0-d or a (B,) index."""
+    B = x.shape[0]
+    D, dr = spec.head_dim, spec.rope_dim
+    index = cache["index"]
+    per_row = index.dim() == 1
+    L = cache["c_kv"].shape[1]
+    pos = index[:, None] if per_row else index[None][None]  # (B or 1, 1)
+    q_nope, q_rope = _mla_q(p, x, spec, rope, pos)  # (B, 1, H, D), (B, 1, H, dr)
+    c_new = x @ p["w_dkv"]
+    kr_new = x @ p["w_k_rope"]
+    if rope is not None:
+        kr_new = _rope_one_head(kr_new, pos, rope)
+    _write_ring(cache, ("c_kv", "k_rope"), (c_new, kr_new), index, per_row)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    slot_pos = _slot_positions(spec, L, index)
+    valid = (slot_pos >= 0) & (slot_pos <= index[..., None])  # (L,) or (B, L)
+    valid = valid[:, None, None] if per_row else valid  # against (B, H, 1, L)
+    scale = spec.softmax_scale or (1.0 / (D + dr) ** 0.5)
+    if absorb:
+        qc = torch.einsum("bshe,rhe->bshr", q_nope, p["w_uk"])  # (B, 1, H, r)
+        s = torch.einsum("bshr,blr->bhsl", qc, c_kv)
+        s = s + torch.einsum("bshe,ble->bhsl", q_rope, k_rope)
+        s = torch.where(valid, s.float() * scale, -1e30)
+        w = torch.softmax(s, dim=-1)
+        wc = torch.einsum("bhsl,blr->bshr", w.to(c_kv.dtype), c_kv)
+        out = torch.einsum("bshr,rhe->bshe", wc, p["w_uv"])  # (B, 1, H, D)
+    else:
+        k_nope = torch.einsum("blr,rhe->blhe", c_kv, p["w_uk"])  # (B, L, H, D)
+        v = torch.einsum("blr,rhe->blhe", c_kv, p["w_uv"])
+        s = torch.einsum("bshe,blhe->bhsl", q_nope, k_nope)
+        s = s + torch.einsum("bshe,ble->bhsl", q_rope, k_rope)
+        s = torch.where(valid, s.float() * scale, -1e30)
+        w = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhsl,blhe->bshe", w.to(v.dtype), v)
+    y = torch.einsum("bshe,hed->bsd", out.to(x.dtype), p["w_o"])
+    index.add_(1)
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (whisper's decoder)
+# ---------------------------------------------------------------------------
+
+
+def init_cross_attention(gen: torch.Generator, d_model: int, spec: AttentionSpec,
+                         dtype) -> Dict:
+    return init_attention(gen, d_model, spec, dtype)
+
+
+def _attend_unmasked(q, k, v, D):
+    """q (B, S, Hk, G, D) over k/v (B, T, Hk, D), every key valid: scores
+    in f32 over sqrt(D), as the reference's cross attention."""
+    B, S, Hk, G, _ = q.shape
+    s = torch.einsum("bshgd,bthd->bhgst", q, k).float() / D**0.5
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgst,bthd->bshgd", w.to(v.dtype), v)
+    return out.reshape(B, S, Hk * G, D)
+
+
+def cross_attention_fwd(p, x, kv_src, spec: AttentionSpec):
+    """Decoder-to-encoder cross attention; kv_src (B, T, d); no mask, no
+    RoPE, scale 1 / sqrt(D)."""
+    H, Hk, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    B, S = x.shape[0], x.shape[1]
+    q = torch.einsum("bsd,dhe->bshe", x, p["w_q"]).reshape(B, S, Hk, H // Hk, D)
+    k = torch.einsum("bsd,dhe->bshe", kv_src, p["w_k"])
+    v = torch.einsum("bsd,dhe->bshe", kv_src, p["w_v"])
+    out = _attend_unmasked(q, k, v, D).to(x.dtype)
+    return torch.einsum("bshe,hed->bsd", out, p["w_o"])

@@ -107,3 +107,26 @@ def activation(name: str) -> Callable:
     """jax.nn's silu / gelu (tanh approximation, jax's default) / relu."""
     return {"silu": F.silu, "gelu": lambda t: F.gelu(t, approximate="tanh"),
             "relu": F.relu}[name]
+
+
+# ---------------------------------------------------------------------------
+# Fixed sinusoidal positions (the encoder-decoder)
+# ---------------------------------------------------------------------------
+
+
+def sinusoid_positions(length: int, d_model: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal table (length, d_model), computed in
+    float64 and rounded to f32 as the reference's numpy table."""
+    pos = np.arange(length)[:, None]
+    dim = np.arange(d_model // 2)[None, :]
+    ang = pos / (10000.0 ** (dim / max(d_model // 2 - 1, 1)))
+    table = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.as_tensor(table, dtype=torch.float32, device=device)
+
+
+def sinusoid_at(pos: torch.Tensor, d_model: int) -> torch.Tensor:
+    """The sinusoidal embedding at integer position(s) ``pos`` on the
+    device, in f32: () -> (d_model,), (B,) -> (B, d_model)."""
+    dim = torch.arange(d_model // 2, dtype=torch.float32, device=pos.device)
+    ang = pos.float()[..., None] / torch.pow(10000.0, dim / max(d_model // 2 - 1, 1))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

@@ -1,11 +1,17 @@
 """Pattern-repeat decoder transformer.
 
-Port of ``repro.models.transformer`` for dense attention layers and
-Mamba2 (SSD) layers. An ``ArchConfig`` describes layers as ``prefix +
+Port of ``repro.models.transformer``: one stack for every decoder arch the
+reference registers, dense GQA (llama, tinyllama, stablelm, pixtral),
+local:global interleave (gemma3), chunked:global with MoE (llama4),
+MLA with MoE (deepseek-v2), mamba:attention hybrids (jamba) and pure SSD
+(mamba2). An ``ArchConfig`` describes layers as ``prefix +
 pattern * repeats + remainder``; the pattern's parameters (and decode
 caches) are stacked on a leading ``repeats`` axis as in the reference, so a
 reference tree converts key for key. Where the reference runs ``lax.scan`` over the
 stacked leaves, the port loops over ``repeats`` and indexes them as views.
+The vision stub (pixtral, llama4) prepends ``frontend`` embeddings through
+``frontend_proj``; MoE layers add their Switch aux loss to ``forward``'s
+total.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.kernels.flash_attention import under_torch_func
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import RopeTable
 from repro_torch.models.common import (
@@ -52,12 +59,20 @@ def build_ropes(cfg: ArchConfig, device=None) -> Dict[str, RopeTable]:
         inv_l, rot_l = rope_frequencies(a.head_dim, cfg.rope_theta_local,
                                         a.rope_frac, device)
         tables["local"] = RopeTable(inv_l, rot_l)
+    mla = [s for s in specs if s.is_mla]
+    if mla:
+        inv_m, rot_m = rope_frequencies(mla[0].rope_dim, cfg.rope_theta, 1.0, device)
+        tables["mla"] = RopeTable(inv_m, rot_m)
     return tables
 
 
 def _rope_for(cfg: ArchConfig, spec: LayerSpec, ropes) -> Optional[RopeTable]:
     a = spec.attn
-    if a is None or not a.rope:
+    if a is None:
+        return None
+    if a.is_mla:  # MLA's decoupled RoPE dims, whatever ``rope`` says
+        return ropes.get("mla")
+    if not a.rope:
         return None
     if a.kind == "sliding" and "local" in ropes:
         return ropes["local"]
@@ -65,7 +80,7 @@ def _rope_for(cfg: ArchConfig, spec: LayerSpec, ropes) -> Optional[RopeTable]:
 
 
 # ---------------------------------------------------------------------------
-# Per-layer init / apply (attention or SSM, then a dense MLP if any)
+# Per-layer init / apply (attention or SSM, then a dense MLP or MoE if any)
 # ---------------------------------------------------------------------------
 
 
@@ -79,7 +94,10 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec) -> Dict:
         p["ssm"] = ssm_mod.init_ssm(gen, cfg.d_model, spec.ssm, dtype)
     if spec.mlp.kind != "none":
         p["ln2"] = init_norm(cfg.d_model, cfg.norm, dtype, dev)
-        p["mlp"] = mlp_mod.init_mlp(gen, cfg.d_model, spec.mlp, dtype)
+        if spec.mlp.kind == "dense":
+            p["mlp"] = mlp_mod.init_mlp(gen, cfg.d_model, spec.mlp, dtype)
+        else:
+            p["moe"] = moe_mod.init_moe(gen, cfg.d_model, spec.mlp.moe, dtype)
     return p
 
 
@@ -92,16 +110,22 @@ def apply_layer(
     positions,
     mode: str,
     cache: Optional[Dict] = None,
-) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Returns (x, new_cache). In ``decode`` mode the cache is updated in
-    place (``attention.attention_decode``, ``ssm.ssm_decode``)."""
+    mla_absorb: bool = True,
+    moe_group: int = moe_mod.DEFAULT_GROUP,
+) -> Tuple[torch.Tensor, Optional[Dict], Optional[torch.Tensor]]:
+    """Returns (x, new_cache, moe_aux_loss), the aux None for a layer
+    without MoE (no tensor made a layer). In ``decode`` mode the cache is
+    updated in place (``attention.attention_decode``, ``ssm.ssm_decode``).
+    ``moe_group`` is the MoE layer's token group (the serving pool's tick
+    routes each row alone: 1)."""
+    aux = None
     h = apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
     rope = _rope_for(cfg, spec, ropes)
     new_cache = cache
     if spec.kind == "attn":
         if mode == "decode":
             y, new_cache = attn_mod.attention_decode(p["attn"], h, spec.attn, rope,
-                                                     cache)
+                                                     cache, mla_absorb=mla_absorb)
         else:
             y = attn_mod.attention_fwd(p["attn"], h, spec.attn, rope, positions)
             if mode == "prefill":
@@ -116,28 +140,39 @@ def apply_layer(
     x = x + y
     if spec.mlp.kind != "none":
         h = apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
-        x = x + mlp_mod.mlp_fwd(p["mlp"], h, spec.mlp)
-    return x, new_cache
+        if spec.mlp.kind == "dense":
+            y = mlp_mod.mlp_fwd(p["mlp"], h, spec.mlp)
+        else:
+            y, metrics = moe_mod.moe_fwd(p["moe"], h, spec.mlp.moe, moe_group)
+            aux = metrics["aux_loss"]
+        x = x + y
+    return x, new_cache, aux
 
 
 # --- prefill-cache writers --------------------------------------------------
 
 
 def _write_prefill_cache(p, h, spec: LayerSpec, rope, positions):
-    """K/V for the whole prompt, laid out in ring order so decode can
-    continue."""
+    """K/V (MLA: latents and the RoPE key) for the whole prompt, laid out in
+    ring order so decode can continue."""
     a = spec.attn
     S = h.shape[1]
     L = a.cache_len(S)
+    index = torch.full((), S, dtype=torch.int32, device=h.device)
+    if a.is_mla:
+        c_kv = h @ p["w_dkv"]
+        k_rope = h @ p["w_k_rope"]
+        if rope is not None:
+            k_rope = attn_mod._rope_one_head(k_rope, positions[None], rope)
+        return {"c_kv": _ring_layout(c_kv, L), "k_rope": _ring_layout(k_rope, L),
+                "index": index}
     k = torch.einsum("bsd,dhe->bshe", h, p["w_k"])
     v = torch.einsum("bsd,dhe->bshe", h, p["w_v"])
     if a.qk_norm:
         k = attn_mod.rms_norm_headwise(p["k_norm"], k)
     if a.rope and rope is not None:
         k = apply_rope(k, positions[None], rope.inv_freq, rope.rot)
-    k, v = _ring_layout(k, L), _ring_layout(v, L)
-    return {"k": k, "v": v,
-            "index": torch.full((), S, dtype=torch.int32, device=h.device)}
+    return {"k": _ring_layout(k, L), "v": _ring_layout(v, L), "index": index}
 
 
 def _ring_layout(t: torch.Tensor, L: int) -> torch.Tensor:
@@ -190,6 +225,9 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> Dict:
         for spec in cfg.pattern)
     if cfg.remainder:
         params["remainder"] = tuple(init_layer(gen, cfg, s) for s in cfg.remainder)
+    if cfg.frontend != "none":
+        # projector stub: the frontend embeddings are already d_model wide
+        params["frontend_proj"] = dense_init(gen, (cfg.d_model, cfg.d_model), 0, dtype)
     return params
 
 
@@ -227,34 +265,45 @@ def _layers(tree, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 
-def _embed_tokens(params, cfg: ArchConfig, tokens):
+def _embed_tokens(params, cfg: ArchConfig, tokens, extra_embeds=None):
+    """Token embeddings (scaled by sqrt(d_model) where the arch says so),
+    with the frontend stub's ``extra_embeds`` (B, P, d) projected and
+    prepended."""
     x = params["embed"][tokens]
     if cfg.embed_scale:
         # the scale rounded to the activation dtype first, as in the reference
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype).item()
+    if extra_embeds is not None:
+        fe = extra_embeds.to(x.dtype) @ params["frontend_proj"]
+        x = torch.cat([fe, x], dim=1)
     return x
 
 
 def _checkpointed(p, x, cfg, spec, ropes, positions):
     """One train-mode layer whose activations autograd does not keep: they
-    are recomputed in the backward (``torch.utils.checkpoint``)."""
+    are recomputed in the backward (``torch.utils.checkpoint``). Returns
+    (x, moe_aux_loss)."""
     from torch.utils.checkpoint import checkpoint
 
-    return checkpoint(lambda p_, x_: apply_layer(p_, x_, cfg, spec, ropes, positions,
-                                                 "train")[0],
-                      p, x, use_reentrant=False, preserve_rng_state=False)
+    def run(p_, x_):
+        x_, _, aux = apply_layer(p_, x_, cfg, spec, ropes, positions, "train")
+        return x_, aux  # aux None without MoE: checkpoint passes it through
+
+    return checkpoint(run, p, x, use_reentrant=False, preserve_rng_state=False)
 
 
 def forward(
     params: Dict,
     cfg: ArchConfig,
-    tokens: torch.Tensor,  # (B, S)
+    tokens: torch.Tensor,  # (B, S_text)
+    extra_embeds: Optional[torch.Tensor] = None,  # (B, P, d) stub frontend
     mode: str = "train",
     remat: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
-    """Returns (final_hidden (B,S,d), total_moe_aux (0 without MoE layers),
-    caches|None). ``mode`` is ``train`` or ``prefill``; the frontend
-    embeddings of the reference's multimodal archs come with slice G3.
+    """Returns (final_hidden (B,S,d), total_moe_aux (the MoE layers' aux
+    losses summed in layer order, f32; 0 without MoE layers),
+    caches|None). ``mode`` is ``train`` or ``prefill``; ``extra_embeds`` are
+    the vision stub's embeddings, prepended (S = P + S_text).
 
     ``remat`` (train mode): each layer of the repeated ``blocks`` runs
     under ``torch.utils.checkpoint`` when autograd records it, so the
@@ -267,21 +316,23 @@ def forward(
     forward a second time."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"forward runs mode train or prefill, got {mode!r}")
-    x = _embed_tokens(params, cfg, tokens)
+    x = _embed_tokens(params, cfg, tokens, extra_embeds)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     ropes = build_ropes(cfg, x.device)
     remat = (remat and mode == "train" and torch.is_grad_enabled()
              and not under_torch_func())
     caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, spec, in_blocks in _layers(params, cfg):
         if remat and in_blocks:
-            x, c = _checkpointed(p, x, cfg, spec, ropes, positions), None
+            (x, a), c = _checkpointed(p, x, cfg, spec, ropes, positions), None
         else:
-            x, c = apply_layer(p, x, cfg, spec, ropes, positions, mode)
+            x, c, a = apply_layer(p, x, cfg, spec, ropes, positions, mode)
+        if a is not None:
+            aux = aux + a
         caches.append(c)
     x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mode != "prefill":
         return x, aux, None
     return x, aux, _regroup(caches, cfg)
@@ -379,16 +430,22 @@ def decode_step(
     cfg: ArchConfig,
     caches: Dict,
     token: torch.Tensor,  # (B, 1) int
+    mla_absorb: bool = True,
+    moe_group: int = moe_mod.DEFAULT_GROUP,
 ) -> Tuple[torch.Tensor, Dict]:
     """One-token decode. Returns (logits (B,1,V), caches).
 
     The caches are updated IN PLACE (each attention layer's K/V row written
     at its ring slot and its index incremented, each SSM layer's state and
     conv window advanced) and returned; the caller must not
-    reuse the tree it passed in as the old state. No host sync."""
+    reuse the tree it passed in as the old state. No host sync. MoE layers
+    route the B tokens in groups of ``min(moe_group, B)``, as the
+    reference's batch-B step; the slot pool passes 1, the reference's
+    vmapped batch-1 tick."""
     x = _embed_tokens(params, cfg, token)
     ropes = build_ropes(cfg, x.device)
     for (p, spec, _), (cache, _, _) in zip(_layers(params, cfg), _layers(caches, cfg)):
-        x, _ = apply_layer(p, x, cfg, spec, ropes, None, "decode", cache)
+        x, _, _ = apply_layer(p, x, cfg, spec, ropes, None, "decode", cache,
+                              mla_absorb=mla_absorb, moe_group=moe_group)
     x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     return unembed(params, cfg, x), caches

@@ -16,13 +16,21 @@ into a fresh batch-1 cache and write it over the slot's row; evict = mark
 the slot free (its stale row is overwritten by the next join).
 
 A slot's row is on axis 1 of a ``blocks`` leaf (axis 0 is the repeats)
-and on axis 0 of a ``prefix``/``remainder`` leaf.
+and on axis 0 of a ``prefix``/``remainder`` leaf. The encoder-decoder's
+tree (``self``, ``cross_k``, ``cross_v``, each stacked on the decoder's
+layer axis) has its rows on axis 1.
+
+An MoE layer routes the pool's tokens per row: the reference's tick is a
+vmap of its batch-1 step, so each slot's token is a routing group of one
+(capacity ``top_k``, nothing dropped) and never shares an expert's
+capacity with another slot's (``slot_decode_fn``).
 
 ``prefill_tokens`` is the prompt-ingestion path, used by
 ``repro_torch.launch.serve`` and the serving loop's join.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, Tuple
 
 import torch
@@ -51,7 +59,7 @@ def _map_rows(fn: Callable, *trees) -> Dict:
     head = trees[0]
     out = {}
     for part in head:
-        axis = 1 if part == "blocks" else 0
+        axis = 0 if part in ("prefix", "remainder") else 1
         out[part] = tree_map(lambda *leaves, a=axis: fn(*leaves, a),
                              *(t[part] for t in trees))
     return out
@@ -73,10 +81,13 @@ def init_slot_pool(model, slots: int, ctx: int, device=None) -> Dict:
 
 def slot_decode_fn(model) -> Callable:
     """The pool's decode tick: one ``decode_step`` over the batch-S pool,
-    updating it in place.
+    updating it in place; an MoE arch's step routes each row as its own
+    group (``moe_group=1``), as the reference's vmapped batch-1 tick.
 
         logits, pool = tick(params, pool, tokens)   # tokens (S, 1), logits (S, 1, V)
     """
+    if any(spec.mlp.kind == "moe" for spec in model.cfg.all_layers()):
+        return functools.partial(model.decode_step, moe_group=1)
     return model.decode_step
 
 

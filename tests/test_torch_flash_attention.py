@@ -144,6 +144,7 @@ def _gpu():
 @pytest.mark.parametrize("B,Hk,G,S,D,kind,window", CASES + [
     (1, 2, 2, 384, 64, "full", 0), (1, 1, 5, 200, 64, "full", 0),
     (4, 4, 8, 2048, 64, "full", 0),  # tinyllama-1.1b's serving prefill
+    (2, 16, 2, 2048, 128, "sliding", 1024),  # gemma3-27b's local layers' prefill
 ])
 def test_kernel_matches_plain_on_gpu(B, Hk, G, S, D, kind, window, dtype):
     _gpu()
@@ -218,7 +219,9 @@ BWD_CASES = [(*c, "float32", "contiguous") for c in CASES] + [
     (1, 2, G, 384, D, "full", 0, "bfloat16", "model")
     for D in (32, 64, 128) for G in (1, 2, 4, 5, 8, 16)
 ] + [(1, 2, 4, 200, 64, "full", 0, "bfloat16", "model"),
-      (4, 4, 8, 2048, 64, "full", 0, "bfloat16", "model")] + [  # tinyllama's training shape
+      (4, 4, 8, 2048, 64, "full", 0, "bfloat16", "model"),  # tinyllama's training shape
+      (2, 16, 2, 2048, 128, "sliding", 1024, "bfloat16", "model"),  # gemma3's,
+      (2, 16, 2, 2048, 128, "sliding", 1024, "float32", "contiguous")] + [  # f32 too
     (1, 2, G, S, D, kind, w, "bfloat16", "model")
     for kind in ("sliding", "chunked") for w in (100, 128)
     for G, S, D in ((4, 384, 64), (5, 200, 32), (8, 2048, 128))

@@ -259,6 +259,10 @@ def test_split_merge_matches_pallas_interpret(dtype):
     (8, 4, 8, 640, 64, 0),  # no valid slot at the serving shape
     (8, 4, 8, 640, 64, (1, 80, 81, 160, 639, 640, 0, 333)),  # rows end apart
     (1, 2, 16, 4096, 64, 3000),  # splits of 512 in tiles; two head groups
+    # gemma3-27b's decode on a window ring of L = W = 1024: sliding rows past
+    # the wrap (1024) and not (301), chunked rows at index % W + 1 (905, 1)
+    (2, 16, 2, 1024, 128, (1024, 301)),
+    (2, 16, 2, 1024, 128, (905, 1)),
 ])
 def test_kernel_matches_plain_on_gpu(B, Hk, G, L, D, vlen, dtype):
     if not torch.cuda.is_available():

@@ -70,8 +70,14 @@ def test_builds_what_the_slice_runs_and_names_the_rest():
     assert factory.build(get_arch("mamba2-370m").reduced()).cfg.num_layers == 2
     for name in ("gemma3-27b", "deepseek-v2-236b", "whisper-tiny",
                  "pixtral-12b", "jamba-v0.1-52b", "llama4-maverick-400b-a17b"):
-        with pytest.raises(NotImplementedError, match="slice G3"):
-            factory.build(get_arch(name))
+        assert factory.build(get_arch(name)).cfg.name == name  # slice G3
+    # what is still refused: a shape the kernels on the model's path do not take
+    cfg = get_arch(ARCH).reduced()
+    odd = dataclasses.replace(cfg, pattern=tuple(
+        dataclasses.replace(s, attn=dataclasses.replace(s.attn, head_dim=48))
+        for s in cfg.pattern))
+    with pytest.raises(NotImplementedError, match="K4/K5"):
+        factory.build(odd)
     # LM training arrived with slice G2: the step runs and moves the params
     m = factory.build(get_arch(ARCH).reduced())
     p = m.init(torch.Generator().manual_seed(0))

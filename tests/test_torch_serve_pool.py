@@ -13,7 +13,9 @@ own, torch only (no JAX, so ``-m cuda`` runs this file on the card):
   stream decoded alone in a pool of the same width;
 * on the card (``cuda``): the pool tick launches K5 once per full layer
   with a ragged ``(S,)`` ``valid_len``, and join/evict churn leaves every
-  stream's tokens bitwise equal to its decode alone in a same-width pool.
+  stream's tokens bitwise equal to its decode alone in a same-width pool;
+* the encoder-decoder's cache tree in a pool (slice G3): rows carried
+  exactly, a tick equal to batch-1 rows.
 """
 import dataclasses
 
@@ -181,6 +183,36 @@ def churn_matches_solo(model, params, device):
 
 def test_join_evict_streams_bitwise_vs_solo():
     churn_matches_solo(*_model(ARCH), "cpu")
+
+
+def test_encoder_decoder_pool_rows_and_tick_equal_batch_one_rows():
+    """whisper's cache tree in a pool (``self``, ``cross_k``, ``cross_v``,
+    rows on axis 1 under the decoder's layer axis): ``write_slot`` and
+    ``read_slot`` carry a row exactly, the ``self`` index becomes
+    (layers, S), and two ticks equal each row's batch-1 decode (the
+    per-row sinusoid position included) within 1e-5."""
+    cfg = get_arch("whisper-tiny").reduced()
+    model, params = _model(cfg)
+    pool = init_slot_pool(model, 2, CTX, "cpu")
+    assert tuple(pool["self"]["index"].shape) == (cfg.num_layers, 2)
+    rng = np.random.default_rng(4)
+    ones, toks = [], []
+    for s in range(2):  # rows at positions 2 and 3
+        logits, one = _prefilled(model, params, rng.integers(0, cfg.vocab_size, s + 2))
+        write_slot(pool, s, one)
+        for a, b in zip(tree_leaves(read_slot(pool, s)), tree_leaves(one)):
+            assert torch.equal(a, b)
+        ones.append(one)
+        toks.append(int(logits[0, -1].argmax()))
+    tok = torch.tensor(toks, dtype=torch.int32)[:, None]
+    with torch.no_grad():
+        for _ in range(2):
+            lp, pool = slot_decode_fn(model)(params, pool, tok)
+            lb = torch.cat([model.decode_step(params, ones[s], tok[s:s + 1])[0]
+                            for s in range(2)])
+            torch.testing.assert_close(lp, lb, atol=1e-5, rtol=0)
+            tok = lp[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    assert pool["self"]["index"][0].tolist() == [4, 5]
 
 
 @pytest.mark.cuda

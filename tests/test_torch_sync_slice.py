@@ -448,20 +448,21 @@ def test_fl_train_driver_runs_on_cpu(capsys):
     assert res.config.eval_every == 1  # rounds // 30, at least 1
     assert len(res.records) == 3 and np.isfinite(res.records[-1].eval_loss)
     assert k1.launches == before  # on the CPU, K1's plain version
-    # --arch runs since slice G2; an arch of a later slice raises
+    # --arch runs since slice G2, every registered arch since slice G3
     lm = fl_train.main(["--device", "cpu", "--clients", "12", "--k", "4", "--rounds", "1",
                         "--local-epochs", "1", "--batch-size", "4", "--arch", "tinyllama-1.1b"])
     assert np.isfinite(lm.records[-1].eval_loss)
     for flags in (["--mesh-shards", "0"],
-                  ["--topology", "hierarchical", "--defense", "--mesh-shards", "0"],
-                  ["--defense", "--arch", "gemma3-27b"], ["--arch", "gemma3-27b"]):
+                  ["--topology", "hierarchical", "--defense", "--mesh-shards", "0"]):
         # a mesh runs since slice F; under sync it needs --shard-cohort, and
         # RunConfig says so with the reference's message
-        raises = (pytest.raises(ValueError, match="^mesh_shards requires mode='async'")
-                  if "--mesh-shards" in flags else pytest.raises(NotImplementedError))
-        with raises:
+        with pytest.raises(ValueError, match="^mesh_shards requires mode='async'"):
             fl_train.main(["--device", "cpu", "--clients", "12", "--k", "4",
                            "--rounds", "1", "--data-scale", "0.02", *flags])
+    for flags in (["--defense", "--arch", "gemma3-27b"], ["--arch", "gemma3-27b"]):
+        g3 = fl_train.main(["--device", "cpu", "--clients", "12", "--k", "4",
+                            "--rounds", "1", "--data-scale", "0.02", *flags])
+        assert np.isfinite(g3.records[-1].eval_loss)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             fl_train.main(["--clients", "8", "--k", "2", "--rounds", "1",

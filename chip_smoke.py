@@ -335,6 +335,34 @@ prints one JSON line for each:
           llama4 reduced; seconds, peak memory and launches per family.
   g3_pool      the slot pool's churn and failover contracts for gemma3,
           deepseek-v2 and whisper (reduced) on the card.
+  tp_contracts slice I1's contracts of the sharded LM step in f32, TF32 off,
+          deterministic algorithms on: reduced tinyllama (kv repeated to
+          MHA), gemma3, deepseek-v2, jamba, mamba2 and whisper; a world of
+          one on NCCL in this process bit for bit the unsharded model; worlds
+          of 2 (model 2) and 4 (model 4, data 2 x model 2) spawned on cuda:0
+          over gloo (``launch/tp_cases.py``; collectives staged through host
+          memory) within TP_TOL of each leaf's max of the one-device port
+          (loss, moe_aux, every gradient, the params after an SGD step,
+          prefill logits, every cache leaf, 8 decode steps); a case run twice
+          repeats bit for bit.
+  tp_main      tinyllama-1.1b at full width and depth, bf16, seed 0, on four
+          ranks of cuda:0 over gloo, mesh (model 4) and (data 2 x model 2),
+          built with ``explicit_tp`` and ``remat_save_outputs`` (the MLP's
+          sums in bf16; the recompute stops before each branch's sum):
+          one ``sgd_train_step`` at TRAIN_SHAPE (K4 2 x 22 forward and 22
+          backward a rank, at (4/dp, 4/tp, 8, 2048, 64)), ``model.prefill``
+          at PREFILL_SHAPE (K4 22) and TP_DECODE_STEPS decode steps from its
+          caches (K5 22 a step on the rank's kv heads over the full
+          2048-slot ring; the weights gathered whole over data once, as a
+          serving replica holds them); mamba2-370m at model 2 on two ranks:
+          a prefill at PREFILL_SHAPE, K6 48 times a rank on 16 of 32 heads.
+          Per rank: launches and their shapes, ms a phase (staged through
+          host: a correctness run, not a speed figure), peak memory, the
+          loss and logits gaps against a world of one on NCCL (the loss
+          within TP_LOSS_TOL); the prefill and decode logits held to an f32
+          world of one on the same weights, within TP_WITNESS times the bf16
+          world of one's gap from it; K4 both ways, K5 and K6 at the
+          rank-local shapes against their plain versions.
 
 The main, async_oldest and sync_main phases run before the parity phases,
 which turn TF32 off; the slice C, D, E and F phases run after
@@ -345,7 +373,7 @@ what ``main`` ran with while they run.
 Then the ``{"kernels": [...]}`` line (K2, K1, K4, K5, K3, K6, K4's
 backward, K6's backward; each count the sum over the paths that launch it:
 K5's over ``serve_main``, ``serve_loop``'s timed run, ``serve_fleet``'s
-default run and the G3 phases), the card's
+default run, the G3 phases and ``tp_main``'s ranks), the card's
 name and power limit as ``nvidia-smi`` reports them, and, last, the device
 line. Any failure exits non-zero; without a GPU, or outside a checkout of
 the repository, the script fails before printing a result. It imports
@@ -5278,6 +5306,290 @@ def phase_g3_pool(torch, k5):
     return total
 
 
+TP_FAMILIES = ("tinyllama-1.1b", "gemma3-27b", "deepseek-v2-236b", "jamba-v0.1-52b",
+               "mamba2-370m", "whisper-tiny")
+TP_TOL = 1e-5  # relative to each leaf's max, f32
+TP_LOOSE = {"whisper-tiny": 5e-5}  # its f32 cross-attention gradients (tests/test_torch_tp.py)
+TP_CONTRACT_SHAPE = (2, 128, 32, 8)  # (B, S of the loss, S of the prefill, decode steps)
+TP_MESHES = ({"data": 1, "model": 4}, {"data": 2, "model": 2})
+TP_DECODE_STEPS = 32  # tp_main's decode steps, from the prefill's caches
+TP_LOSS_TOL = 1e-2  # bf16 loss against a world of one, relative
+# a sharded bf16 run's logits against an f32 world of one on the same
+# weights: within this many times the bf16 world of one's gap from it (each
+# bf16 run rounds on its own; a sharding fault is a gap of order one)
+TP_WITNESS = 2.0
+
+
+def _tp_case(torch, name, mesh=None):
+    """A reduced family's contract case: the port's params from seed 0 (host
+    tensors), tokens from a numpy seed, in f32 on the card."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models import factory
+
+    cfg = configs.get_arch(name).reduced()
+    B, S, P, steps = TP_CONTRACT_SHAPE
+    rng = np.random.default_rng(1)
+
+    def ints(shape):
+        return torch.from_numpy(rng.integers(0, cfg.vocab_size, shape).astype(np.int32))
+
+    batch = {"tokens": ints((B, S)), "labels": ints((B, S))}
+    pre = {"tokens": ints((B, P))}
+    if cfg.encoder is not None:
+        frames = lambda: torch.from_numpy(  # noqa: E731
+            rng.standard_normal((B, cfg.encoder.source_len, cfg.d_model)).astype(np.float32))
+        batch["frames"], pre["frames"], pre["seq_len"] = frames(), frames(), P + steps
+    return {"name": name, "cfg": cfg, "mesh": mesh,
+            "params": factory.build(cfg).init(torch.Generator().manual_seed(0)),
+            "batch": batch, "prefill": pre, "decode": ints((steps, B, 1)), "lr": 0.1,
+            "device": "cuda", "deterministic": True}
+
+
+def _tp_bitwise(torch, a, b) -> bool:
+    from repro_torch.core.tree import tree_paths
+
+    keys = ("loss", "moe_aux", "grads", "new_params", "prefill_logits", "caches",
+            "decode_logits", "decode_caches")
+    return all(torch.equal(x, y) for k in keys
+               for (_, x), (_, y) in zip(tree_paths(a[k]), tree_paths(b[k])))
+
+
+def phase_tp_contracts(torch):
+    """Slice I1's contracts of the sharded LM step on the card (module
+    docstring), TF32 off and deterministic algorithms on inside (restored
+    after)."""
+    import tempfile
+
+    from repro_torch.core.distributed import world_of_one
+    from repro_torch.launch import tp_cases
+
+    t0 = time.time()
+    cases = {n: _tp_case(torch, n) for n in TP_FAMILIES}
+    saved = torch.are_deterministic_algorithms_enabled()
+    checks = {}
+    with _TF32(torch, {"cudnn": False, "matmul": False}):
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            one = {n: tp_cases.run_case(c, sharded=False) for n, c in cases.items()}
+            with world_of_one("cuda"):
+                for n, c in cases.items():
+                    got = tp_cases.run_case(dict(c, mesh={"data": 1, "model": 1}), sharded=True)
+                    checks[f"1/{n}"] = {"backend": "nccl", "bitwise": _tp_bitwise(torch, got, one[n]),
+                                        "collectives": got["counts"]}
+        finally:
+            torch.use_deterministic_algorithms(saved)
+    worlds = {2: [dict(c, mesh={"data": 1, "model": 2}, name=f"model2/{n}")
+                  for n, c in cases.items()],
+              4: [dict(c, mesh=m, name=f"data{m['data']}xmodel{m['model']}/{n}")
+                  for m in TP_MESHES for n, c in cases.items()]}
+    worlds[4].append(dict(cases["deepseek-v2-236b"], mesh=TP_MESHES[1], name="repeat"))
+    import threading
+
+    results, errors = {}, []
+
+    def spawn(world, tmp):
+        try:
+            results[world] = tp_cases.run_cases_on_ranks(
+                worlds[world], world, tmp, devices=["cuda:0"] * world, timeout=900)
+        except BaseException as e:  # raised below, in this thread
+            errors.append(e)
+
+    with tempfile.TemporaryDirectory() as tmp:  # both worlds at once, on the one card
+        threads = [threading.Thread(target=spawn, args=(w, tmp)) for w in worlds]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    if errors:
+        raise errors[0]
+    for world, todo in worlds.items():
+        got = results[world]
+        for c, r in zip(todo, got):
+            if c["name"] == "repeat":
+                checks["repeat"] = {"bitwise": _tp_bitwise(
+                    torch, r, got[[x["name"] for x in todo].index(
+                        "data2xmodel2/deepseek-v2-236b")])}
+                continue
+            fam = c["name"].split("/")[1]
+            tol = TP_LOOSE.get(fam, TP_TOL)
+            worst = {}
+            for key in ("loss", "moe_aux", "grads", "new_params", "prefill_logits",
+                        "caches", "decode_logits", "decode_caches"):
+                gaps = tp_cases.leaf_gaps(r[key], one[fam][key])
+                worst[key] = max(gaps.values()) if gaps else 0.0
+            checks[c["name"]] = {"backend": "gloo (host-staged)", "tolerance": tol,
+                                 "worst": worst, "roundtrip": r["roundtrip"],
+                                 "ok": all(v <= tol for v in worst.values())
+                                 and r["roundtrip"],
+                                 "psum_bytes": r["counts_train"].get("psum", {}).get("bytes")}
+    bad = [n for n, c in checks.items() if not c.get("ok", c.get("bitwise"))]
+    if bad:
+        raise AssertionError(f"tp_contracts: failed {bad}: {checks}")
+    emit({"phase": "tp_contracts", "ok": True, "dtype": "float32",
+          "shape": dict(zip(("B", "S_loss", "S_prefill", "decode_steps"), TP_CONTRACT_SHAPE)),
+          "checks": checks, "seconds": time.time() - t0})
+
+
+def _tp_kernel_checks(torch, k4, k5, k6, rank_shapes):
+    """K4 forward and backward, K5 and K6 at the rank-local shapes of
+    ``tp_main`` (bf16, the model's layouts) against their plain versions;
+    returns the max errors (these launches are not the main path's)."""
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    bf16 = torch.bfloat16
+    errs = {}
+    for shape in rank_shapes["k4"]:
+        q, k, v = _model_layout(torch, gen, shape, bf16)
+        kw = dict(scale=shape[-1] ** -0.5)
+        errs[f"k4{shape}"] = _check_against_plain(
+            torch, f"K4 {shape}", lambda: k4.flash_attention(q, k, v, **kw),
+            lambda: k4.flash_attention_plain(q, k, v, **kw), bf16)
+        dout = torch.randn(q.shape, generator=gen, device="cuda").to(bf16)
+        out, lse = k4.flash_attention_with_lse(q, k, v, **kw)
+        _, lse_plain = k4.flash_attention_plain(q.float(), k.float(), v.float(), **kw,
+                                                return_lse=True)
+        grads = k4.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        plain = k4.flash_attention_bwd_plain(q, k, v, out, lse_plain, dout, **kw)
+        e = max(_rel_err(g, p) for g, p in zip(grads, plain))
+        if e > BWD_TOL["bfloat16"]:
+            raise AssertionError(f"K4 backward {shape}: {e} of the gradient's max")
+        errs[f"k4_bwd{shape}"] = e
+    for shape in rank_shapes["k5"]:
+        q, k, v = _attn_inputs(torch, gen, shape, bf16, decode=True)
+        vl = torch.tensor(shape[3], device="cuda")  # the ring full after the prompt
+        kw = dict(scale=shape[-1] ** -0.5)
+        errs[f"k5{shape}"] = _check_against_plain(
+            torch, f"K5 {shape}", lambda: k5.flash_decode(q, k, v, vl, **kw),
+            lambda: k5.flash_decode_plain(q, k, v, vl, **kw), bf16)
+    for shape in rank_shapes["k6"]:
+        x, dt, A, B_, C_ = _ssd_inputs(torch, gen, shape, bf16)
+        y, _ = k6.ssd_scan(x, dt, A, B_, C_, 256)
+        yp, _ = k6.ssd_chunked_plain(x, dt, A, B_, C_, 256)
+        e = _rel_err(y, yp)
+        if e > 2e-2:
+            raise AssertionError(f"K6 {shape}: {e} of the output's max")
+        errs[f"k6{shape}"] = e
+    return errs
+
+
+def phase_tp_main(torch, k4, k5, k6):
+    """tinyllama-1.1b on two meshes of four ranks of cuda:0 and mamba2-370m on
+    model 2 (module docstring). Returns the ranks' (K4 forward, K4 backward,
+    K5, K6) launches summed, with the world of one's."""
+    import tempfile
+
+    from repro_torch.core.distributed import world_of_one
+    from repro_torch.launch import tp_cases
+
+    t0 = time.time()
+    _free(torch)
+    lm = {"op": "main_path", "arch": LM_ARCH, "train": TRAIN_SHAPE, "prefill": PREFILL_SHAPE,
+          "decode": TP_DECODE_STEPS, "lr": LM_TRAIN_LR, "device": "cuda",
+          "build": {"explicit_tp": True, "remat_save_outputs": True}}
+    ssm = {"op": "main_path", "arch": SSM_ARCH, "prefill": PREFILL_SHAPE, "device": "cuda"}
+    totals = {"k4": 0, "k4_bwd": 0, "k5": 0, "k6": 0}
+
+    def add(rep):
+        for launches in rep["launches"].values():
+            for k, n in launches.items():
+                totals[k] += n
+
+    one = {"data": 1, "model": 1}
+    with world_of_one("cuda"):  # the baseline: the same main path on one rank
+        one_lm = tp_cases.main_path(dict(lm, mesh=one))
+        _free(torch)
+        one_ssm = tp_cases.main_path(dict(ssm, mesh=one))
+        _free(torch)  # the witnesses: the same weights and tokens in f32
+        f32_lm = tp_cases.main_path(dict(lm, mesh=one, train=None, f32=True))
+        _free(torch)
+        f32_ssm = tp_cases.main_path(dict(ssm, mesh=one, f32=True))
+    for rep in (one_lm, one_ssm, f32_lm, f32_ssm):
+        add(rep)
+    _free(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        lm_ranks = tp_cases.run_cases_on_ranks(
+            [dict(lm, mesh=m) for m in TP_MESHES], 4, tmp, devices=["cuda:0"] * 4,
+            timeout=900, per_rank=True)
+        ssm_ranks = tp_cases.run_cases_on_ranks(
+            [dict(ssm, mesh={"data": 1, "model": 2})], 2, tmp, devices=["cuda:0"] * 2,
+            timeout=600, per_rank=True)
+
+    def gap(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    # the bf16 world of one's rounding, read against the f32 witness
+    witness = {"prefill": gap(one_lm["prefill_logits"], f32_lm["prefill_logits"]),
+               "decode": gap(one_lm["decode_logits"], f32_lm["decode_logits"]),
+               "ssm_prefill": gap(one_ssm["prefill_logits"], f32_ssm["prefill_logits"])}
+    report, bad = {"witness_f32_gaps": witness}, []
+    B, S = TRAIN_SHAPE
+    for mi, mesh in enumerate(TP_MESHES):
+        dp, tp = mesh["data"], mesh["model"]
+        k4_shape = (B // dp, 4 // tp, 8, S, 64)
+        k5_shape = (PREFILL_SHAPE[0] // dp, 4 // tp, 8, 64)
+        name = f"data{dp}xmodel{tp}"
+        rows = []
+        for ranks in lm_ranks:
+            rep = ranks[mi]
+            add(rep)
+            lau, shp = rep["launches"], rep["shapes_by_phase"]
+            row = {"rank": rep["rank"], "coords": rep["coords"], "launches": lau,
+                   "k4_shapes": shp["train"].get("k4"), "k5_shapes": shp["decode"].get("k5"),
+                   "ms": rep["ms"], "staged_through_host": True,
+                   "peak_gib": rep["peak_gib"], "loss": rep["loss"],
+                   "loss_gap": abs(rep["loss"] - one_lm["loss"]) / abs(one_lm["loss"]),
+                   "prefill_logits_gap": gap(rep["prefill_logits"], one_lm["prefill_logits"]),
+                   "decode_logits_gap": gap(rep["decode_logits"], one_lm["decode_logits"]),
+                   "prefill_f32_gap": gap(rep["prefill_logits"], f32_lm["prefill_logits"]),
+                   "decode_f32_gap": gap(rep["decode_logits"], f32_lm["decode_logits"]),
+                   "collective_bytes": {ph: {k: v["bytes"] for k, v in c.items()}
+                                        for ph, c in rep["counts"].items()}}
+            want = {"train": {"k4": 44, "k4_bwd": 22}, "prefill": {"k4": 22},
+                    "decode": {"k5": 22 * TP_DECODE_STEPS}}
+            ok = all(lau[ph][k] == n for ph, d in want.items() for k, n in d.items())
+            ok &= shp["train"].get("k4") == [k4_shape] == shp["prefill"].get("k4")
+            ok &= shp["train"].get("k4_bwd") == [k4_shape]
+            ok &= [tuple(x) for x in shp["decode"].get("k5", [])] == [k5_shape]
+            ok &= row["loss_gap"] <= TP_LOSS_TOL and math.isfinite(rep["loss"])
+            ok &= row["prefill_f32_gap"] <= TP_WITNESS * witness["prefill"]
+            ok &= row["decode_f32_gap"] <= TP_WITNESS * witness["decode"]
+            if not ok:
+                bad.append((name, row))
+            rows.append(row)
+        report[name] = rows
+    rows = []
+    for ranks in ssm_ranks:
+        rep = ranks[0]
+        add(rep)
+        shp = rep["shapes_by_phase"]["prefill"].get("k6")
+        row = {"rank": rep["rank"], "launches": rep["launches"]["prefill"], "k6_shapes": shp,
+               "ms": rep["ms"], "staged_through_host": True, "peak_gib": rep["peak_gib"],
+               "prefill_logits_gap": gap(rep["prefill_logits"], one_ssm["prefill_logits"]),
+               "prefill_f32_gap": gap(rep["prefill_logits"], f32_ssm["prefill_logits"])}
+        if (row["launches"]["k6"] != 48
+                or shp != [(PREFILL_SHAPE[0], PREFILL_SHAPE[1], 16, 64)]
+                or not row["prefill_f32_gap"] <= TP_WITNESS * witness["ssm_prefill"]):
+            bad.append(("mamba2 model2", row))
+        rows.append(row)
+    report["mamba2-370m model2"] = rows
+    if bad:
+        raise AssertionError(f"tp_main: {bad}")
+    shapes = {"k4": sorted({r["k4_shapes"][0] for m in TP_MESHES
+                            for r in report[f"data{m['data']}xmodel{m['model']}"]}),
+              "k5": [(PREFILL_SHAPE[0] // m["data"], 4 // m["model"], 8, PREFILL_SHAPE[1], 64)
+                     for m in TP_MESHES],
+              "k6": [(PREFILL_SHAPE[0], PREFILL_SHAPE[1], 16, 64, 128)]}
+    errs = _tp_kernel_checks(torch, k4, k5, k6, shapes)
+    emit({"phase": "tp_main", "ok": True, "arch": LM_ARCH, "dtype": "bfloat16",
+          "world_of_one": {"loss": one_lm["loss"], "ms": one_lm["ms"],
+                           "launches": one_lm["launches"], "peak_gib": one_lm["peak_gib"],
+                           "ssm_ms": one_ssm["ms"], "ssm_launches": one_ssm["launches"]},
+          "meshes": report, "kernel_checks": errs, "seconds": time.time() - t0})
+    _free(torch)
+    return totals["k4"], totals["k4_bwd"], totals["k5"], totals["k6"]
+
+
 def main() -> int:
     import torch
 
@@ -5367,6 +5679,13 @@ def main() -> int:
     k5_entry["launches"] += k5
     k6_entry["launches"] += k6
     k5_entry["launches"] += phase_g3_pool(torch, flash_decode)
+    _free(torch)
+    phase_tp_contracts(torch)
+    fwd, bwd, k5, k6 = phase_tp_main(torch, flash_attention, flash_decode, ssd_scan)
+    k4_entry["launches"] += fwd
+    bwd_entry["launches"] += bwd
+    k5_entry["launches"] += k5
+    k6_entry["launches"] += k6
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{key: e[key] for key in keys}

@@ -8,6 +8,13 @@ workers, several drivers on one host) never share a port. The group has a
 deadline: a rank that raises, dies or outlives it fails the call, and every
 rank is stopped; nothing falls back to fewer ranks.
 
+Ranks on one card: NCCL refuses two ranks on one GPU, and gloo moves host
+tensors only, so a world of D ranks on one card (``devices=["cuda:0"] * D``)
+runs gloo, and the collectives of ``models/pshard.py`` and
+``core/distributed.py`` stage each CUDA tensor through host memory; the
+compute and every kernel stay on the card. Ranks with a card each run
+NCCL. ``backend_for(devices)`` picks between them.
+
 ``run_cases`` is a rank entry point (``spawn`` imports it by name): it
 builds each case's small task, drives the sharded engine as the case says,
 and rank 0 writes the results with ``torch.save``. ``case_task`` and
@@ -49,6 +56,15 @@ def _entry(rank: int, fn: Callable, world: int, store_path: str, backend: str,
         fn(rank, world, *args)
     finally:
         torch.distributed.destroy_process_group()
+
+
+def backend_for(devices: Optional[Sequence[str]]) -> str:
+    """NCCL where every rank has a card of its own, else gloo (CPU ranks, or
+    several ranks sharing a card: the collectives go through host memory)."""
+    if devices and all(torch.device(d).type == "cuda" for d in devices) \
+            and len({torch.device(d) for d in devices}) == len(devices):
+        return "nccl"
+    return "gloo"
 
 
 def spawn(fn: Callable, world: int, args: tuple = (), backend: str = "gloo",

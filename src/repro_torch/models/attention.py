@@ -41,6 +41,17 @@ chunk) stops being a prefix once ``index >= L`` (the chunk's start can sit
 anywhere in the wrapped ring), so that layer keeps the masked route
 (``_slot_valid``), the one windowed decode route that K5 does not take.
 MLA decode and cross attention are plain torch, as in the reference.
+
+Under a mesh (``models/pshard.py``) each rank runs its own heads, with the
+reference's strategy (``tp_route``): kv heads sharded over ``model`` where
+they divide it (K4 at (B/dp, Hk/tp, G, S, D), K5 on the rank's kv heads);
+else, where the query heads divide, kv repeated to MHA and the rank's heads
+kept (K4 with G = 1); else context-parallel queries: the rank's S/tp query
+rows against all S keys, the module's ``Sq != Sk`` route with the rows'
+absolute positions (K4 takes equal lengths only). MLA shards its heads over
+``w_uq``, ``w_uk``, ``w_uv``. ``w_o`` is row-parallel, its partial sums
+crossing in f32 (the reference's GSPMD widening) and summed over ``model``.
+Decode under the context route runs replicated on every model rank.
 """
 from __future__ import annotations
 
@@ -51,6 +62,7 @@ import torch
 
 from repro_torch.configs.base import AttentionSpec
 from repro_torch.kernels import ops as kops
+from repro_torch.models import pshard
 from repro_torch.models.common import apply_rope, dense_init, rms_norm_headwise
 
 BLOCK_Q = 1024
@@ -209,6 +221,53 @@ def _project_qkv(p, x, spec):
     return q, k, v
 
 
+def tp_route(spec: AttentionSpec, tp: int) -> Optional[str]:
+    """How a layer splits over a ``model`` axis of ``tp`` ranks (None: not
+    split): ``heads`` where the kv heads divide, ``repeat`` (kv repeated to
+    MHA) where only the query heads divide, else ``context`` (the query
+    sequence). MLA shards its heads, which must divide."""
+    if tp == 1:
+        return None
+    H, Hk = spec.num_heads, spec.num_kv_heads
+    if spec.is_mla:
+        if H % tp:
+            raise NotImplementedError(
+                f"MLA attention: {H} heads do not split over a model axis of {tp}")
+        return "heads"
+    if Hk % tp == 0:
+        return "heads"
+    return "repeat" if H % tp == 0 else "context"
+
+
+def sharded_dims(spec: AttentionSpec, tp: int) -> Dict:
+    """The dims of each leaf's block the layer consumes as they lie over
+    ``model`` (every other sharded dim is all-gathered at use)."""
+    route = tp_route(spec, tp)
+    if route in (None, "context"):
+        return {}
+    if spec.is_mla:
+        return {"w_uq": (1,), "w_uk": (1,), "w_uv": (1,), "w_o": (0,)}
+    keep = {"w_q": (1,), "w_o": (0,)}
+    if route == "heads":
+        keep.update(w_k=(1,), w_v=(1,))
+    return keep
+
+
+def _rank_heads(t, spec: AttentionSpec, dim: int):
+    """kv heads (on ``dim``) repeated to MHA, this rank's query heads kept."""
+    tp = pshard.axis_size("model")
+    G = spec.num_heads // spec.num_kv_heads
+    n = spec.num_heads // tp
+    return t.repeat_interleave(G, dim=dim).narrow(dim, pshard.index("model") * n, n)
+
+
+def _row_parallel_out(out, w_o, dtype):
+    """The rank's heads through its rows of ``w_o``: partial sums in f32,
+    summed over ``model``, cast after the sum."""
+    y = torch.einsum("bshe,hed->bsd", out.float(), w_o.float())
+    return pshard.leave(y).to(dtype)
+
+
 def attention_fwd(
     p: Dict,
     x: torch.Tensor,  # (B, S, d)
@@ -216,9 +275,13 @@ def attention_fwd(
     rope: Optional[RopeTable],
     positions: torch.Tensor,  # (S,)
 ) -> torch.Tensor:
-    """Full-sequence (train / prefill) attention."""
+    """Full-sequence (train / prefill) attention; under a mesh the rank's
+    part (``tp_route``), the output summed over ``model``."""
     if spec.is_mla:
         return _mla_fwd(p, x, spec, rope, positions)
+    route = tp_route(spec, pshard.axis_size("model"))
+    if route is not None:
+        x = pshard.enter(x, torch.float32)
     H, Hk, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
     G = H // Hk
     q, k, v = _project_qkv(p, x, spec)
@@ -226,13 +289,29 @@ def attention_fwd(
         q = apply_rope(q, positions[None], rope.inv_freq, rope.rot)
         k = apply_rope(k, positions[None], rope.inv_freq, rope.rot)
     B, S = x.shape[0], x.shape[1]
-    qg = q.reshape(B, S, Hk, G, D).permute(0, 2, 3, 1, 4)  # (B,Hk,G,S,D)
+    scale = spec.softmax_scale or (1.0 / D**0.5)
+    q_pos = positions
+    if route == "context":  # the rank's query rows against every key
+        tp = pshard.axis_size("model")
+        if S % tp:
+            raise NotImplementedError(
+                f"context-parallel attention: {S} positions do not split over {tp}")
+        n = S // tp
+        q = q.narrow(1, pshard.index("model") * n, n)
+        q_pos = positions.narrow(0, pshard.index("model") * n, n)
+    elif route == "repeat":
+        k, v = _rank_heads(k, spec, 2), _rank_heads(v, spec, 2)
+        G = 1
+    Sq, Hq = q.shape[1], q.shape[2]
+    qg = q.reshape(B, Sq, Hq // G, G, D).permute(0, 2, 3, 1, 4)  # (B,Hk,G,Sq,D)
     kg = k.permute(0, 2, 1, 3)  # (B,Hk,S,D)
     vg = v.permute(0, 2, 1, 3)
-    scale = spec.softmax_scale or (1.0 / D**0.5)
-    out = _grouped_attention(qg, kg, vg, spec, positions, positions, scale)
-    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(x.dtype)
-    return torch.einsum("bshe,hed->bsd", out, p["w_o"])
+    out = _grouped_attention(qg, kg, vg, spec, q_pos, positions, scale)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(x.dtype)
+    if route in ("heads", "repeat"):
+        return _row_parallel_out(out, p["w_o"], x.dtype)
+    y = torch.einsum("bshe,hed->bsd", out, p["w_o"])
+    return y if route is None else pshard.leave_rows(y)
 
 
 # ---------------------------------------------------------------------------
@@ -331,8 +410,12 @@ def attention_decode(
     the masked route."""
     if spec.is_mla:
         return _mla_decode(p, x, spec, rope, cache, absorb=mla_absorb)
-    H, Hk, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
-    G = H // Hk
+    route = tp_route(spec, pshard.axis_size("model"))
+    if route == "context":  # one query row: every model rank runs it whole
+        route = None
+    if route is not None:
+        x = pshard.enter(x)
+    D = spec.head_dim
     B = x.shape[0]
     index = cache["index"]
     per_row = index.dim() == 1
@@ -343,9 +426,12 @@ def attention_decode(
         q = apply_rope(q, pos, rope.inv_freq, rope.rot)
         k = apply_rope(k, pos, rope.inv_freq, rope.rot)
     _write_ring(cache, ("k", "v"), (k, v), index, per_row)
-    qg = q.reshape(B, Hk, G, D)
     kg = cache["k"].permute(0, 2, 1, 3)  # (B, Hk, L, D) views, no copy
     vg = cache["v"].permute(0, 2, 1, 3)
+    if route == "repeat":
+        kg, vg = _rank_heads(kg, spec, 1), _rank_heads(vg, spec, 1)
+    Hq = q.shape[2]
+    qg = q.reshape(B, kg.shape[1], Hq // kg.shape[1], D)
     scale = spec.softmax_scale or (1.0 / D**0.5)
     valid_len = _k5_valid_len(spec, L, index)
     if valid_len is not None:
@@ -358,8 +444,11 @@ def attention_decode(
         s = torch.where(valid, s, -1e30)
         w = torch.softmax(s, dim=-1)
         out = torch.einsum("bhgl,bhld->bhgd", w.to(vg.dtype), vg)
-    out = out.reshape(B, 1, H, D).to(x.dtype)
-    y = torch.einsum("bshe,hed->bsd", out, p["w_o"])
+    out = out.reshape(B, 1, Hq, D).to(x.dtype)
+    if route is None:
+        y = torch.einsum("bshe,hed->bsd", out, p["w_o"])
+    else:
+        y = _row_parallel_out(out, p["w_o"], x.dtype)
     index.add_(1)
     return y, cache
 
@@ -393,8 +482,11 @@ def _mla_fwd(p, x, spec, rope, positions):
     G = 1). The key width D + dr differs from the value width D, so the
     grouped attention takes the kernel-off route (direct up to 2048
     tokens, the blocked online softmax above)."""
+    sharded = tp_route(spec, pshard.axis_size("model")) is not None
+    if sharded:
+        x = pshard.enter(x, torch.float32)
     B, S, _ = x.shape
-    H, D, dr = spec.num_heads, spec.head_dim, spec.rope_dim
+    H, D, dr = p["w_uk"].shape[1], spec.head_dim, spec.rope_dim  # the rank's heads
     q_nope, q_rope = _mla_q(p, x, spec, rope, positions[None])
     c_kv = x @ p["w_dkv"]
     k_rope = x @ p["w_k_rope"]  # single shared head
@@ -410,6 +502,8 @@ def _mla_fwd(p, x, spec, rope, positions):
     vg = v.permute(0, 2, 1, 3)
     out = _grouped_attention(qg, kg, vg, spec, positions, positions, scale)
     out = out[:, :, 0].permute(0, 2, 1, 3).to(x.dtype)  # (B, S, H, D)
+    if sharded:
+        return _row_parallel_out(out, p["w_o"], x.dtype)
     return torch.einsum("bshe,hed->bsd", out, p["w_o"])
 
 
@@ -422,6 +516,9 @@ def _mla_decode(p, x, spec, rope, cache, absorb: bool):
     decompresses (the reference's roofline baseline). The valid slots are
     the prefix ``slot_pos >= 0 and <= index`` (MLA layers are ``full``),
     with a 0-d or a (B,) index."""
+    sharded = tp_route(spec, pshard.axis_size("model")) is not None
+    if sharded:
+        x = pshard.enter(x)
     B = x.shape[0]
     D, dr = spec.head_dim, spec.rope_dim
     index = cache["index"]
@@ -455,7 +552,10 @@ def _mla_decode(p, x, spec, rope, cache, absorb: bool):
         s = torch.where(valid, s.float() * scale, -1e30)
         w = torch.softmax(s, dim=-1)
         out = torch.einsum("bhsl,blhe->bshe", w.to(v.dtype), v)
-    y = torch.einsum("bshe,hed->bsd", out.to(x.dtype), p["w_o"])
+    if sharded:
+        y = _row_parallel_out(out.to(x.dtype), p["w_o"], x.dtype)
+    else:
+        y = torch.einsum("bshe,hed->bsd", out.to(x.dtype), p["w_o"])
     index.add_(1)
     return y, cache
 
@@ -480,13 +580,41 @@ def _attend_unmasked(q, k, v, D):
     return out.reshape(B, S, Hk * G, D)
 
 
+def cross_route(spec: AttentionSpec, decode: bool = False) -> Optional[str]:
+    """``tp_route`` of cross attention; a decode step's single query row
+    runs a context-parallel layer whole on every rank (None)."""
+    route = tp_route(spec, pshard.axis_size("model"))
+    return None if (decode and route == "context") else route
+
+
+def cross_attend(p, x, k, v, spec: AttentionSpec, route: Optional[str]):
+    """x (B, S, d) against k/v (B, T, Hk', D), the rank's kv heads (or every
+    head where they do not split), unmasked; under a mesh the rank's part
+    summed over ``model`` (context route: the rank's rows gathered)."""
+    H, Hk, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    q = torch.einsum("bsd,dhe->bshe", x, p["w_q"])
+    if route == "context":
+        n = q.shape[1] // pshard.axis_size("model")
+        q = q.narrow(1, pshard.index("model") * n, n)
+    elif route == "repeat":
+        k, v = _rank_heads(k, spec, 2), _rank_heads(v, spec, 2)
+    B, S, Hq = q.shape[0], q.shape[1], q.shape[2]
+    out = _attend_unmasked(q.reshape(B, S, k.shape[2], Hq // k.shape[2], D), k, v, D)
+    out = out.to(x.dtype)
+    if route in ("heads", "repeat"):
+        return _row_parallel_out(out, p["w_o"], x.dtype)
+    y = torch.einsum("bshe,hed->bsd", out, p["w_o"])
+    return y if route is None else pshard.leave_rows(y)
+
+
 def cross_attention_fwd(p, x, kv_src, spec: AttentionSpec):
     """Decoder-to-encoder cross attention; kv_src (B, T, d); no mask, no
-    RoPE, scale 1 / sqrt(D)."""
-    H, Hk, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
-    B, S = x.shape[0], x.shape[1]
-    q = torch.einsum("bsd,dhe->bshe", x, p["w_q"]).reshape(B, S, Hk, H // Hk, D)
+    RoPE, scale 1 / sqrt(D). Under a mesh both inputs enter the rank's part
+    (``tp_route``: its heads, or its query rows)."""
+    route = cross_route(spec)
+    if route is not None:
+        x = pshard.enter(x, torch.float32)
+        kv_src = pshard.copy(kv_src, "model", torch.float32)
     k = torch.einsum("bsd,dhe->bshe", kv_src, p["w_k"])
     v = torch.einsum("bsd,dhe->bshe", kv_src, p["w_v"])
-    out = _attend_unmasked(q, k, v, D).to(x.dtype)
-    return torch.einsum("bshe,hed->bsd", out, p["w_o"])
+    return cross_attend(p, x, k, v, spec, route)

@@ -14,6 +14,12 @@ decoder's causal self-attention reaches K4 in ``decode_train`` where the
 text length is a multiple of 128, and K5 in ``decode_step``. Cross
 attention is unmasked plain torch, as in the reference. The decode step
 updates the ``self`` caches in place.
+
+Under a mesh (``specs``: ``sharding.params_pspecs`` of the tree) every
+layer runs the rank's part through the same attention and MLP functions
+as the decoder-only stack (``transformer._branch_layout``): heads (or
+query rows) over ``model``, the MLP column- and row-parallel, the tied
+vocab split over ``model``, the batch over the data axes.
 """
 from __future__ import annotations
 
@@ -21,8 +27,12 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, AttentionSpec
+from repro_torch import sharding
+from repro_torch.configs.base import ArchConfig, AttentionSpec, LayerSpec
+from repro_torch.core.tree import tree_map
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import pshard
+from repro_torch.models import transformer
 from repro_torch.models.common import (
     apply_norm,
     dense_init,
@@ -34,6 +44,9 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.mlp import init_mlp, mlp_fwd
 from repro_torch.models.transformer import _stack, _unbound
+
+_BRANCH = {"ln1": "ln1", "ln_x": "ln1", "ln2": "ln2", "attn": "attn", "cross": "attn",
+           "mlp": "mlp"}
 
 
 def _enc_spec(cfg: ArchConfig) -> AttentionSpec:
@@ -90,45 +103,88 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> Dict:
     }
 
 
-def encode(params, cfg: ArchConfig, frames: torch.Tensor) -> torch.Tensor:
+def _layer_spec(cfg: ArchConfig, attn: AttentionSpec) -> LayerSpec:
+    return LayerSpec(kind="attn", attn=attn, mlp=cfg.pattern[0].mlp)
+
+
+def _per_layer(params, specs, key: str):
+    """The stack ``key``'s layers (views) with their specs (None unsharded)."""
+    layers = _unbound(params[key])
+    if specs is None:
+        return [(p, None) for p in layers]
+    ps = tree_map(lambda sp: sharding.P(*sp[1:]), specs[key])
+    return [(p, ps) for p in layers]
+
+
+def _cross(tree):
+    return {k: tree[k] for k in ("cross_k", "cross_v")}
+
+
+def _materialize(p, ps, spec: LayerSpec, decode: bool = False):
+    """A layer's leaves as the rank's part uses them."""
+    if ps is None:
+        return p
+    out = {}
+    for k, v in p.items():
+        keep, mode = transformer._branch_layout(_BRANCH[k], spec, decode)
+        out[k] = pshard.materialize_tree(v, ps[k], keep, mode)
+    return out
+
+
+def _top(params, specs, name):
+    if specs is None:
+        return params[name]
+    return pshard.materialize_tree(params[name], specs[name], mode="replicated")
+
+
+def encode(params, cfg: ArchConfig, frames: torch.Tensor, specs=None) -> torch.Tensor:
     """frames (B, T, d_model) stub embeddings -> encoder memory (B, T, d).
     The frames are cast to the params' dtype first: a departure from the
     reference, where JAX promotes a bf16 tree's encoder to f32 for f32
     frames (the drivers draw the frames in the compute dtype)."""
     espec = _enc_spec(cfg)
+    lspec = _layer_spec(cfg, espec)
     mlp_spec = cfg.pattern[0].mlp
-    x = frames.to(params["frontend_proj"].dtype) @ params["frontend_proj"]
+    proj = params["frontend_proj"]
+    if specs is not None:
+        proj = pshard.materialize(proj, specs["frontend_proj"], mode="replicated")
+    x = frames.to(proj.dtype) @ proj
     T = x.shape[1]
     x = x + sinusoid_positions(T, cfg.d_model, x.device).to(x.dtype)[None]
     positions = torch.arange(T, dtype=torch.int32, device=x.device)
-    for p in _unbound(params["enc_layers"]):
+    for p, ps in _per_layer(params, specs, "enc_layers"):
+        p = _materialize(p, ps, lspec)
         h = apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
         x = x + attn_mod.attention_fwd(p["attn"], h, espec, None, positions)
         h = apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
         x = x + mlp_fwd(p["mlp"], h, mlp_spec)
-    return apply_norm(params["enc_ln"], x, cfg.norm, cfg.norm_eps)
+    return apply_norm(_top(params, specs, "enc_ln"), x, cfg.norm, cfg.norm_eps)
 
 
-def decode_train(params, cfg: ArchConfig, memory, tokens) -> torch.Tensor:
+def decode_train(params, cfg: ArchConfig, memory, tokens, specs=None) -> torch.Tensor:
     """Teacher-forced decoder forward -> final hidden (B, S, d)."""
     dspec = _dec_spec(cfg)
+    lspec = _layer_spec(cfg, dspec)
     mlp_spec = cfg.pattern[0].mlp
-    x = params["embed"][tokens]
+    x = transformer.lookup(params, tokens, specs)
     S = x.shape[1]
     x = x + sinusoid_positions(S, cfg.d_model, x.device).to(x.dtype)[None]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    for p in _unbound(params["dec_layers"]):
+    for p, ps in _per_layer(params, specs, "dec_layers"):
+        p = _materialize(p, ps, lspec)
         h = apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
         x = x + attn_mod.attention_fwd(p["attn"], h, dspec, None, positions)
         h = apply_norm(p["ln_x"], x, cfg.norm, cfg.norm_eps)
         x = x + attn_mod.cross_attention_fwd(p["cross"], h, memory, dspec)
         h = apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
         x = x + mlp_fwd(p["mlp"], h, mlp_spec)
-    return apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    return apply_norm(_top(params, specs, "final_norm"), x, cfg.norm, cfg.norm_eps)
 
 
-def unembed(params, x):
-    return x @ params["embed"].T
+def unembed(params, x, specs=None):
+    if specs is None:
+        return x @ params["embed"].T
+    return transformer.logits_of(x, *transformer._head(params, True, specs))
 
 
 # ---------------------------------------------------------------------------
@@ -153,8 +209,19 @@ def init_decode_caches(cfg: ArchConfig, batch: int, seq_len: int,
     }
 
 
-def precompute_cross(params, cfg: ArchConfig, memory) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Every decoder layer's cross K/V of ``memory``: (n_dec, B, T, Hk, D)."""
+def precompute_cross(params, cfg: ArchConfig, memory,
+                     specs=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every decoder layer's cross K/V of ``memory``: (n_dec, B, T, Hk, D)
+    (under a mesh the rank's kv heads where they split, else all)."""
+    if specs is not None:
+        lspec = _layer_spec(cfg, _dec_spec(cfg))
+        ks, vs = [], []
+        with torch.no_grad():
+            for p, ps in _per_layer(params, specs, "dec_layers"):
+                c = _materialize({"cross": p["cross"]}, ps, lspec, decode=True)["cross"]
+                ks.append(torch.einsum("btd,dhe->bthe", memory, c["w_k"]))
+                vs.append(torch.einsum("btd,dhe->bthe", memory, c["w_v"]))
+        return torch.stack(ks), torch.stack(vs)
     cross = params["dec_layers"]["cross"]
     k = torch.einsum("btd,ndhe->nbthe", memory, cross["w_k"])
     v = torch.einsum("btd,ndhe->nbthe", memory, cross["w_v"])
@@ -163,33 +230,42 @@ def precompute_cross(params, cfg: ArchConfig, memory) -> Tuple[torch.Tensor, tor
 
 def _cross_decode(p, x, spec, k, v):
     """x (B, 1, d) against precomputed k/v (B, T, Hk, D), unmasked."""
-    H, Hk, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
-    B = x.shape[0]
-    q = torch.einsum("bsd,dhe->bshe", x, p["w_q"]).reshape(B, 1, Hk, H // Hk, D)
-    out = attn_mod._attend_unmasked(q, k, v, D).to(x.dtype)
-    return torch.einsum("bshe,hed->bsd", out, p["w_o"])
+    route = attn_mod.cross_route(spec, decode=True)
+    if route is not None:
+        x = pshard.enter(x)
+    return attn_mod.cross_attend(p, x, k, v, spec, route)
 
 
-def decode_step(params, cfg: ArchConfig, caches: Dict, token: torch.Tensor):
+def decode_step(params, cfg: ArchConfig, caches: Dict, token: torch.Tensor, specs=None,
+                cache_layout=None):
     """One decoder token against the self caches (updated IN PLACE) and the
     precomputed cross K/V. ``caches["self"]["index"]`` is (n_dec,) or, in
     the slot pool, (n_dec, B): each row's sinusoid position is its own.
-    Returns (logits (B, 1, V), caches)."""
+    Under a mesh ``cache_layout`` (the stored specs, the compute specs) lays
+    out the caches: each layer's moved to the compute layout at use
+    (``sharding.cache_at_use``). Returns (logits (B, 1, V), caches)."""
     dspec = _dec_spec(cfg)
+    lspec = _layer_spec(cfg, dspec)
     mlp_spec = cfg.pattern[0].mlp
     index = caches["self"]["index"][0]  # () or (B,)
-    x = params["embed"][token]
+    x = transformer.lookup(params, token, specs)
     pe = sinusoid_at(index, cfg.d_model).to(x.dtype)
     x = x + (pe[:, None] if index.dim() else pe[None, None])
-    layers = zip(_unbound(params["dec_layers"]), _unbound(caches["self"]),
-                 caches["cross_k"].unbind(0), caches["cross_v"].unbind(0))
-    for p, self_c, ck, cv in layers:
-        h = apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
-        y, _ = attn_mod.attention_decode(p["attn"], h, dspec, None, self_c)
-        x = x + y
-        h = apply_norm(p["ln_x"], x, cfg.norm, cfg.norm_eps)
-        x = x + _cross_decode(p["cross"], h, dspec, ck, cv)
+    store, comp = cache_layout if cache_layout is not None else (None, None)
+    mesh = pshard.current_mesh()
+    cross = _cross(caches)
+    for r, (p, ps) in enumerate(_per_layer(params, specs, "dec_layers")):
+        p = _materialize(p, ps, lspec, decode=True)
+        with sharding.cache_at_use(caches["self"], store and store["self"],
+                                   comp and comp["self"], mesh, layer=r) as sc, \
+                sharding.cache_at_use(cross, store and _cross(store), comp and _cross(comp),
+                                      mesh, layer=r) as cc:
+            h = apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
+            y, _ = attn_mod.attention_decode(p["attn"], h, dspec, None, sc)
+            x = x + y
+            h = apply_norm(p["ln_x"], x, cfg.norm, cfg.norm_eps)
+            x = x + _cross_decode(p["cross"], h, dspec, cc["cross_k"], cc["cross_v"])
         h = apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
         x = x + mlp_fwd(p["mlp"], h, mlp_spec)
-    x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
-    return unembed(params, x), caches
+    x = apply_norm(_top(params, specs, "final_norm"), x, cfg.norm, cfg.norm_eps)
+    return unembed(params, x, specs), caches

@@ -26,14 +26,29 @@ zeros (a comparison with ``arange(C)``, as ``jax.nn.one_hot``; torch's
 The serving pool routes each slot's token as its own group
 (``group_size=1``): the reference vmaps its batch-1 decode step over the
 slots, so a slot's token never shares capacity with another slot's.
+
+Under a mesh the layer is expert parallel: the router, the top-k and the
+dispatch plan run on every model rank as they do here, each rank runs its
+``E / tp`` experts on its slice of the one-hots, and the combine is summed
+over ``model``; the shared experts are column- then row-parallel as the
+dense MLP. Over the data axes the token groups are the reference's
+group-batches of the global batch: where the rank's rows are whole groups
+(B S a multiple of the group), it routes them alone and the aux loss's
+batch statistics (the router's mean, the routed fractions, the dispatched
+count) are summed over the data ranks; where a group spans ranks (a decode
+step's few tokens), the batch is all-gathered over them and every data
+rank routes it all. The aux loss, the same on every model rank, takes its
+gradient on one of them (``pshard.one_owner``), and on one data rank where
+the batch was gathered.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import MoESpec
+from repro_torch.models import pshard
 from repro_torch.models.common import activation, dense_init
 
 DEFAULT_GROUP = 128
@@ -72,11 +87,60 @@ def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def sharded_dims(spec: MoESpec) -> Dict:
+    """The dims of each leaf's block the layer consumes as they lie over
+    ``model``: the experts' axis, the shared experts' hidden axis."""
+    tp = pshard.axis_size("model")
+    if tp == 1:
+        return {}
+    Fs = spec.d_ff_shared * spec.num_shared
+    if spec.num_experts % tp or Fs % tp:
+        raise NotImplementedError(
+            f"MoE layer: {spec.num_experts} experts (shared hidden {Fs}) do not "
+            f"split over a model axis of {tp}")
+    return {"w_in": (0,), "w_gate": (0,), "w_out": (0,), "shared_in": (1,),
+            "shared_gate": (1,), "shared_out": (0,)}
+
+
 def moe_fwd(p: Dict, x: torch.Tensor, spec: MoESpec,
             group_size: int = DEFAULT_GROUP) -> Tuple[torch.Tensor, Dict]:
     """x: (B, S, d) -> (y, metrics ``aux_loss``, ``drop_frac``,
     ``router_entropy``, f32 0-d tensors). Routes beyond an expert's
-    capacity are dropped."""
+    capacity are dropped. Under a mesh, the rank's experts (module
+    docstring)."""
+    tp, dpax = pshard.axis_size("model"), pshard.dp()
+    ndp = pshard.axis_size(dpax)
+    if tp == 1 and ndp == 1:
+        return _moe(p, x, spec, group_size)
+    x_in = x
+    if tp > 1:
+        x = pshard.enter(x, torch.float32)
+    first = pshard.index("model") * p["w_in"].shape[0]
+    rows = x.shape[0] * x.shape[1]
+    G = min(group_size, ndp * rows)  # the reference's group over the global batch
+    if rows % G == 0:  # the rank's rows are whole groups
+        y, metrics = _moe(p, x, spec, G, experts=first, stats_over=dpax)
+        gathered = False
+    else:  # a group spans data ranks: every data rank routes the global batch
+        x = pshard.all_gather(x, dpax, 0)
+        y, metrics = _moe(p, x, spec, G, experts=first)
+        gathered = True
+    if tp > 1:
+        y = pshard.leave(y)
+    aux = pshard.one_owner(metrics["aux_loss"], "model")
+    if gathered:
+        y = y.narrow(0, pshard.index(dpax) * x_in.shape[0], x_in.shape[0])
+        aux = pshard.one_owner(aux, dpax)
+    metrics["aux_loss"] = aux
+    return y.to(x_in.dtype), metrics
+
+
+def _moe(p: Dict, x: torch.Tensor, spec: MoESpec, group_size: int,
+         experts: Optional[int] = None, stats_over=()) -> Tuple[torch.Tensor, Dict]:
+    """The layer on x (B, S, d). ``experts``: the first of the rank's
+    ``p["w_in"].shape[0]`` experts, whose partial output (f32) it returns.
+    ``stats_over``: the mesh axes whose ranks hold the rest of the batch,
+    over which the aux loss's statistics are summed."""
     B, S, d = x.shape
     T = B * S
     G = min(group_size, T)
@@ -91,11 +155,6 @@ def moe_fwd(p: Dict, x: torch.Tensor, spec: MoESpec,
     probs = torch.softmax(logits, dim=-1)  # (T, E)
     gate_k, idx_k = top_k(probs, K)  # (T, K)
     gate_k = gate_k / torch.clamp(gate_k.sum(-1, keepdim=True), min=1e-9)
-
-    # Switch aux loss over the whole batch
-    me = probs.mean(0)
-    ce = _one_hot(idx_k, E, torch.float32).sum(1).mean(0) / K
-    aux_loss = E * torch.sum(me * ce)
 
     cdt = x.dtype
     xg = xt.reshape(nb, G, d)
@@ -115,22 +174,45 @@ def moe_fwd(p: Dict, x: torch.Tensor, spec: MoESpec,
         combine = combine + gate_g[..., k, None, None].to(cdt) * pos_oh
         counts = counts + oh.sum(1, keepdim=True)
 
-    xe = torch.einsum("ngec,ngd->necd", dispatch, xg)  # (nb, E, C, d)
+    own_dispatch, own_combine = dispatch, combine
+    if experts is not None:
+        E_l = p["w_in"].shape[0]
+        own_dispatch = dispatch.narrow(2, experts, E_l)
+        own_combine = combine.narrow(2, experts, E_l)
+    xe = torch.einsum("ngec,ngd->necd", own_dispatch, xg)  # (nb, E, C, d)
     act = activation("silu")
     h = torch.einsum("necd,edf->necf", xe, p["w_in"])
     g = torch.einsum("necd,edf->necf", xe, p["w_gate"])
     ye = torch.einsum("necf,efd->necd", act(g) * h, p["w_out"])
-    y = torch.einsum("ngec,necd->ngd", combine, ye).reshape(B, S, d)
+    if experts is None:
+        y = torch.einsum("ngec,necd->ngd", combine, ye).reshape(B, S, d)
+    else:  # partial sums in f32 (the reference's GSPMD widening)
+        y = torch.einsum("ngec,necd->ngd", own_combine.float(), ye.float()).reshape(B, S, d)
 
     if "shared_in" in p:
         h = x @ p["shared_in"]
         g = x @ p["shared_gate"]
-        y = y + (act(g) * h) @ p["shared_out"]
+        if experts is None:
+            y = y + (act(g) * h) @ p["shared_out"]
+        else:
+            y = y + (act(g) * h).float() @ p["shared_out"].float()
 
-    dispatched = dispatch.float().sum()
+    # Switch aux loss over the whole batch
+    routed = _one_hot(idx_k, E, torch.float32).sum(1)  # (T, E)
+    if pshard.axis_size(stats_over) == 1:
+        T_all = T
+        me = probs.mean(0)
+        ce = routed.mean(0) / K
+        dispatched = dispatch.float().sum()
+    else:  # the data ranks' sums, added in rank order in one psum
+        T_all = T * pshard.axis_size(stats_over)
+        part = torch.cat([probs.sum(0), routed.sum(0), dispatch.float().sum().reshape(1)])
+        summed = pshard.psum(part, stats_over)
+        me, ce, dispatched = summed[:E] / T_all, summed[E:2 * E] / T_all / K, summed[2 * E]
+    aux_loss = E * torch.sum(me * ce)
     metrics = {
         "aux_loss": aux_loss,
-        "drop_frac": 1.0 - dispatched / (T * K),
+        "drop_frac": 1.0 - dispatched / (T_all * K),
         "router_entropy": -torch.sum(me * torch.log(me + 1e-9)),
     }
-    return y.to(x.dtype), metrics
+    return (y if experts is not None else y.to(x.dtype)), metrics

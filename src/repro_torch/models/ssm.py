@@ -13,6 +13,18 @@ their gradients in that output's gradient.
 Decode is the O(1) single-step recurrence, updating its cache in place.
 Parameter names and layouts are the reference's, so a reference tree
 converts key for key.
+
+Under a mesh whose ``model`` axis splits the heads, each rank runs K6 on
+its ``nh / tp`` heads with its blocks of ``D``, ``A_log``, ``dt_bias``,
+``norm_scale`` and the rows of ``w_out`` (row-parallel, summed over
+``model``; the gated norm's mean square is summed over the ranks first).
+``w_in`` ((d, 2 di + 2 ds + nh)) and the conv's ``di + 2 ds`` channels are
+cut by the rules into contiguous blocks that do not fall on head
+boundaries (z, x, B, C and dt share the axis), so the layer all-gathers
+them at use and computes the whole projection and conv on every rank,
+keeping its heads' channels of z, x and dt (B and C are shared by all
+heads); their gradients are reduce-scattered back. Heads that ``model``
+does not split leave the layer replicated.
 """
 from __future__ import annotations
 
@@ -24,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMSpec
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.models import pshard
 from repro_torch.models.common import dense_init
 
 ssd_chunked = _ssd.ssd_chunked_plain
@@ -73,11 +86,47 @@ def _causal_conv(p, xbc, spec: SSMSpec):
     return F.silu(out + p["conv_b"])
 
 
-def _gated_norm(p, y, z, eps=1e-5):
+def _gated_norm(p, y, z, eps=1e-5, width=None):
+    """RMS-normed ``y * silu(z)``; with ``width`` (the rank holds a block of
+    its channels) the mean square is over all ``width`` channels, the
+    ranks' sums of squares summed over ``model``."""
     g = y * F.silu(z)
     gf = g.float()
-    var = (gf * gf).mean(-1, keepdim=True)
+    if width is None:
+        var = (gf * gf).mean(-1, keepdim=True)
+    else:  # the sum is used by every rank's own channels: summed both ways
+        ss = pshard.copy(pshard.psum((gf * gf).sum(-1, keepdim=True), "model"), "model")
+        var = ss / width
     return (gf * torch.rsqrt(var + eps)).to(y.dtype) * p["norm_scale"]
+
+
+def heads_parallel(spec: SSMSpec) -> bool:
+    tp = pshard.axis_size("model")
+    return tp > 1 and spec.num_heads % tp == 0
+
+
+def sharded_dims(spec: SSMSpec) -> Dict:
+    """The dims of each leaf's block the layer consumes as they lie over
+    ``model`` (``w_in`` and the conv are gathered)."""
+    if not heads_parallel(spec):
+        return {}
+    return {"A_log": (0,), "dt_bias": (0,), "D": (0,), "norm_scale": (0,), "w_out": (0,)}
+
+
+def _rank_heads(z, xin, dt_raw, spec: SSMSpec):
+    """The rank's heads' channels of z, x (di wide) and dt (nh wide)."""
+    tp = pshard.axis_size("model")
+    nl = spec.num_heads // tp
+    dl = nl * spec.head_dim
+    r = pshard.index("model")
+    return z.narrow(-1, r * dl, dl), xin.narrow(-1, r * dl, dl), dt_raw.narrow(-1, r * nl, nl)
+
+
+def _out_proj(p, y, z, spec: SSMSpec, par: bool, dtype):
+    if not par:
+        return _gated_norm(p, y, z) @ p["w_out"]
+    normed = _gated_norm(p, y, z, width=spec.d_inner)
+    return pshard.leave(normed.float() @ p["w_out"].float()).to(dtype)
 
 
 def ssd_reference(x, dt, A, B_, C_, h0=None):
@@ -100,20 +149,24 @@ def ssd_reference(x, dt, A, B_, C_, h0=None):
 
 def _ssm_fwd(p: Dict, x: torch.Tensor, spec: SSMSpec, h0=None):
     """(out (B, S, d_model), h_final, xbc before the conv)."""
-    di, ds, nh, hd = spec.d_inner, spec.d_state, spec.num_heads, spec.head_dim
+    di, ds, hd = spec.d_inner, spec.d_state, spec.head_dim
+    par = heads_parallel(spec)
+    if par:
+        x = pshard.enter(x, torch.float32)
     z, xbc_in, dt_raw = _split_in(p, x, spec)
     xbc = _causal_conv(p, xbc_in, spec)
     xin = xbc[..., :di]
     B_ = xbc[..., di:di + ds]
     C_ = xbc[..., di + ds:]
+    if par:
+        z, xin, dt_raw = _rank_heads(z, xin, dt_raw, spec)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-    xh = xin.reshape(*xin.shape[:2], nh, hd)  # a view of xbc: strides, no copy
+    xh = xin.reshape(*xin.shape[:2], dt.shape[-1], hd)  # a view of xbc: strides, no copy
     y, h = _ssd.ssd_scan(xh, dt, A, B_, C_, spec.chunk, h0)
     y = y + p["D"][None, None, :, None] * xh.float()
-    y = y.reshape(*x.shape[:2], di).to(x.dtype)
-    out = _gated_norm(p, y, z) @ p["w_out"]
-    return out, h, xbc_in
+    y = y.reshape(*x.shape[:2], xin.shape[-1]).to(x.dtype)
+    return _out_proj(p, y, z, spec, par, x.dtype), h, xbc_in
 
 
 def ssm_fwd(p: Dict, x: torch.Tensor, spec: SSMSpec, h0=None,
@@ -145,7 +198,10 @@ def init_ssm_cache(spec: SSMSpec, batch: int, dtype, device=None) -> Dict:
 def ssm_decode(p: Dict, x: torch.Tensor, spec: SSMSpec, cache: Dict):
     """x: (B, 1, d_model) -> (y, cache). The cache's ``h`` and ``conv`` are
     updated IN PLACE (no host sync) and returned."""
-    di, ds, nh, hd = spec.d_inner, spec.d_state, spec.num_heads, spec.head_dim
+    di, ds, hd = spec.d_inner, spec.d_state, spec.head_dim
+    par = heads_parallel(spec)
+    if par:
+        x = pshard.enter(x)
     z, xbc, dt_raw = _split_in(p, x, spec)  # (B, 1, .)
     # conv over [cache, current]; hist is a new tensor, so its shifted tail
     # can be copied into the cache without overlapping it
@@ -155,16 +211,18 @@ def ssm_decode(p: Dict, x: torch.Tensor, spec: SSMSpec, cache: Dict):
     xin = xbc1[..., :di]
     B_ = xbc1[:, 0, di:di + ds].float()
     C_ = xbc1[:, 0, di + ds:].float()
+    if par:
+        z, xin, dt_raw = _rank_heads(z, xin, dt_raw, spec)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])[:, 0]  # (B, nh)
     A = -torch.exp(p["A_log"])
-    xh = xin.reshape(x.shape[0], nh, hd)
+    xh = xin.reshape(x.shape[0], dt.shape[-1], hd)
     a = torch.exp(dt * A)
     upd = torch.einsum("bh,bhp,bn->bhpn", dt, xh.float(), B_)
     h = cache["h"]
     h.mul_(a[:, :, None, None]).add_(upd)
     y = torch.einsum("bn,bhpn->bhp", C_, h)
     y = y + p["D"][None, :, None] * xh.float()
-    y = y.reshape(x.shape[0], 1, di).to(x.dtype)
-    out = _gated_norm(p, y, z) @ p["w_out"]
+    y = y.reshape(x.shape[0], 1, xin.shape[-1]).to(x.dtype)
+    out = _out_proj(p, y, z, spec, par, x.dtype)
     cache["conv"].copy_(hist[:, 1:])
     return out, cache

@@ -20,12 +20,14 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.kernels.flash_attention import under_torch_func
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import pshard
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import RopeTable
 from repro_torch.models.common import (
@@ -101,6 +103,83 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec) -> Dict:
     return p
 
 
+def _branch_layout(name: str, spec: LayerSpec, decode: bool):
+    """(dims kept as they lie over ``model``, ``materialize`` mode) of the
+    layer's ``name`` sub-tree under the current mesh."""
+    tp = pshard.axis_size("model")
+    if name in ("ln1", "ln2"):  # on the rank's rows with the sequence sharded
+        return {}, ("parallel" if pshard.seq_shard() else "replicated")
+    if tp == 1:
+        return {}, "parallel"
+    if name == "attn":
+        route = attn_mod.tp_route(spec.attn, tp)
+        if route == "context" and decode:
+            return {}, "replicated"
+        return attn_mod.sharded_dims(spec.attn, tp), "parallel"
+    if name == "ssm":
+        par = ssm_mod.heads_parallel(spec.ssm)
+        return ssm_mod.sharded_dims(spec.ssm), ("parallel" if par else "replicated")
+    if name == "moe":
+        return moe_mod.sharded_dims(spec.mlp.moe), "parallel"
+    if spec.mlp.d_ff % tp == 0:
+        return mlp_mod.sharded_dims(spec.mlp), "parallel"
+    return {}, "replicated"
+
+
+def _materialize_layer(p: Dict, pspec: Dict, spec: LayerSpec, names, decode: bool) -> Dict:
+    """The layer's sub-trees ``names`` as the rank's part of the layer uses
+    them (``pshard.materialize``)."""
+    out = {}
+    for name in names:
+        keep, mode = _branch_layout(name, spec, decode)
+        if mode == "replicated" and pshard.seq_shard() and name not in ("ln1", "ln2"):
+            raise NotImplementedError(
+                f"{name} layer: sequence-sharded residual around a layer that "
+                f"runs replicated over the model axis")
+        out[name] = pshard.materialize_tree(p[name], pspec[name], keep, mode)
+    return out
+
+
+def _mixer(p, x, cfg, spec, ropes, positions, mode, cache, mla_absorb, pspec):
+    """The layer's first branch (norm, then attention or SSM): (y, cache)."""
+    if pspec is not None:
+        p = _materialize_layer(p, pspec, spec, ("ln1", spec.kind if spec.kind == "attn"
+                                                 else "ssm"), mode == "decode")
+    h = apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
+    rope = _rope_for(cfg, spec, ropes)
+    new_cache = cache
+    if spec.kind == "attn":
+        if mode == "decode":
+            y, new_cache = attn_mod.attention_decode(p["attn"], h, spec.attn, rope,
+                                                     cache, mla_absorb=mla_absorb)
+        else:
+            y = attn_mod.attention_fwd(p["attn"], h, spec.attn, rope, positions)
+            if mode == "prefill":
+                new_cache = _write_prefill_cache(p["attn"], _whole_rows(h), spec, rope,
+                                                 positions)
+    elif mode == "decode":
+        y, new_cache = ssm_mod.ssm_decode(p["ssm"], h, spec.ssm, cache)
+    elif mode == "prefill":
+        y, hstate, conv_tail = _ssm_prefill(p["ssm"], h, spec)
+        new_cache = {"h": hstate, "conv": conv_tail}
+    else:
+        y = ssm_mod.ssm_fwd(p["ssm"], h, spec.ssm)
+    return y, new_cache
+
+
+def _ffn(p, x, cfg, spec, mode, moe_group, pspec, explicit_tp):
+    """The layer's second branch (norm, then the MLP or MoE): (y, aux)."""
+    name = "mlp" if spec.mlp.kind == "dense" else "moe"
+    if pspec is not None:
+        p = _materialize_layer(p, pspec, spec, ("ln2", name), mode == "decode")
+    h = apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
+    if name == "mlp":
+        return mlp_mod.mlp_fwd(p["mlp"], h, spec.mlp,
+                               explicit_tp=explicit_tp and mode != "decode"), None
+    y, metrics = moe_mod.moe_fwd(p["moe"], h, spec.mlp.moe, moe_group)
+    return y, metrics["aux_loss"]
+
+
 def apply_layer(
     p: Dict,
     x: torch.Tensor,
@@ -112,41 +191,29 @@ def apply_layer(
     cache: Optional[Dict] = None,
     mla_absorb: bool = True,
     moe_group: int = moe_mod.DEFAULT_GROUP,
+    pspec: Optional[Dict] = None,
+    explicit_tp: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict], Optional[torch.Tensor]]:
     """Returns (x, new_cache, moe_aux_loss), the aux None for a layer
     without MoE (no tensor made a layer). In ``decode`` mode the cache is
     updated in place (``attention.attention_decode``, ``ssm.ssm_decode``).
     ``moe_group`` is the MoE layer's token group (the serving pool's tick
-    routes each row alone: 1)."""
-    aux = None
-    h = apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
-    rope = _rope_for(cfg, spec, ropes)
-    new_cache = cache
-    if spec.kind == "attn":
-        if mode == "decode":
-            y, new_cache = attn_mod.attention_decode(p["attn"], h, spec.attn, rope,
-                                                     cache, mla_absorb=mla_absorb)
-        else:
-            y = attn_mod.attention_fwd(p["attn"], h, spec.attn, rope, positions)
-            if mode == "prefill":
-                new_cache = _write_prefill_cache(p["attn"], h, spec, rope, positions)
-    elif mode == "decode":
-        y, new_cache = ssm_mod.ssm_decode(p["ssm"], h, spec.ssm, cache)
-    elif mode == "prefill":
-        y, hstate, conv_tail = _ssm_prefill(p["ssm"], h, spec)
-        new_cache = {"h": hstate, "conv": conv_tail}
-    else:
-        y = ssm_mod.ssm_fwd(p["ssm"], h, spec.ssm)
+    routes each row alone: 1). Under a mesh ``p`` holds the rank's blocks,
+    laid out by ``pspec``, which each branch materializes at use."""
+    y, new_cache = _mixer(p, x, cfg, spec, ropes, positions, mode, cache, mla_absorb,
+                          pspec)
     x = x + y
+    aux = None
     if spec.mlp.kind != "none":
-        h = apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
-        if spec.mlp.kind == "dense":
-            y = mlp_mod.mlp_fwd(p["mlp"], h, spec.mlp)
-        else:
-            y, metrics = moe_mod.moe_fwd(p["moe"], h, spec.mlp.moe, moe_group)
-            aux = metrics["aux_loss"]
+        y, aux = _ffn(p, x, cfg, spec, mode, moe_group, pspec, explicit_tp)
         x = x + y
     return x, new_cache, aux
+
+
+def _whole_rows(h):
+    """``h`` with the sequence whole (the rank's rows gathered where the
+    sequence is sharded), as a prefill's cache writer needs it."""
+    return pshard.all_gather(h, "model", 1, grad="split") if pshard.seq_shard() else h
 
 
 # --- prefill-cache writers --------------------------------------------------
@@ -265,31 +332,113 @@ def _layers(tree, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 
-def _embed_tokens(params, cfg: ArchConfig, tokens, extra_embeds=None):
+def _layer_specs(specs, cfg: ArchConfig):
+    """Each layer's spec tree in ``_layers`` order (a stacked leaf's spec
+    without its repeat entry); Nones without specs."""
+    n = len(cfg.prefix) + len(cfg.pattern) * cfg.repeats + len(cfg.remainder)
+    if specs is None:
+        yield from [None] * n
+        return
+    for i, _ in enumerate(cfg.prefix):
+        yield specs["prefix"][i]
+    unstacked = [tree_map(lambda sp: sharding.P(*sp[1:]), b) for b in specs["blocks"]]
+    for _ in range(cfg.repeats):
+        yield from unstacked
+    for i, _ in enumerate(cfg.remainder):
+        yield specs["remainder"][i]
+
+
+def _vocab(params, specs, name: str, vocab_dim: int):
+    """``params[name]`` as the embedding or head uses it: the rank's vocab
+    block where ``model`` splits the vocab (kept, with its first id), every
+    other sharded dim gathered. Returns (leaf, first id or None)."""
+    spec = specs[name]
+    split = spec[vocab_dim] == "model" and pshard.axis_size("model") > 1
+    w = pshard.materialize(params[name], spec, keep=(vocab_dim,) if split else (),
+                           mode="replicated")
+    return w, (pshard.index("model") * w.shape[vocab_dim] if split else None)
+
+
+def _head(params, tied: bool, specs=None):
+    """(head (d, V or the rank's V block), the block's first id or None)."""
+    if specs is None:
+        return (params["embed"].T if tied else params["lm_head"]), None
+    if tied:
+        w, lo = _vocab(params, specs, "embed", 0)
+        return w.T, lo
+    return _vocab(params, specs, "lm_head", 1)
+
+
+def lookup(params, tokens, specs=None):
+    """Rows of ``params["embed"]`` for ``tokens``. Under a mesh splitting the
+    vocab, each rank looks up the tokens of its block, zeros for the rest,
+    and the ranks psum."""
+    if specs is None:
+        return params["embed"][tokens]
+    emb, lo = _vocab(params, specs, "embed", 0)
+    if lo is None:
+        return emb[tokens]
+    local = tokens.long() - lo
+    own = (local >= 0) & (local < emb.shape[0])
+    x = torch.where(own[..., None], emb[local.clamp(0, emb.shape[0] - 1)],
+                    torch.zeros((), dtype=emb.dtype, device=emb.device))
+    return pshard.psum(x, "model")
+
+
+def _embed_tokens(params, cfg: ArchConfig, tokens, extra_embeds=None, specs=None):
     """Token embeddings (scaled by sqrt(d_model) where the arch says so),
     with the frontend stub's ``extra_embeds`` (B, P, d) projected and
-    prepended."""
-    x = params["embed"][tokens]
+    prepended (``lookup``: vocab-parallel under a mesh)."""
+    x = lookup(params, tokens, specs)
     if cfg.embed_scale:
         # the scale rounded to the activation dtype first, as in the reference
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype).item()
     if extra_embeds is not None:
-        fe = extra_embeds.to(x.dtype) @ params["frontend_proj"]
+        proj = params["frontend_proj"]
+        if specs is not None:
+            proj = pshard.materialize(proj, specs["frontend_proj"], mode="replicated")
+        fe = extra_embeds.to(x.dtype) @ proj
         x = torch.cat([fe, x], dim=1)
     return x
 
 
-def _checkpointed(p, x, cfg, spec, ropes, positions):
+def _checkpointed(p, x, cfg, spec, ropes, positions, pspec=None, explicit_tp=False,
+                  save_outputs=False):
     """One train-mode layer whose activations autograd does not keep: they
     are recomputed in the backward (``torch.utils.checkpoint``). Returns
-    (x, moe_aux_loss)."""
+    (x, moe_aux_loss). ``save_outputs``: each branch is checkpointed on
+    its own, so its output is kept for the backward and the recompute
+    stops before the branch's closing sum over ``model`` (the reference's
+    ``remat_save_outputs``: a split checkpoint)."""
     from torch.utils.checkpoint import checkpoint
 
-    def run(p_, x_):
-        x_, _, aux = apply_layer(p_, x_, cfg, spec, ropes, positions, "train")
-        return x_, aux  # aux None without MoE: checkpoint passes it through
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    ctx = pshard.captured()  # the recompute runs in the backward, outside this call
+    if not save_outputs:
+        def run(p_, x_):
+            with ctx():
+                x_, _, aux = apply_layer(p_, x_, cfg, spec, ropes, positions, "train",
+                                         pspec=pspec, explicit_tp=explicit_tp)
+            return x_, aux  # aux None without MoE: checkpoint passes it through
 
-    return checkpoint(run, p, x, use_reentrant=False, preserve_rng_state=False)
+        return checkpoint(run, p, x, **kw)
+
+    def mixer(p_, x_):
+        with ctx():
+            return _mixer(p_, x_, cfg, spec, ropes, positions, "train", None, True,
+                          pspec)[0]
+
+    x = x + checkpoint(mixer, p, x, **kw)
+    if spec.mlp.kind == "none":
+        return x, None
+
+    def ffn(p_, x_):
+        with ctx():
+            return _ffn(p_, x_, cfg, spec, "train", moe_mod.DEFAULT_GROUP, pspec,
+                        explicit_tp)
+
+    y, aux = checkpoint(ffn, p, x, **kw)
+    return x + y, aux
 
 
 def forward(
@@ -299,6 +448,10 @@ def forward(
     extra_embeds: Optional[torch.Tensor] = None,  # (B, P, d) stub frontend
     mode: str = "train",
     remat: bool = True,
+    specs: Optional[Dict] = None,
+    seq_shard: bool = False,
+    explicit_tp: bool = False,
+    remat_save_outputs: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
     """Returns (final_hidden (B,S,d), total_moe_aux (the MoE layers' aux
     losses summed in layer order, f32; 0 without MoE layers),
@@ -313,10 +466,18 @@ def forward(
     ``torch.func`` transforms do not take checkpointing, so under them (the
     FL clients' ``vmap(grad)``) the layers run unwrapped: the values are
     the same, only the memory differs. The layers' recompute calls K4's
-    forward a second time."""
+    forward a second time.
+
+    Under a mesh (``pshard.mesh_context``), ``params`` are the rank's
+    blocks laid out by ``specs`` (``sharding.params_pspecs``) and the batch
+    the rank's rows; each layer runs the rank's part. ``seq_shard``: the
+    residual stream between layers is split over the sequence on
+    ``model`` (each branch ends in a reduce-scatter and the next gathers);
+    ``explicit_tp``: the MLP's ``explicit_tp`` path; the prefill's caches
+    come in ``sharding.compute_cache_pspecs``' layout."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"forward runs mode train or prefill, got {mode!r}")
-    x = _embed_tokens(params, cfg, tokens, extra_embeds)
+    x = _embed_tokens(params, cfg, tokens, extra_embeds, specs)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     ropes = build_ropes(cfg, x.device)
@@ -324,15 +485,29 @@ def forward(
              and not under_torch_func())
     caches = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p, spec, in_blocks in _layers(params, cfg):
-        if remat and in_blocks:
-            (x, a), c = _checkpointed(p, x, cfg, spec, ropes, positions), None
-        else:
-            x, c, a = apply_layer(p, x, cfg, spec, ropes, positions, mode)
-        if a is not None:
-            aux = aux + a
-        caches.append(c)
-    x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    tp = pshard.axis_size("model")
+    seq_shard = seq_shard and specs is not None and tp > 1
+    if seq_shard:
+        if S % tp:
+            raise NotImplementedError(f"sequence sharding: {S} positions over {tp} ranks")
+        x = pshard.split(x, "model", 1)
+    with pshard.seq_sharded(seq_shard):
+        for (p, spec, in_blocks), ps in zip(_layers(params, cfg), _layer_specs(specs, cfg)):
+            if remat and in_blocks:
+                (x, a), c = _checkpointed(p, x, cfg, spec, ropes, positions, ps,
+                                          explicit_tp, remat_save_outputs), None
+            else:
+                x, c, a = apply_layer(p, x, cfg, spec, ropes, positions, mode, pspec=ps,
+                                      explicit_tp=explicit_tp)
+            if a is not None:
+                aux = aux + a
+            caches.append(c)
+    if seq_shard:
+        x = pshard.all_gather(x, "model", 1, grad="split")
+    norm = params["final_norm"]
+    if specs is not None:
+        norm = pshard.materialize_tree(norm, specs["final_norm"], mode="replicated")
+    x = apply_norm(norm, x, cfg.norm, cfg.norm_eps)
     if mode != "prefill":
         return x, aux, None
     return x, aux, _regroup(caches, cfg)
@@ -357,16 +532,42 @@ def _regroup(per_layer: list, cfg: ArchConfig) -> Dict:
 # ---------------------------------------------------------------------------
 
 
-def _head(params, cfg: ArchConfig) -> torch.Tensor:
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-
-
-def unembed(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    logits = x @ _head(params, cfg)
-    if cfg.logits_softcap:
-        c = cfg.logits_softcap
-        logits = torch.tanh(logits / c) * c
+def logits_of(x, w, lo, softcap: float = 0.0) -> torch.Tensor:
+    """``x @ w`` (soft-capped); with ``lo`` (``w`` the rank's vocab block) the
+    ranks' blocks all-gathered."""
+    if lo is not None:
+        x = pshard.copy(x, "model")
+    logits = x @ w
+    if softcap:
+        logits = torch.tanh(logits / softcap) * softcap
+    if lo is not None:
+        logits = pshard.all_gather(logits, "model", logits.dim() - 1, grad="split")
     return logits
+
+
+def unembed(params, cfg: ArchConfig, x: torch.Tensor, specs=None) -> torch.Tensor:
+    """Logits (B, S, V); under a mesh splitting the vocab, the ranks' blocks
+    all-gathered."""
+    return logits_of(x, *_head(params, cfg.tie_embeddings, specs), cfg.logits_softcap)
+
+
+def _vocab_parallel_loss(xc, lc, vc, w, lo, cfg):
+    """Summed cross entropy of a chunk against the rank's vocab block: the
+    max all-gathered and reduced exactly, the sum of exponentials and the
+    gold logit summed over ``model`` in rank order."""
+    xc = pshard.copy(xc, "model", torch.float32)
+    logits = (xc @ w).float()
+    if cfg.logits_softcap:
+        logits = torch.tanh(logits / cfg.logits_softcap) * cfg.logits_softcap
+    m = logits.detach().amax(-1, keepdim=True)
+    m = torch.stack(pshard.gather_parts(m, "model", kind="all_gather")).amax(0)
+    lse = m[..., 0] + torch.log(pshard.psum(torch.exp(logits - m).sum(-1), "model"))
+    n = logits.shape[-1]
+    local = lc - lo
+    own = (local >= 0) & (local < n)
+    gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = pshard.psum(torch.where(own, gold, torch.zeros((), device=gold.device)), "model")
+    return ((lse - gold) * vc).sum()
 
 
 def lm_loss(
@@ -375,14 +576,20 @@ def lm_loss(
     x_final: torch.Tensor,  # (B, S, d)
     labels: torch.Tensor,  # (B, S) int; -1 = ignore
     vocab_chunk: int = 0,
+    specs: Optional[Dict] = None,
 ) -> torch.Tensor:
     """Mean causal-LM cross entropy. ``vocab_chunk`` > 0 walks sequence
-    chunks so only (B, chunk, V) logits are ever live."""
-    w = _head(params, cfg)
+    chunks so only (B, chunk, V) logits are ever live. Under a mesh
+    (``specs``) the batch is the rank's rows: the sums and the count are
+    summed over the data axes; a vocab split over ``model`` runs the
+    vocab-parallel cross entropy (gemma's soft cap included)."""
+    w, lo = _head(params, cfg.tie_embeddings, specs)
     valid = (labels >= 0).float()
     safe_labels = torch.clamp(labels, min=0).long()
 
     def chunk_loss(xc, lc, vc):
+        if lo is not None:
+            return _vocab_parallel_loss(xc, lc, vc, w, lo, cfg)
         logits = (xc @ w).float()
         if cfg.logits_softcap:
             logits = torch.tanh(logits / cfg.logits_softcap) * cfg.logits_softcap
@@ -398,7 +605,10 @@ def lm_loss(
             total = total + chunk_loss(x_final[:, sl], safe_labels[:, sl], valid[:, sl])
     else:
         total = chunk_loss(x_final, safe_labels, valid)
-    return total / torch.clamp(valid.sum(), min=1.0)
+    count = valid.sum()
+    if specs is not None:
+        total, count = pshard.psum(total, pshard.dp()), pshard.psum(count, pshard.dp())
+    return total / torch.clamp(count, min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -432,6 +642,8 @@ def decode_step(
     token: torch.Tensor,  # (B, 1) int
     mla_absorb: bool = True,
     moe_group: int = moe_mod.DEFAULT_GROUP,
+    specs: Optional[Dict] = None,
+    cache_layout: Optional[Tuple] = None,
 ) -> Tuple[torch.Tensor, Dict]:
     """One-token decode. Returns (logits (B,1,V), caches).
 
@@ -441,11 +653,22 @@ def decode_step(
     reuse the tree it passed in as the old state. No host sync. MoE layers
     route the B tokens in groups of ``min(moe_group, B)``, as the
     reference's batch-B step; the slot pool passes 1, the reference's
-    vmapped batch-1 tick."""
-    x = _embed_tokens(params, cfg, token)
+    vmapped batch-1 tick. Under a mesh (``specs``) the rank's rows and
+    blocks, and its caches laid out by ``cache_layout`` (the stored specs,
+    the compute specs): each layer's moved to the compute layout at use and
+    written back after it (``sharding.cache_at_use``)."""
+    x = _embed_tokens(params, cfg, token, specs=specs)
     ropes = build_ropes(cfg, x.device)
-    for (p, spec, _), (cache, _, _) in zip(_layers(params, cfg), _layers(caches, cfg)):
-        x, _, _ = apply_layer(p, x, cfg, spec, ropes, None, "decode", cache,
-                              mla_absorb=mla_absorb, moe_group=moe_group)
-    x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
-    return unembed(params, cfg, x), caches
+    store, comp = cache_layout if cache_layout is not None else (None, None)
+    mesh = pshard.current_mesh()
+    for (p, spec, _), (cache, _, _), ps, st, cp in zip(
+            _layers(params, cfg), _layers(caches, cfg), _layer_specs(specs, cfg),
+            _layer_specs(store, cfg), _layer_specs(comp, cfg)):
+        with sharding.cache_at_use(cache, st, cp, mesh) as work:
+            x, _, _ = apply_layer(p, x, cfg, spec, ropes, None, "decode", work,
+                                  mla_absorb=mla_absorb, moe_group=moe_group, pspec=ps)
+    norm = params["final_norm"]
+    if specs is not None:
+        norm = pshard.materialize_tree(norm, specs["final_norm"], mode="replicated")
+    x = apply_norm(norm, x, cfg.norm, cfg.norm_eps)
+    return unembed(params, cfg, x, specs), caches

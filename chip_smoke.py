@@ -363,6 +363,22 @@ prints one JSON line for each:
           world of one on the same weights, within TP_WITNESS times the bf16
           world of one's gap from it; K4 both ways, K5 and K6 at the
           rank-local shapes against their plain versions.
+  dryrun  slice I2's roofline and dry-run (``repro_torch.roofline``,
+          ``launch/dryrun.py``) against the card: (a) ``roofline/hw.py``'s
+          peaks beside the card's name, power limit, SMs and memory, a
+          2 GiB device-to-device copy as a share of ``HBM_BW`` and a bf16
+          8192^3 ``torch.matmul`` as a share of ``PEAK_FLOPS_BF16`` (a
+          share above 1.05 fails: the constant would be wrong); (b)
+          ``lm_train``'s step (tinyllama-1.1b, TRAIN_SHAPE, bf16, remat)
+          under ``op_cost.analyze`` on the card and on the meta device:
+          FLOPs, bytes written and the per-kernel tally equal exactly, the
+          meta tally of K4 (44 forward, 22 backward) equal to the card's
+          launch counts, and the step's measured ms beside the roofline's
+          max(compute, memory); (c) the dry-run's collectives (calls and
+          bytes by kind) of ``tp_main``'s tinyllama phases at model 4 and
+          data 2 x model 2 equal to each live rank's, exactly; (d) the
+          dry-run of tinyllama-1.1b train_4k and mamba2-370m prefill_32k on
+          the 16 x 16 mesh, with their roofline terms.
 
 The main, async_oldest and sync_main phases run before the parity phases,
 which turn TF32 off; the slice C, D, E and F phases run after
@@ -390,12 +406,15 @@ import sys
 import time
 import warnings
 
+_T0 = time.time()
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+sys.path.insert(0, os.path.join(ROOT, "src"))
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): the port's one copy
+from repro_torch.roofline.hw import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.roofline.hw import PEAK_FLOPS_BF16 as BF16_OPS_PER_S  # noqa: E402
+from repro_torch.roofline.hw import PEAK_FLOPS_F32 as FP32_OPS_PER_S  # noqa: E402
+
 SPIN_CYCLES = 4_000_000  # ~2 ms of SM clock: the lead device_ms gives the host
-BF16_OPS_PER_S = 989e12
 MAIN_ARGV = ["--dataset", "mnist", "--data-scale", "5", "--clients", "16384",
              "--k", "256", "--policy", "markov", "--latency-profile", "lognormal",
              "--rounds", "20"]
@@ -435,6 +454,8 @@ SERVE_FLEET_ARGV = ["--device", "cuda"]  # the reference driver's defaults other
 
 
 def emit(obj) -> None:
+    if "phase" in obj:  # where the script's time goes, phase by phase
+        obj = {**obj, "elapsed_s": time.time() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -2706,9 +2727,8 @@ def phase_kernel_k4(torch, k4):
     run = lambda: k4.flash_attention(q, k, v, scale=0.125)  # noqa: E731
     run_contig = lambda: k4.flash_attention(qc, kc, vc, scale=0.125)  # noqa: E731
     sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)  # noqa: E731
-    pairs = S * (S + 1) // 2  # causal (query, key) pairs
-    ops = 4 * B * Hk * G * D * pairs
-    nbytes = (q.numel() * 2 + k.numel() + v.numel()) * 2  # q, k, v in; o out
+    ops, *rw = k4.cost(B, Hk, G, S, D, bf16)  # 4 D a causal pair; q, k, v in; o out
+    nbytes = sum(rw)
     bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
     entry = {
         "name": "flash_attention", "route": "cuda",
@@ -2783,8 +2803,8 @@ def phase_kernel_k5(torch, k5):
     kh, vh = (t.repeat_interleave(G, dim=1) for t in (k, v))
     mask = (torch.arange(L, device="cuda") < vl)[None, None, None].expand(Bm, 1, 1, L)
     lib = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)  # noqa: E731
-    nbytes = (2 * Bm * Hk * L * D + 2 * q.numel()) * 2  # the valid K, V; q in, o out
-    ops = 4 * Bm * Hk * G * L * D
+    ops, *rw = k5.cost(Bm, Hk, G, L, D, bf16)  # the valid K, V; q in, o out
+    nbytes = sum(rw)
     entry = {
         "name": "flash_decode", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_decode.cu",
@@ -2799,8 +2819,8 @@ def phase_kernel_k5(torch, k5):
     }
     qp, kp, vp = _attn_inputs(torch, gen, pool_shape, bf16, decode=True)
     vlp = torch.tensor(pool_vlen, dtype=torch.int32, device="cuda")
-    valid_rows = sum(pool_vlen)  # the K/V rows the ragged call must read
-    pool_bytes = (2 * valid_rows * 4 * 64 + 2 * qp.numel()) * 2
+    # the K/V rows the ragged call must read
+    pool_bytes = sum(k5.cost(*pool_shape, bf16, valid_rows=sum(pool_vlen))[1:])
     per_row = {"shape": list(pool_shape), "valid_len": list(pool_vlen),
                "max_abs_err": errs[f"{pool_shape}_v{pool_vlen}_bfloat16"],
                "ms": cuda_ms(torch, lambda: k5.flash_decode(qp, kp, vp, vlp, scale=0.125)),
@@ -2811,7 +2831,7 @@ def phase_kernel_k5(torch, k5):
                "bound_ms": pool_bytes / HBM_BYTES_PER_S * 1e3}
     qg, kg, vg = _attn_inputs(torch, gen, G3_K5_SHAPE, bf16, decode=True)
     vlg = torch.tensor((1024, 301), dtype=torch.int32, device="cuda")
-    g3_bytes = (2 * sum((1024, 301)) * 16 * 128 + 2 * qg.numel()) * 2
+    g3_bytes = sum(k5.cost(*G3_K5_SHAPE, bf16, valid_rows=sum((1024, 301)))[1:])
     window = {"shape": list(G3_K5_SHAPE), "valid_len": [1024, 301],
               "max_abs_err": errs[f"{G3_K5_SHAPE}_v(1024, 301)_bfloat16"],
               "ms": cuda_ms(torch, lambda: k5.flash_decode(qg, kg, vg, vlg, scale=128**-0.5)),
@@ -3378,16 +3398,14 @@ def phase_kernel_k6(torch, k6):
         plain = lambda: k6.ssd_chunked_plain(x, dt, A, B_, C_, 256)  # noqa: E731
         Bm, Sm, nh, hd, ds = main
         L, nc = 256, Sm // 256
-        pairs = L * (L + 1) // 2  # causal (i, j) pairs of a chunk
         # the FMA schedule (the f32 route's kernel): the scores once per head
-        fma_ops = Bm * nh * nc * (2 * pairs * (ds + hd) + 4 * L * hd * ds)
+        fma_ops = k6.cost(Bm, Sm, nh, hd, ds, L, f32)[0]
         # the tensor-core schedule: CB^T once per (b, chunk), exact in bf16;
         # then per (b, head, chunk) the chunk state, C h_in^T and the causal
-        # scores times x, each once per bf16 term of its f32 operand
-        ops = Bm * nc * 2 * pairs * ds + k6.BF16_TERMS * Bm * nh * nc * (
-            4 * L * hd * ds + 2 * pairs * hd)
-        nbytes = (x.numel() + B_.numel() + C_.numel()) * 2 + (dt.numel() + nh) * 4 \
-            + (x.numel() + Bm * nh * hd * ds) * 4  # y and h_final out in f32
+        # scores times x, each once per bf16 term of its f32 operand; y and
+        # h_final out in f32
+        ops, *rw = k6.cost(Bm, Sm, nh, hd, ds, L, bf16)
+        nbytes = sum(rw)
         # the schedule's workspace, beside the bound: chunk states (f32)
         # written and read, the entering states (bf16 terms) written and
         # read, CB^T written and read
@@ -3995,9 +4013,9 @@ def phase_kernel_k4_bwd(torch, k4):
     do_lib = dout.reshape(B, Hk * G, S, D)
     lib = lambda: torch.autograd.grad(o_lib, (qh, kh, vh), do_lib,  # noqa: E731
                                       retain_graph=True)
-    pairs = S * (S + 1) // 2
-    ops = 10 * B * Hk * G * D * pairs  # S, dP recomputed; dV, dQ, dK: 5 products
-    nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + lse.numel() * 4  # q o do dq; k v dk dv
+    # S, dP recomputed; dV, dQ, dK: 5 products; q o do dq, k v dk dv, lse
+    ops, *rw = k4.cost(B, Hk, G, S, D, bf16, backward=True)
+    nbytes = sum(rw)
     bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
     k4.bwd_launches, timed = 0, cuda_ms(torch, run, calls=10, trials=5)
     entry = {
@@ -4328,17 +4346,6 @@ def _k6_bwd_tol(name, dt) -> float:
     return K6_BWD_TOL[str(dt)[6:]]
 
 
-def _ssd_flops(B, S, nh, hd, ds, L):
-    """(forward, backward) flops the chunked scan needs at this shape: the
-    causal pairs' products (CB once per (batch, chunk), no head axis) and
-    the (L x hd x ds) state products of each (batch, head, chunk)."""
-    nc, pairs = S // L, L * (L + 1) // 2
-    cb = B * nc * pairs * 2 * ds
-    fwd = cb + B * nh * nc * (pairs * 2 * hd + 4 * L * hd * ds)
-    bwd = cb + B * nh * nc * (pairs * 2 * (2 * ds + 2 * hd) + 8 * L * hd * ds)
-    return fwd, bwd
-
-
 def phase_kernel_k6_bwd(torch, k6):
     """K6's backward (``csrc/ssd_scan_bwd.cu``) against
     ``ssd_chunked_bwd_plain`` on the card, TF32 off: mamba2-370m's training
@@ -4418,11 +4425,12 @@ def phase_kernel_k6_bwd(torch, k6):
         plain = lambda: k6.ssd_chunked_bwd_plain(x, dt, A.expand(Bm, nh), B_, C_,  # noqa: E731
                                                  256, h_in, dy)
         L, nc = 256, Sm // 256
-        _, ops = _ssd_flops(Bm, Sm, nh, hd, ds, L)
+        ops, *rw = k6.cost(Bm, Sm, nh, hd, ds, L, bf16, backward=True)
+        nbytes = sum(rw)
         nb = L // 64
         pairs, blk = nb * (nb + 1) // 2, 64 * 64 * 2  # causal block pairs; 2 x 64 x 64
         # the FMA route's schedule: f32 FMA on whole 64 x 64 blocks, CB per head
-        fma_ops = Bm * nh * nc * (8 * L * hd * ds + pairs * blk * (3 * ds + 2 * hd))
+        fma_ops = k6.cost(Bm, Sm, nh, hd, ds, L, f32, backward=True)[0]
         # the tensor-core route's wgmma work: per (b, head, chunk) the pre-pass's
         # state term (2 terms), the j side's leaving-state terms (2 products of
         # 2 terms a block) and its block pairs (dM^T 2, dx 3, dB 2 products),
@@ -4433,8 +4441,6 @@ def phase_kernel_k6_bwd(torch, k6):
                                     + nb * 3 * 2 * 64 * hd * ds + pairs * blk * (2 * hd + 2 * ds)) \
             + Bm * nc * pairs * blk * ds
         n_state = Bm * nh * nc * hd * ds
-        nbytes = (2 * x.numel() + 4 * B_.numel()) * 2 \
-            + (2 * dt.numel() + nh + Bm * nh + x.numel() + n_state + Bm * nh * hd * ds) * 4
         plan = k6.bwd_plan(Bm, Sm, nh, hd, ds, L,
                            sms=torch.cuda.get_device_properties(0).multi_processor_count)
         # the workspace's traffic, each region written once and read once by
@@ -4580,7 +4586,14 @@ def phase_ssm_train(torch, k6):
         kind = next((k for k, keys in kinds.items() if any(n in name for n in keys)), "other")
         by_kind[kind] += v / 2
     s = cfg.pattern[0].ssm
-    scan_fwd, scan_bwd = _ssd_flops(B, S, s.num_heads, s.head_dim, s.d_state, s.chunk)
+    # the flops the chunked scan needs: the causal pairs' products (CB once
+    # per (batch, chunk)) and each (batch, head, chunk)'s state products;
+    # the backward's are K6 bwd's tensor-core count
+    nc, pairs = S // s.chunk, s.chunk * (s.chunk + 1) // 2
+    scan_fwd = B * nc * pairs * 2 * s.d_state + B * s.num_heads * nc * (
+        pairs * 2 * s.head_dim + 4 * s.chunk * s.head_dim * s.d_state)
+    scan_bwd = k6.cost(B, S, s.num_heads, s.head_dim, s.d_state, s.chunk, torch.bfloat16,
+                       backward=True)[0]
     flops = 6 * n_params * tokens + (scan_fwd + scan_bwd) * L
     emit({"phase": "ssm_train", "ok": True, "arch": cfg.name, "layers": L,
           "params": n_params, "batch": B, "seq": S, "steps": SSM_TRAIN_STEPS,
@@ -5476,7 +5489,8 @@ def _tp_kernel_checks(torch, k4, k5, k6, rank_shapes):
 def phase_tp_main(torch, k4, k5, k6):
     """tinyllama-1.1b on two meshes of four ranks of cuda:0 and mamba2-370m on
     model 2 (module docstring). Returns the ranks' (K4 forward, K4 backward,
-    K5, K6) launches summed, with the world of one's."""
+    K5, K6) launches summed, with the world of one's, and each tinyllama
+    rank's collectives by phase ({mesh name: [(coords, counts)]})."""
     import tempfile
 
     from repro_torch.core.distributed import world_of_one
@@ -5523,6 +5537,7 @@ def phase_tp_main(torch, k4, k5, k6):
                "decode": gap(one_lm["decode_logits"], f32_lm["decode_logits"]),
                "ssm_prefill": gap(one_ssm["prefill_logits"], f32_ssm["prefill_logits"])}
     report, bad = {"witness_f32_gaps": witness}, []
+    rank_counts = {}
     B, S = TRAIN_SHAPE
     for mi, mesh in enumerate(TP_MESHES):
         dp, tp = mesh["data"], mesh["model"]
@@ -5533,6 +5548,7 @@ def phase_tp_main(torch, k4, k5, k6):
         for ranks in lm_ranks:
             rep = ranks[mi]
             add(rep)
+            rank_counts.setdefault(name, []).append((rep["coords"], rep["counts"]))
             lau, shp = rep["launches"], rep["shapes_by_phase"]
             row = {"rank": rep["rank"], "coords": rep["coords"], "launches": lau,
                    "k4_shapes": shp["train"].get("k4"), "k5_shapes": shp["decode"].get("k5"),
@@ -5587,7 +5603,151 @@ def phase_tp_main(torch, k4, k5, k6):
                            "ssm_ms": one_ssm["ms"], "ssm_launches": one_ssm["launches"]},
           "meshes": report, "kernel_checks": errs, "seconds": time.time() - t0})
     _free(torch)
-    return totals["k4"], totals["k4_bwd"], totals["k5"], totals["k6"]
+    return totals["k4"], totals["k4_bwd"], totals["k5"], totals["k6"], rank_counts
+
+
+DRYRUN_COPY_BYTES = 2 * 2**30  # (a): the device-to-device copy
+DRYRUN_MM = 8192  # (a): a bf16 (n, n) x (n, n) matmul
+DRYRUN_SHARE_MAX = 1.05  # a measured rate above this share of its peak: a wrong constant
+DRYRUN_PAIRS = (("tinyllama-1.1b", "train_4k"), ("mamba2-370m", "prefill_32k"))  # (d)
+
+
+def _cost_diff(a, b, n=12):
+    """The aten ops and kernels whose counts differ between two
+    ``op_cost.analyze`` results (the first ``n``)."""
+    out = []
+    for key in ("ops", "kernels"):
+        for name in sorted(set(a[key]) | set(b[key])):
+            if a[key].get(name) != b[key].get(name):
+                out.append((name, a[key].get(name), b[key].get(name)))
+    return out[:n]
+
+
+def phase_dryrun(torch, k4, tp_counts):
+    """Slice I2 against the card (module docstring): (a) the constants, (b)
+    meta == card for ``lm_train``'s step, (c) the dry-run's collectives ==
+    ``tp_main``'s ranks', (d) two production pairs on the 16 x 16 mesh."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_dry_mesh
+    from repro_torch.models import factory
+    from repro_torch.roofline import hw, op_cost
+
+    t0 = time.time()
+    _free(torch)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    props = torch.cuda.get_device_properties(0)
+    # (a) the data-sheet peaks against the card's own rates
+    src = torch.empty(DRYRUN_COPY_BYTES, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    copy_ms = cuda_ms(torch, lambda: dst.copy_(src), calls=10, trials=5, warmup=3)
+    del src, dst
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    a, b = (torch.randn((DRYRUN_MM, DRYRUN_MM), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    mm_ms = cuda_ms(torch, lambda: torch.matmul(a, b), calls=10, trials=5, warmup=3)
+    del a, b
+    copy_rate = 2 * DRYRUN_COPY_BYTES / (copy_ms * 1e-3)  # read once, written once
+    mm_rate = 2 * DRYRUN_MM**3 / (mm_ms * 1e-3)
+    shares = {"copy_of_hbm_bw": copy_rate / hw.HBM_BW,
+              "matmul_of_peak_bf16": mm_rate / hw.PEAK_FLOPS_BF16}
+    if not all(v <= DRYRUN_SHARE_MAX for v in shares.values()):
+        raise AssertionError(f"dryrun: a measured rate above its data-sheet peak: {shares}")
+    _free(torch)
+
+    # (b) lm_train's step on the card and on meta: the same counts
+    cfg = get_arch(LM_ARCH)
+    model = factory.build(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    B, S = TRAIN_SHAPE
+    batches = [{k: v.contiguous() for k, v in bt.items()}
+               for bt in _token_batches(torch, cfg.vocab_size, 4, B, S)]
+    lr = torch.full((), LM_TRAIN_LR, device="cuda")
+    per_step = []
+    for bt in batches[:3]:
+        t1 = time.perf_counter()
+        model.sgd_train_step(params, bt, lr)
+        torch.cuda.synchronize()
+        per_step.append((time.perf_counter() - t1) * 1e3)
+    f0, b0 = k4.launches, k4.bwd_launches
+    card = op_cost.analyze(model.sgd_train_step, params, batches[3], lr)
+    torch.cuda.synchronize()
+    card_launches = (k4.launches - f0, k4.bwd_launches - b0)
+    del card["out"], params
+    _free(torch)
+    m0, mb0 = k4.meta_launches, k4.meta_bwd_launches
+    meta_batch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                  for k, v in batches[3].items()}
+    meta = op_cost.analyze(model.sgd_train_step, factory.abstract_params(cfg), meta_batch,
+                           torch.empty((), device="meta"))
+    meta_tally = (k4.meta_launches - m0, k4.meta_bwd_launches - mb0)
+    L = cfg.num_layers
+    same = {"flops": card["flops"] == meta["flops"], "bytes": card["bytes"] == meta["bytes"],
+            "kernels": card["kernels"] == meta["kernels"],
+            "k4_tally": meta_tally == card_launches == (2 * L, L)}
+    if not all(same.values()):
+        raise AssertionError(f"dryrun: meta and the card differ: {same}, K4 card "
+                             f"{card_launches} meta {meta_tally}, flops {card['flops']} "
+                             f"{meta['flops']}, bytes {card['bytes']} {meta['bytes']}, "
+                             f"first differences (op, card, meta): {_cost_diff(card, meta)}")
+    flops = meta["flops"] + sum(k["flops"] for k in meta["kernels"].values())
+    nbytes = meta["bytes"] + sum(k["bytes"] for k in meta["kernels"].values())
+    step_ms = statistics.median(per_step[1:])
+    roof_s = max(flops / hw.PEAK_FLOPS_BF16, nbytes / hw.HBM_BW)
+
+    # (c) the dry-run's collectives against tp_main's ranks, phase by phase
+    build = {"explicit_tp": True, "remat_save_outputs": True}
+    collectives, bad = {}, []
+    for mesh in TP_MESHES:
+        name = f"data{mesh['data']}xmodel{mesh['model']}"
+        dry = dryrun.phase_counts(cfg, make_dry_mesh(mesh, 0), train=TRAIN_SHAPE,
+                                  prefill=PREFILL_SHAPE, decode=TP_DECODE_STEPS, build=build)
+        live = tp_counts[name]
+        for coords, counts in live:
+            if counts != dry:
+                bad.append((name, coords, counts, dry))
+        collectives[name] = {"ranks": len(live), "dry": dry}
+    if bad or len(collectives) != len(TP_MESHES):
+        raise AssertionError(f"dryrun: the dry-run's collectives differ from tp_main's "
+                             f"ranks: {bad[:2]}")
+
+    # (d) two production pairs on the 16 x 16 mesh
+    pairs = {}
+    for arch, shape in DRYRUN_PAIRS:
+        r = dryrun.lower_pair(arch, shape, multi_pod=False)
+        if r["status"] != "ok":
+            raise AssertionError(f"dryrun: {arch} {shape}: {r}")
+        pairs[f"{arch}.{shape}"] = {
+            k: r["roofline"][k] for k in ("compute_s", "memory_s", "collective_s", "dominant")}
+        pairs[f"{arch}.{shape}"].update(
+            flops_per_device=r["flops_per_device"], bytes_per_device=r["bytes_per_device"],
+            collective_bytes_total=r["roofline"]["collective_bytes_total"],
+            peak_gib=r["memory"]["peak_bytes"] / 2**30, trace_s=r["trace_s"],
+            kernels={k: v["launches"] for k, v in r["kernels"]["by_name"].items()})
+    emit({"phase": "dryrun", "ok": True, "card": smi, "sms": props.multi_processor_count,
+          "memory_bytes": props.total_memory,
+          "constants": {"HBM_BW": hw.HBM_BW, "PEAK_FLOPS_BF16": hw.PEAK_FLOPS_BF16,
+                        "PEAK_FLOPS_F32": hw.PEAK_FLOPS_F32, "HBM_BYTES": hw.HBM_BYTES,
+                        "LINK_BW": hw.LINK_BW},
+          "copy": {"bytes": DRYRUN_COPY_BYTES, "ms": copy_ms, "rate": copy_rate},
+          "matmul": {"n": DRYRUN_MM, "ms": mm_ms, "rate": mm_rate}, "shares": shares,
+          "meta_equals_card": {"arch": cfg.name, "shape": list(TRAIN_SHAPE), "remat": True,
+                               "flops": meta["flops"], "bytes": meta["bytes"],
+                               "kernels": meta["kernels"], "k4_card": list(card_launches),
+                               "k4_meta": list(meta_tally),
+                               "card_peak_bytes": card["memory"]["peak_bytes"],
+                               "meta_peak_bytes": meta["memory"]["peak_bytes"]},
+          "card_step": {"ms": step_ms, "ms_all": per_step,
+                        "roofline_ms": roof_s * 1e3,
+                        "compute_ms": flops / hw.PEAK_FLOPS_BF16 * 1e3,
+                        "memory_ms": nbytes / hw.HBM_BW * 1e3,
+                        "ratio_to_roofline": step_ms * 1e-3 / roof_s,
+                        "bytes_convention": dryrun.BYTES_CONVENTION,
+                        "label": "the card's measured step against the data-sheet roofline"},
+          "collectives_equal": collectives, "pairs_16x16": pairs,
+          "seconds": time.time() - t0})
 
 
 def main() -> int:
@@ -5596,7 +5756,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import aoi_topk, build, event_topk, fedavg_reduce
     from repro_torch.kernels import flash_attention, flash_decode, ssd_scan
 
@@ -5681,11 +5840,12 @@ def main() -> int:
     k5_entry["launches"] += phase_g3_pool(torch, flash_decode)
     _free(torch)
     phase_tp_contracts(torch)
-    fwd, bwd, k5, k6 = phase_tp_main(torch, flash_attention, flash_decode, ssd_scan)
+    fwd, bwd, k5, k6, tp_counts = phase_tp_main(torch, flash_attention, flash_decode, ssd_scan)
     k4_entry["launches"] += fwd
     bwd_entry["launches"] += bwd
     k5_entry["launches"] += k5
     k6_entry["launches"] += k6
+    phase_dryrun(torch, flash_attention, tp_counts)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{key: e[key] for key in keys}

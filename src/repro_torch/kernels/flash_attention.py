@@ -56,6 +56,14 @@ reaches only the kernels, or raises on shapes they do not take.
 ``block_q``/``block_k`` are checked as the reference checks them (S must
 divide into both); the kernels tile by their own sizes. ``launches`` counts
 the forward kernel's calls, ``bwd_launches`` the backward's.
+
+A meta tensor (the dry-run, ``launch.dryrun``) takes a third route: the
+kernel route's checks (all but the pointers' alignment), so a shape the
+card refuses raises the same message, and outputs of the kernel's shapes,
+layouts and dtypes with nothing computed. It never reaches the plain
+version, and it counts ``meta_launches``/``meta_bwd_launches``, never
+``launches``/``bwd_launches``. On the card and on meta alike each call
+reports ``cost`` through ``kernels._report``.
 """
 from __future__ import annotations
 
@@ -66,8 +74,12 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import _report
+
 launches = 0  # forward kernel calls
 bwd_launches = 0  # backward kernel calls
+meta_launches = 0  # forward calls on the meta device (nothing launched)
+meta_bwd_launches = 0  # backward calls on the meta device
 NEG_INF = -1e30
 DEFAULT_BLOCK_Q = 256
 DEFAULT_BLOCK_K = 512
@@ -100,6 +112,37 @@ def _mask(S, kind, window, device):
     elif kind == "chunked" and window > 0:
         mask &= (kp // window) == (qp // window)
     return mask
+
+
+def allowed_pairs(S: int, kind: str = "full", window: int = 0) -> int:
+    """The causal (query, key) pairs the mask allows at S positions."""
+    if kind == "sliding" and window > 0:
+        w = min(window, S)
+        return w * (w + 1) // 2 + (S - w) * w
+    if kind == "chunked" and window > 0:
+        n, r = divmod(S, window)
+        return n * window * (window + 1) // 2 + r * (r + 1) // 2
+    return S * (S + 1) // 2
+
+
+def cost(B: int, Hk: int, G: int, S: int, D: int, dtype, kind: str = "full",
+         window: int = 0, backward: bool = False, with_lse: bool = False) -> tuple:
+    """(FLOPs, bytes read, bytes written) of one call at (B, Hk, G, S, D):
+    the work the function needs, whatever computes it. Forward: ``4 D``
+    flops per head per allowed pair (S = Q K^T and P V), q, k and v read and
+    the output written once (and the f32 lse written, ``with_lse``).
+    Backward: ``10 D`` (S and dP recomputed, dV, dQ and dK), q, k, v, the
+    output, its gradient and the lse read, dq, dk, dv written once. The
+    kernel's bound divides the FLOPs by the bf16 peak (f32: the FMA peak)
+    and the bytes, read and written, by HBM's rate."""
+    es = dtype.itemsize
+    pairs = allowed_pairs(S, kind, window)
+    q_n, kv_n, lse_n = B * Hk * G * S * D, B * Hk * S * D, B * Hk * G * S
+    if backward:
+        return (10 * B * Hk * G * D * pairs, (3 * q_n + 2 * kv_n) * es + lse_n * 4,
+                (q_n + 2 * kv_n) * es)
+    return (4 * B * Hk * G * D * pairs, (q_n + 2 * kv_n) * es,
+            q_n * es + (lse_n * 4 if with_lse else 0))
 
 
 def flash_attention_plain(q, k, v, *, scale, kind="full", window=0, return_lse=False):
@@ -313,8 +356,8 @@ def _check(q, k, v, kind, block_q, block_k):
         raise ValueError(f"mixed dtypes {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"flash_attention runs on cpu or cuda, got {q.device}")
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cpu, cuda or meta, got {q.device}")
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {sorted(KINDS)}, got {kind!r}")
     bq, bk = min(block_q, S), min(block_k, S)
@@ -324,12 +367,14 @@ def _check(q, k, v, kind, block_q, block_k):
 
 def _aligned(t) -> bool:
     """Rows a 16-byte load (TMA, ldmatrix staging) can take: a 16-byte
-    aligned base and every stride but the last a multiple of 8 elements."""
-    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:-1])
+    aligned base and every stride but the last a multiple of 8 elements (a
+    meta tensor has no base: its strides alone)."""
+    return (t.is_meta or t.data_ptr() % 16 == 0) and all(s % 8 == 0 for s in t.stride()[:-1])
 
 
 def _check_kernel(q, k, v, scale):
-    """What the CUDA kernels take beyond the reference's conditions."""
+    """What the CUDA kernels take beyond the reference's conditions (on a
+    meta tensor, all but the pointers' alignment)."""
     D = q.shape[-1]
     if q.dtype not in DTYPES:
         raise ValueError(f"the K4 kernel takes float32 or bfloat16, got {q.dtype}")
@@ -354,8 +399,8 @@ def _err(name, err):
 
 
 def _forward(q, k, v, scale, kind, window, with_lse):
-    """(out, lse or None): the plain version on the CPU, else the kernel."""
-    global launches
+    """(out, lse or None): the plain version on the CPU, else the kernel (on
+    meta, its outputs' shapes)."""
     if q.device.type == "cpu":
         if with_lse:
             return flash_attention_plain(q, k, v, scale=scale, kind=kind, window=window,
@@ -363,12 +408,23 @@ def _forward(q, k, v, scale, kind, window, with_lse):
         return flash_attention_plain(q, k, v, scale=scale, kind=kind, window=window), None
     _check_kernel(q, k, v, scale)
     B, Hk, G, S, D = q.shape
+    with _report.call("flash_attention", lambda: cost(
+            B, Hk, G, S, D, q.dtype, kind, window, with_lse=with_lse)):
+        return _forward_route(q, k, v, scale, kind, window, with_lse)
+
+
+def _forward_route(q, k, v, scale, kind, window, with_lse):
+    global launches, meta_launches
+    B, Hk, G, S, D = q.shape
     # written in (B, S, Hk, G, D) order, so the model's move back to
     # (B, S, H, D) is a free view
     out = torch.empty((B, S, Hk, G, D), dtype=q.dtype,
                       device=q.device).permute(0, 2, 3, 1, 4)
     lse = (torch.empty((B, Hk, G, S), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    if q.is_meta:
+        meta_launches += 1
+        return out, lse
     strides = (ctypes.c_longlong * 14)(
         *q.stride()[:4], *k.stride()[:3], *v.stride()[:3], *out.stride()[:4])
     fn = _launcher()
@@ -384,24 +440,35 @@ def _forward(q, k, v, scale, kind, window, with_lse):
 
 
 def _backward(q, k, v, out, lse, dout, scale, kind, window):
-    """(dq, dk, dv): the plain version on the CPU, else the backward kernel."""
-    global bwd_launches
+    """(dq, dk, dv): the plain version on the CPU, else the backward kernel
+    (on meta, its outputs' shapes)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, scale, kind, window)
     _check_kernel(q, k, v, scale)
     if dout.dtype != q.dtype or out.dtype != q.dtype:
         raise ValueError(f"out and dout must be {q.dtype}, got {out.dtype}, {dout.dtype}")
-    # out and dout are read by 16-byte loads and dout by TMA (their layouts
-    # are whatever autograd hands back; the model's are aligned)
-    out, dout = (t if t.stride(-1) == 1 and _aligned(t) and min(t.stride()) > 0
-                 else t.contiguous() for t in (out, dout))
-    lse = lse.contiguous()
+    B, Hk, G, S, D = q.shape
+    with _report.call("flash_attention_bwd", lambda: cost(
+            B, Hk, G, S, D, q.dtype, kind, window, backward=True)):
+        return _backward_route(q, k, v, out, lse, dout, scale, kind, window)
+
+
+def _backward_route(q, k, v, out, lse, dout, scale, kind, window):
+    global bwd_launches, meta_bwd_launches
     B, Hk, G, S, D = q.shape
     # in the model's layouts: dq as q's (B, S, H, D), dk/dv as (B, S, Hk, D)
     dq = torch.empty((B, S, Hk, G, D), dtype=q.dtype,
                      device=q.device).permute(0, 2, 3, 1, 4)
     dk, dv = (torch.empty((B, S, Hk, D), dtype=t.dtype, device=q.device).permute(0, 2, 1, 3)
               for t in (k, v))
+    if q.is_meta:
+        meta_bwd_launches += 1
+        return dq, dk, dv
+    # out and dout are read by 16-byte loads and dout by TMA (their layouts
+    # are whatever autograd hands back; the model's are aligned)
+    out, dout = (t if t.stride(-1) == 1 and _aligned(t) and min(t.stride()) > 0
+                 else t.contiguous() for t in (out, dout))
+    lse = lse.contiguous()
     if q.dtype == torch.bfloat16:
         plan = bwd_plan(B, Hk, G, S, D, kind, int(window),
                         sms=torch.cuda.get_device_properties(q.device).multi_processor_count)

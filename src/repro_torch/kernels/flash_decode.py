@@ -26,6 +26,14 @@ the reference's signature: a CPU tensor goes to the plain version
 ``flash_decode_plain``, a CUDA tensor to the kernel, or the wrapper raises.
 ``block_l`` is checked but does not change the result (the reference pads
 to it). ``launches`` counts the kernel calls.
+
+A meta tensor (the dry-run) takes a third route: the kernel route's checks
+(all but the pointers' alignment) and an output of the kernel's shape, with
+nothing computed; it never reaches the plain version and counts
+``meta_launches``, never ``launches``. On the card and on meta alike each
+call reports ``cost`` through ``kernels._report``, at the whole cache:
+``valid_len`` lives on the device, and reading it would cost a decode step
+a host sync.
 """
 from __future__ import annotations
 
@@ -36,7 +44,10 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import _report
+
 launches = 0  # kernel calls
+meta_launches = 0  # calls on the meta device (nothing launched)
 NEG_INF = -1e30
 DEFAULT_BLOCK_L = 1024
 HEAD_DIMS = (32, 64, 128)  # head dims the kernel is built for
@@ -58,6 +69,18 @@ def plan_splits(L: int) -> Tuple[int, int]:
         raise ValueError(f"the cache needs a slot, got L={L}")
     split = max(MIN_SPLIT, -(-L // MAX_SPLITS))
     return -(-L // split), split
+
+
+def cost(B: int, Hk: int, G: int, L: int, D: int, dtype, valid_rows=None) -> tuple:
+    """(FLOPs, bytes read, bytes written) of one call: ``4 D`` flops per
+    query head per valid slot (q.K and the weighted V), the valid K and V
+    rows and q read once, the output written once. ``valid_rows``: the
+    valid slots summed over the batch (default every slot of every row,
+    ``B * L``). The kernel's bound divides the bytes by HBM's rate (the
+    FLOPs by the bf16 peak)."""
+    rows = B * L if valid_rows is None else int(valid_rows)
+    q_n = B * Hk * G * D
+    return 4 * rows * Hk * G * D, (2 * rows * Hk * D + q_n) * dtype.itemsize, q_n * dtype.itemsize
 
 
 def _valid_len(valid_len, B, device) -> torch.Tensor:
@@ -113,7 +136,8 @@ def _check(q, k, v, block_l):
 
 
 def _check_kernel(q, k, v):
-    """What the CUDA kernel takes: 16-byte loads of each row."""
+    """What the CUDA kernel takes: 16-byte loads of each row (on a meta
+    tensor, the strides alone)."""
     if q.dtype not in DTYPES:
         raise ValueError(f"the K5 kernel takes float32 or bfloat16, got {q.dtype}")
     if q.shape[3] not in HEAD_DIMS:
@@ -122,25 +146,36 @@ def _check_kernel(q, k, v):
     vec = 16 // q.element_size()
     for t in (q, k, v):
         st = t.stride()
-        if st[3] != 1 or t.data_ptr() % 16 or st[0] % vec or st[1] % vec or st[2] % vec:
+        if (st[3] != 1 or (not t.is_meta and t.data_ptr() % 16) or st[0] % vec
+                or st[1] % vec or st[2] % vec):
             raise ValueError("q, k and v need 16-byte aligned rows, contiguous "
                              "in the head dim")
 
 
 def flash_decode(q, k, v, valid_len, *, scale, block_l=DEFAULT_BLOCK_L):
     """(B, Hk, G, D) attention of one token's queries over the cache."""
-    global launches
     _check(q, k, v, block_l or DEFAULT_BLOCK_L)
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, valid_len, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_decode runs on cpu or cuda, got {q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_decode runs on cpu, cuda or meta, got {q.device}")
     _check_kernel(q, k, v)
+    B, Hk, G, D = q.shape
+    L = k.shape[2]
+    with _report.call("flash_decode", lambda: cost(B, Hk, G, L, D, q.dtype)):
+        return _route(q, k, v, valid_len, scale)
+
+
+def _route(q, k, v, valid_len, scale):
+    global launches, meta_launches
     B, Hk, G, D = q.shape
     L = k.shape[2]
     vl = _valid_len(valid_len, B, q.device)
     nsplit, split = plan_splits(L)
     out = torch.empty((B, Hk, G, D), dtype=q.dtype, device=q.device)
+    if q.is_meta:
+        meta_launches += 1
+        return out
     params = _PARAMS.pack(B, Hk, G, L, D, nsplit, split, 1 if vl.dim() == 1 else 0,
                           DTYPES[q.dtype], *q.stride()[:3], *k.stride()[:3],
                           *v.stride()[:3])

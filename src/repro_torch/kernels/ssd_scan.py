@@ -63,6 +63,14 @@ versions; a CUDA tensor reaches only the kernels, or raises on shapes they
 do not take. ``launches`` counts the forward kernel's calls (one a call,
 whatever the number of phases), ``bwd_launches`` the backward's (one a
 call, whatever the number of kernels).
+
+A meta tensor (the dry-run) takes a third route: the kernel route's checks
+and outputs of the kernel's shapes and dtypes (y and the state in f32,
+``h_in`` where the forward writes it; no workspace), with nothing
+computed; it never reaches the plain version and counts
+``meta_launches``/``meta_bwd_launches``, never ``launches``/
+``bwd_launches``. On the card and on meta alike each call reports ``cost``
+through ``kernels._report``.
 """
 from __future__ import annotations
 
@@ -73,9 +81,12 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels.flash_attention import _fold, _order_on, _tracked, _unfold
+from repro_torch.kernels import _report
 
 launches = 0  # forward kernel calls
 bwd_launches = 0  # backward kernel calls
+meta_launches = 0  # forward calls on the meta device (nothing launched)
+meta_bwd_launches = 0  # backward calls on the meta device
 # (head_dim, d_state) pairs the kernel is built for
 SHAPES = ((32, 16), (32, 64), (32, 128), (64, 16), (64, 64), (64, 128))
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -270,6 +281,50 @@ def tc_route(dtype, ds: int, L: int) -> bool:
     return dtype == torch.bfloat16 and ds >= 64 and L <= TC_MAX_CHUNK
 
 
+def cost(B: int, S: int, nh: int, hd: int, ds: int, L: int, dtype, backward: bool = False,
+         a_rows: bool = False, h0: bool = False, h_in: bool = False,
+         dh_final: bool = False) -> tuple:
+    """(FLOPs, bytes read, bytes written) of one call at x (B, S, nh, hd),
+    B_/C_ (B, S, ds), chunks of L, with the route's FLOPs: the tensor-core
+    route's against the bf16 peak, the FMA route's against the f32 peak.
+
+    Forward, bf16 with L <= 256: CB^T once per (batch, chunk), exact in
+    bf16, then per (batch, head, chunk) the chunk state, C h_in^T and the
+    causal scores times x, each once per bf16 term (``BF16_TERMS``) of its
+    f32 operand; f32 (the FMA kernel): the scores once per head. Bytes: x,
+    B_, C_, dt and A read, y and h_final written in f32 (h0 read and the
+    entering states ``h_in`` written where given).
+
+    Backward, bf16 on ``tc_route``: the flops the scan's gradient needs
+    (CB once per (batch, chunk), and per (batch, head, chunk) the causal
+    pairs' products and eight state products); the FMA route: f32 FMA on
+    whole 64 x 64 block pairs, CB per head. Bytes: x, B_, C_, dt, A, h_in
+    and dy (f32) read, dx, dB, dC, ddt, dA (a row per batch row) and dh0
+    written (dh_final read where given)."""
+    es, f4 = dtype.itemsize, 4
+    nc, pairs = S // L, L * (L + 1) // 2
+    x_n, bc_n, dt_n = B * S * nh * hd, B * S * ds, B * S * nh
+    state, states = B * nh * hd * ds, B * nh * nc * hd * ds
+    a_n = B * nh if a_rows else nh
+    if not backward:
+        if dtype == torch.bfloat16 and L <= TC_MAX_CHUNK:
+            flops = B * nc * 2 * pairs * ds + BF16_TERMS * B * nh * nc * (
+                4 * L * hd * ds + 2 * pairs * hd)
+        else:
+            flops = B * nh * nc * (2 * pairs * (ds + hd) + 4 * L * hd * ds)
+        return (flops, (x_n + 2 * bc_n) * es + (dt_n + a_n + (state if h0 else 0)) * f4,
+                (x_n + state + (states if h_in else 0)) * f4)
+    if tc_route(dtype, ds, L):
+        flops = B * nc * pairs * 2 * ds + B * nh * nc * (
+            pairs * 2 * (2 * ds + 2 * hd) + 8 * L * hd * ds)
+    else:
+        nb = -(-L // BWD_BLOCK)
+        flops = B * nh * nc * (8 * L * hd * ds + nb * (nb + 1) // 2 * BWD_BLOCK * BWD_BLOCK
+                               * 2 * (3 * ds + 2 * hd))
+    read = (x_n + 2 * bc_n) * es + (dt_n + a_n + states + x_n + (state if dh_final else 0)) * f4
+    return flops, read, (x_n + 2 * bc_n) * es + (dt_n + B * nh + state) * f4
+
+
 def _round1024(n: int) -> int:
     return -(-n // 1024) * 1024
 
@@ -436,25 +491,37 @@ def _vec(x, B_, C_) -> int:
 
 def _forward(x, dt, A, B_, C_, chunk, h0, with_h_in):
     """(y, h_final, h_in or None): the plain version on the CPU, else the
-    kernel; ``h_in`` the (B, nh, nc, hd, ds) f32 state entering each chunk."""
-    global launches
+    kernel (on meta, its outputs' shapes); ``h_in`` the (B, nh, nc, hd, ds)
+    f32 state entering each chunk."""
     if x.device.type == "cpu":
         if with_h_in:
             return ssd_chunked_plain(x, dt, A, B_, C_, chunk, h0, return_h_in=True)
         return (*ssd_chunked_plain(x, dt, A, B_, C_, chunk, h0), None)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan runs on cpu or cuda, got {x.device}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"ssd_scan runs on cpu, cuda or meta, got {x.device}")
     Bb, S, nh, hd = x.shape
-    ds = B_.shape[-1]
     L = min(chunk, S)  # a chunk too long for shared memory fails the launch
     _check_kernel(x, dt, A, B_, C_)
-    A = A.contiguous()
-    if h0 is not None:
-        h0 = _f32_aligned(h0)
+    with _report.call("ssd_scan", lambda: cost(
+            Bb, S, nh, hd, B_.shape[-1], L, x.dtype, a_rows=A.dim() == 2,
+            h0=h0 is not None, h_in=with_h_in)):
+        return _forward_route(x, dt, A, B_, C_, L, h0, with_h_in)
+
+
+def _forward_route(x, dt, A, B_, C_, L, h0, with_h_in):
+    global launches, meta_launches
+    Bb, S, nh, hd = x.shape
+    ds = B_.shape[-1]
     y = torch.empty((Bb, S, nh, hd), dtype=torch.float32, device=x.device)
     h_final = torch.empty((Bb, nh, hd, ds), dtype=torch.float32, device=x.device)
     h_in = (torch.empty((Bb, nh, S // L, hd, ds), dtype=torch.float32, device=x.device)
             if with_h_in else None)
+    if x.is_meta:
+        meta_launches += 1
+        return y, h_final, h_in
+    A = A.contiguous()
+    if h0 is not None:
+        h0 = _f32_aligned(h0)
     fn, workspace = _launcher()
     n_ws = workspace(Bb, S, nh, hd, ds, L, DTYPES[x.dtype])
     ws = torch.empty((n_ws,), dtype=torch.float32, device=x.device) if n_ws else None
@@ -476,27 +543,38 @@ def _backward(x, dt, A, B_, C_, chunk, h_in, dy, dh_final):
     """(dx, ddt, dA, dB, dC, dh0) with dA one (B, nh) row per batch row:
     the plain version on the CPU, else the backward kernel; dx, dB and dC
     in x's dtype."""
-    global bwd_launches
     Bb, S, nh, hd = x.shape
     if x.device.type == "cpu":
         dx, ddt, dA, dB, dC, dh0 = ssd_chunked_bwd_plain(
             x, dt, _rows(A, Bb), B_, C_, chunk, h_in, dy, dh_final)
         return dx.to(x.dtype), ddt, dA, dB.to(B_.dtype), dC.to(C_.dtype), dh0
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan runs on cpu or cuda, got {x.device}")
-    ds = B_.shape[-1]
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"ssd_scan runs on cpu, cuda or meta, got {x.device}")
     L = min(chunk, S)
     _check_kernel(x, dt, A, B_, C_)
-    A = A.contiguous()
-    h_in, dy = _f32_aligned(h_in), _f32_aligned(dy)
-    if dh_final is not None:
-        dh_final = _f32_aligned(dh_final)
+    with _report.call("ssd_scan_bwd", lambda: cost(
+            Bb, S, nh, hd, B_.shape[-1], L, x.dtype, backward=True, a_rows=A.dim() == 2,
+            dh_final=dh_final is not None)):
+        return _backward_route(x, dt, A, B_, C_, L, h_in, dy, dh_final)
+
+
+def _backward_route(x, dt, A, B_, C_, L, h_in, dy, dh_final):
+    global bwd_launches, meta_bwd_launches
+    Bb, S, nh, hd = x.shape
+    ds = B_.shape[-1]
     dev = x.device
     dx = torch.empty((Bb, S, nh, hd), dtype=x.dtype, device=dev)
     ddt = torch.empty((Bb, S, nh), dtype=torch.float32, device=dev)
     dA = torch.empty((Bb, nh), dtype=torch.float32, device=dev)
     dB, dC = (torch.empty((Bb, S, ds), dtype=x.dtype, device=dev) for _ in range(2))
     dh0 = torch.empty((Bb, nh, hd, ds), dtype=torch.float32, device=dev)
+    if x.is_meta:
+        meta_bwd_launches += 1
+        return dx, ddt, dA, dB, dC, dh0
+    A = A.contiguous()
+    h_in, dy = _f32_aligned(h_in), _f32_aligned(dy)
+    if dh_final is not None:
+        dh_final = _f32_aligned(dh_final)
     fn, workspace = _bwd_launcher()
     order, j_grid, i_grid, group = None, 0, 0, 1
     if tc_route(x.dtype, ds, L):

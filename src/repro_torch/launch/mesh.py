@@ -11,7 +11,14 @@ rank ``r`` sits at ``data = r // model``, ``model = r % model``.
 one is started when there is none, as ``core.distributed.fleet_mesh``
 does). ``make_production_mesh`` is abstract: the reference's 16 x 16 and
 2 x 16 x 16 logical shapes with no ranks and no groups; the sharding rules
-read its ``shape`` alone.
+read its ``shape`` alone. Given a ``rank`` it is dry instead (as is any
+``make_dry_mesh``): one rank's view of the mesh, its coordinates and no
+process groups, for the dry-run (``launch.dryrun``). Under a dry mesh the
+model runs the rank's part on meta tensors and every collective
+(``models.pshard``) returns meta tensors of the live shapes and counts
+what the live one would; a tuple of axes (the multi-pod mesh's
+``("pod", "data")``) spans their product. A dry mesh is never taken for a
+mesh without groups: it is marked ``dry``, and ``group`` raises on it.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ class Mesh:
     shape: Dict[str, int]
     coords: Optional[Dict[str, int]] = None  # None: an abstract mesh
     groups: Optional[Dict[str, object]] = None  # axis -> process group (None: size 1)
+    dry: bool = False  # one rank's view with no process groups (the dry-run)
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
@@ -68,6 +76,8 @@ class Mesh:
         mesh has no ``pod`` axis)."""
         if self.abstract:
             raise ValueError("an abstract mesh has no process groups")
+        if self.dry:
+            raise ValueError("a dry mesh has no process groups")
         names = [n for n in self._names(axis) if self.shape[n] > 1]
         if not names:
             return None
@@ -76,13 +86,29 @@ class Mesh:
         return self.groups[names[0]]
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The reference's logical production shapes, abstract (no ranks, no
-    devices): (data 16, model 16), or (pod 2, data 16, model 16) with
-    ``multi_pod``. The sharding rules and the dry-run read its ``shape``."""
-    if multi_pod:
-        return Mesh({"pod": 2, "data": 16, "model": 16})
-    return Mesh({"data": 16, "model": 16})
+def make_production_mesh(*, multi_pod: bool = False, rank: Optional[int] = None) -> Mesh:
+    """The reference's logical production shapes: (data 16, model 16), or
+    (pod 2, data 16, model 16) with ``multi_pod``. Abstract (no ranks, no
+    devices; the sharding rules read its ``shape``), or, given ``rank``,
+    that rank's dry mesh (``make_dry_mesh``)."""
+    shape = {"pod": 2, "data": 16, "model": 16} if multi_pod else {"data": 16, "model": 16}
+    return Mesh(shape) if rank is None else make_dry_mesh(shape, rank)
+
+
+def make_dry_mesh(shape: Dict[str, int], rank: int = 0) -> Mesh:
+    """Rank ``rank``'s dry view of a mesh of ``shape`` (ranks row-major over
+    the axes, the last fastest, as ``make_host_mesh`` lays them): its
+    coordinates, no process groups."""
+    size = 1
+    for n in shape.values():
+        size *= n
+    if not 0 <= rank < size:
+        raise ValueError(f"rank {rank} is not on a mesh of {size}")
+    coords, r = {}, rank
+    for name in reversed(list(shape)):
+        coords[name] = r % shape[name]
+        r //= shape[name]
+    return Mesh(dict(shape), {n: coords[n] for n in shape}, dry=True)
 
 
 def make_host_mesh(model_axis: int = 1, device=None) -> Mesh:

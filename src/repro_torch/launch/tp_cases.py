@@ -19,8 +19,10 @@ its ``global_batch``.)
 of the params (``sharding.shard_tree``) and its rows of the batch, every
 result gathered whole (``sharding.unshard_tree``); else on one device with
 no mesh (``whole_decode``: the sharded decode steps run on weights
-gathered whole over the data axes, ``pshard.whole_over``). Results are
-host tensors: ``loss``, ``moe_aux``, ``grads``,
+gathered whole over the data axes, ``pshard.whole_over``). Given a dry
+``mesh`` (``launch.mesh.make_dry_mesh``) it runs the same calls on the meta
+device as that rank, for the collectives' counts (the dry-run). Results
+are host tensors (meta ones on a dry mesh): ``loss``, ``moe_aux``, ``grads``,
 ``new_params`` (after one ``sgd_train_step``), ``prefill_logits``,
 ``caches`` (every leaf), ``decode_logits`` and ``counts`` (the
 collectives, by kind). ``run_cases`` is the rank entry point of
@@ -45,7 +47,12 @@ def _to(tree, device):
 def _host(tree):
     from repro_torch.core.tree import tree_map
 
-    return tree_map(lambda t: t.detach().cpu().clone() if isinstance(t, torch.Tensor) else t, tree)
+    def host(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        return t.detach() if t.is_meta else t.detach().cpu().clone()
+
+    return tree_map(host, tree)
 
 
 def _rows(tree, mesh):
@@ -86,33 +93,35 @@ def _grads(model, params, batch):
     return tree_map(lambda _: next(it), params), total, metrics
 
 
-def run_case(case: Dict, sharded: bool) -> Dict:
-    """The case on the world's mesh (``sharded``) or on one device; with
-    ``case["deterministic"]``, under deterministic algorithms (the card's
-    embedding backward otherwise adds a repeated token's rows with
-    atomics)."""
+def run_case(case: Dict, sharded: bool, mesh=None) -> Dict:
+    """The case on the world's mesh (``sharded``), on the dry ``mesh`` given
+    (on meta), or on one device; with ``case["deterministic"]``, under
+    deterministic algorithms (the card's embedding backward otherwise adds a
+    repeated token's rows with atomics)."""
     saved = torch.are_deterministic_algorithms_enabled()
     if case.get("deterministic"):
         torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        return _run_case(case, sharded)
+        return _run_case(case, sharded or mesh is not None, mesh)
     finally:
         torch.use_deterministic_algorithms(saved)
 
 
-def _run_case(case: Dict, sharded: bool) -> Dict:
+def _run_case(case: Dict, sharded: bool, dry=None) -> Dict:
     from repro_torch import sharding
     from repro_torch.core.tree import tree_paths
     from repro_torch.models import factory, pshard
 
-    dev = case.get("device", "cpu")
+    dev = "meta" if dry is not None else case.get("device", "cpu")
     cfg = case["cfg"]
     model = factory.build(cfg, **case.get("build", {}))
     params = _to(case["params"], dev)
     batch = _to(case["batch"], dev)
     out: Dict = {}
-    mesh = _host_mesh(case["mesh"]["model"], dev) if sharded else None
-    if sharded and mesh.shape["data"] != case["mesh"]["data"]:
+    mesh = dry if dry is not None else (_host_mesh(case["mesh"]["model"], dev) if sharded
+                                        else None)
+    if sharded and dict(mesh.shape) != {"data": case["mesh"]["data"],
+                                        "model": case["mesh"]["model"]}:
         raise ValueError(f"{case['name']}: the world is not the case's mesh")
     pspecs = None
     with pshard.mesh_context(mesh):
@@ -163,7 +172,7 @@ def _run_case(case: Dict, sharded: bool) -> Dict:
                 out["decode_caches"] = _host(whole(caches, caches.layout[0] if sharded
                                                    else None))
         out["counts"] = pshard.counts()
-        if sharded:  # the blocks of every rank gathered give the tree back
+        if sharded and dry is None:  # the blocks of every rank gathered give the tree back
             full = _to(case["params"], dev)
             back = sharding.unshard_tree(sharding.shard_tree(full, pspecs, mesh), pspecs, mesh)
             out["roundtrip"] = all(torch.equal(a, b) for (_, a), (_, b)
@@ -308,8 +317,9 @@ def main_path(case: Dict) -> Dict:
                     with torch.no_grad():
                         (logits, caches), ms = _timed(
                             lambda: model.prefill(params, {"tokens": local}))
-                        out["prefill_logits"] = sharding.unshard_tree(
-                            logits, sharding.P(bspec[0], None, None), mesh).float().cpu()
+                        with pshard.uncounted():  # the report's gather, not the step's
+                            out["prefill_logits"] = sharding.unshard_tree(
+                                logits, sharding.P(bspec[0], None, None), mesh).float().cpu()
                 else:  # from the prefill's caches
                     steps = case["decode"]
                     toks = torch.randint(0, cfg.vocab_size, (steps, B, 1), generator=gen,
@@ -327,8 +337,9 @@ def main_path(case: Dict) -> Dict:
                             for t in range(steps):
                                 local, bspec = rows(toks[t])
                                 lg, caches = model.decode_step(whole, caches, local)
-                                got.append(sharding.unshard_tree(
-                                    lg, sharding.P(bspec[0], None, None), mesh))
+                                with pshard.uncounted():
+                                    got.append(sharding.unshard_tree(
+                                        lg, sharding.P(bspec[0], None, None), mesh))
                         _, ms = _timed(run)
                     del whole
                     out["decode_logits"] = torch.stack(got).float().cpu()

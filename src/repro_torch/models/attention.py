@@ -48,7 +48,10 @@ they divide it (K4 at (B/dp, Hk/tp, G, S, D), K5 on the rank's kv heads);
 else, where the query heads divide, kv repeated to MHA and the rank's heads
 kept (K4 with G = 1); else context-parallel queries: the rank's S/tp query
 rows against all S keys, the module's ``Sq != Sk`` route with the rows'
-absolute positions (K4 takes equal lengths only). MLA shards its heads over
+absolute positions (K4 takes equal lengths only); where S does not divide
+the axis the rows are padded to a multiple of it, as GSPMD pads an uneven
+split, and the padding is cut after the gather (whisper's 1500 frames at
+model 16). MLA shards its heads over
 ``w_uq``, ``w_uk``, ``w_uv``. ``w_o`` is row-parallel, its partial sums
 crossing in f32 (the reference's GSPMD widening) and summed over ``model``.
 Decode under the context route runs replicated on every model rank.
@@ -261,6 +264,37 @@ def _rank_heads(t, spec: AttentionSpec, dim: int):
     return t.repeat_interleave(G, dim=dim).narrow(dim, pshard.index("model") * n, n)
 
 
+def _context_rows(q, positions=None):
+    """The rank's block of query rows (dim 1) on the context route, and of
+    their ``positions``: the rows padded (zeros; positions past the last,
+    which every causal mask lets see all keys) to a multiple of the model
+    axis where they do not divide it. ``_gathered_rows`` cuts the padding
+    after the gather."""
+    tp = pshard.axis_size("model")
+    S = q.shape[1]
+    pad = -S % tp
+    if pad:
+        if pshard.seq_shard():
+            raise NotImplementedError(
+                f"context-parallel attention: {S} positions do not split over {tp} "
+                "with the sequence sharded")
+        q = torch.cat([q, q.new_zeros((q.shape[0], pad) + tuple(q.shape[2:]))], dim=1)
+        if positions is not None:
+            positions = torch.cat([positions, positions[-1] + 1 + torch.arange(
+                pad, dtype=positions.dtype, device=positions.device)])
+    n = (S + pad) // tp
+    start = pshard.index("model") * n
+    q = q.narrow(1, start, n)
+    return q, (None if positions is None else positions.narrow(0, start, n))
+
+
+def _gathered_rows(y, S: int):
+    """The context route's output rows gathered over ``model`` (the padding
+    of ``_context_rows`` cut)."""
+    y = pshard.leave_rows(y)
+    return y if pshard.seq_shard() or y.shape[1] == S else y[:, :S]
+
+
 def _row_parallel_out(out, w_o, dtype):
     """The rank's heads through its rows of ``w_o``: partial sums in f32,
     summed over ``model``, cast after the sum."""
@@ -292,13 +326,7 @@ def attention_fwd(
     scale = spec.softmax_scale or (1.0 / D**0.5)
     q_pos = positions
     if route == "context":  # the rank's query rows against every key
-        tp = pshard.axis_size("model")
-        if S % tp:
-            raise NotImplementedError(
-                f"context-parallel attention: {S} positions do not split over {tp}")
-        n = S // tp
-        q = q.narrow(1, pshard.index("model") * n, n)
-        q_pos = positions.narrow(0, pshard.index("model") * n, n)
+        q, q_pos = _context_rows(q, positions)
     elif route == "repeat":
         k, v = _rank_heads(k, spec, 2), _rank_heads(v, spec, 2)
         G = 1
@@ -311,7 +339,7 @@ def attention_fwd(
     if route in ("heads", "repeat"):
         return _row_parallel_out(out, p["w_o"], x.dtype)
     y = torch.einsum("bshe,hed->bsd", out, p["w_o"])
-    return y if route is None else pshard.leave_rows(y)
+    return y if route is None else _gathered_rows(y, S)
 
 
 # ---------------------------------------------------------------------------
@@ -593,9 +621,9 @@ def cross_attend(p, x, k, v, spec: AttentionSpec, route: Optional[str]):
     summed over ``model`` (context route: the rank's rows gathered)."""
     H, Hk, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
     q = torch.einsum("bsd,dhe->bshe", x, p["w_q"])
+    S_x = q.shape[1]
     if route == "context":
-        n = q.shape[1] // pshard.axis_size("model")
-        q = q.narrow(1, pshard.index("model") * n, n)
+        q = _context_rows(q)[0]
     elif route == "repeat":
         k, v = _rank_heads(k, spec, 2), _rank_heads(v, spec, 2)
     B, S, Hq = q.shape[0], q.shape[1], q.shape[2]
@@ -604,7 +632,7 @@ def cross_attend(p, x, k, v, spec: AttentionSpec, route: Optional[str]):
     if route in ("heads", "repeat"):
         return _row_parallel_out(out, p["w_o"], x.dtype)
     y = torch.einsum("bshe,hed->bsd", out, p["w_o"])
-    return y if route is None else pshard.leave_rows(y)
+    return y if route is None else _gathered_rows(y, S_x)
 
 
 def cross_attention_fwd(p, x, kv_src, spec: AttentionSpec):

@@ -35,6 +35,7 @@ import functools
 from typing import Callable, Dict
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch import sharding
 from repro_torch.configs.base import ArchConfig, ShapeConfig
@@ -112,11 +113,19 @@ class _MetaGenerator(torch.Generator):
         return torch.device("meta")
 
 
+def _shapes_only(init: Callable, *args) -> Dict:
+    """``init(*args)``, a tree made for its shapes alone, with every dispatch
+    mode set aside: it is no work on any device, and its cache must not
+    count in whichever step (and whichever cost counter) first asks for it."""
+    with _disable_current_modes():
+        return init(*args)
+
+
 @functools.lru_cache(maxsize=None)
 def abstract_params(cfg: ArchConfig) -> Dict:
     """``cfg``'s params tree on the meta device."""
     init = encdec.init_params if cfg.encoder is not None else transformer.init_params
-    return init(_MetaGenerator(), cfg)
+    return _shapes_only(init, _MetaGenerator(), cfg)
 
 
 @functools.lru_cache(maxsize=None)
@@ -144,9 +153,9 @@ class ShardedCaches(dict):
 
 
 def _abstract_caches(cfg: ArchConfig, batch: int, seq_len: int) -> Dict:
-    if cfg.encoder is not None:
-        return encdec.init_decode_caches(cfg, batch, seq_len, "meta")
-    return transformer.init_decode_caches(cfg, batch, seq_len, "meta")
+    init = encdec.init_decode_caches if cfg.encoder is not None \
+        else transformer.init_decode_caches
+    return _shapes_only(init, cfg, batch, seq_len, "meta")
 
 
 def _cache_layout(cfg, batch: int, seq_len: int, mesh):

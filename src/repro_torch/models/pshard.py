@@ -35,6 +35,13 @@ Where NCCL cannot serve (several ranks on one card: NCCL refuses two ranks
 on one GPU) the world runs gloo, which moves host tensors only: a CUDA
 tensor is staged through host memory for the collective and copied back.
 The compute and every kernel stay on the card.
+
+Under a dry mesh (``launch.mesh.make_dry_mesh``: one rank's view, no
+process groups; the dry-run) the two functions that call
+``torch.distributed``, ``gather_parts`` and ``_exchange``, return meta
+tensors of the live shapes (D blocks; a (D, n) exchange) and every other
+line, the counters included, is the live path's. A dry mesh takes a tuple
+of axes by its product size, and raises on a tensor that is not on meta.
 """
 from __future__ import annotations
 
@@ -160,6 +167,18 @@ def counts() -> Dict[str, Dict[str, int]]:
     return {k: dict(v) for k, v in COUNTS.items()}
 
 
+@contextlib.contextmanager
+def uncounted():
+    """Inside: collectives leave the counts as they were (a report's gathers,
+    not the step's)."""
+    saved = counts()
+    try:
+        yield
+    finally:
+        COUNTS.clear()
+        COUNTS.update(saved)
+
+
 def _count(kind: str, nbytes: int) -> None:
     c = COUNTS.setdefault(kind, {"calls": 0, "bytes": 0})
     c["calls"] += 1
@@ -177,6 +196,8 @@ def gather_parts(x: torch.Tensor, axis, mesh=None, kind: Optional[str] = "all_ga
     (None: not counted). A CUDA tensor in a gloo group is staged through
     host memory. A failed collective raises."""
     mesh = mesh if mesh is not None else _CTX["mesh"]
+    if mesh is not None and mesh.dry:
+        return _dry_parts(x, axis, mesh, kind)
     g = mesh.group(axis) if mesh is not None else None
     if g is None:
         return [x]
@@ -199,6 +220,24 @@ def gather_parts(x: torch.Tensor, axis, mesh=None, kind: Optional[str] = "all_ga
     return parts
 
 
+def _dry(x: torch.Tensor) -> None:
+    if not x.is_meta:
+        raise ValueError(f"a dry mesh runs on meta tensors, got one on {x.device}")
+
+
+def _dry_parts(x, axis, mesh, kind):
+    """``gather_parts`` on a dry mesh: D meta blocks of ``x``'s shape,
+    counted as the live gather counts them."""
+    d = mesh.axis_size(axis)
+    if d == 1:
+        return [x]
+    _dry(x)
+    src = x.contiguous()
+    if kind is not None:
+        _count(kind, d * src.numel() * src.element_size())
+    return [torch.empty_like(src) for _ in range(d)]
+
+
 def _rank_sum(parts):
     out = parts[0]
     for p in parts[1:]:
@@ -209,7 +248,11 @@ def _rank_sum(parts):
 def _exchange(chunks: torch.Tensor, axis) -> torch.Tensor:
     """``chunks`` (D, n): chunk j goes to rank j; returns (D, n), row i the
     chunk rank i sent here (an all-to-all; host-staged as ``gather_parts``)."""
-    g = _CTX["mesh"].group(axis)
+    mesh = _CTX["mesh"]
+    if mesh.dry:
+        _dry(chunks)
+        return torch.empty_like(chunks.contiguous())
+    g = mesh.group(axis)
     src = chunks.contiguous()
     staged = src.is_cuda and torch.distributed.get_backend(g) == "gloo"
     if staged:

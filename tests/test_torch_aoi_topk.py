@@ -22,6 +22,7 @@ from repro_torch.core import selection as pt_sel  # noqa: E402
 from repro_torch.core.draws import ReplayDraws  # noqa: E402
 from repro_torch.kernels import aoi_topk, ops, radix_topk, ref  # noqa: E402
 from repro_torch.sim.events import KERNEL_THRESHOLD  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 
 def _reference():

@@ -17,6 +17,7 @@ from repro.sim import arrivals as ref_arr  # noqa: E402
 from repro.sim import get_profile as ref_get_profile  # noqa: E402
 from repro_torch.core.draws import GeneratorDraws, ReplayDraws  # noqa: E402
 from repro_torch.sim import arrivals, get_profile  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 
 def _message(cls, *args):

@@ -43,6 +43,8 @@ from repro_torch.data.synthetic import load_dataset  # noqa: E402
 from repro_torch.engine import RunConfig, make_engine, run_engine  # noqa: E402
 from repro_torch.fl import make_cnn_task  # noqa: E402
 from repro_torch.sim import events as pt_events  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
+
 
 N, K, M, STEPS, EPOCHS, SEED, SCALE = 48, 8, 10, 6, 2, 0, 0.02
 CFG = dict(mode="async", n_clients=N, k=K, m=M, policy="markov", rounds=STEPS,
@@ -278,8 +280,8 @@ def test_driver_runs_on_cpu_and_rejects_later_slices(capsys):
                         "--rounds", "1", "--local-epochs", "1", "--batch-size", "4",
                         "--arch", "tinyllama-1.1b"])
     assert np.isfinite(lm.records[-1].eval_loss)
-    g3 = fl_async.main(["--device", "cpu", "--clients", "12", "--k", "4",
-                        "--rounds", "1", "--data-scale", "0.02", "--arch", "gemma3-27b"])
+    g3 = fl_async.main(["--device", "cpu", "--clients", "12", "--k", "4", "--rounds", "1",
+                        "--local-epochs", "1", "--batch-size", "4", "--arch", "gemma3-27b"])
     assert np.isfinite(g3.records[-1].eval_loss)
     # --mesh-shards runs since slice F: on one CPU it resolves to a world of
     # one, which the driver ends with its run; the one-device run bit for bit

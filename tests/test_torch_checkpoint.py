@@ -28,6 +28,7 @@ from repro_torch.engine import RunConfig, make_engine  # noqa: E402
 from repro_torch.engine.registry import make_policy  # noqa: E402
 from repro_torch.fl import make_cnn_task  # noqa: E402
 from repro_torch.models.cnn import init_params  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 SMALL = dict(name="paper-cnn-mnist-ckpt", image_size=8, conv_channels=(4, 8),
              fc_width=32)

@@ -25,6 +25,7 @@ from repro_torch.data import synthetic as pt_synth, partition as pt_part  # noqa
 from repro_torch.engine import aggregators as pt_agg  # noqa: E402
 from repro_torch.fl.client import make_local_update  # noqa: E402
 from repro_torch.models import cnn as pt_cnn  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -31,6 +31,7 @@ from repro_torch.engine import AsyncEngine, RunConfig, make_engine, run_engine  
 from repro_torch.engine.aggregators import cohort_sharded_apply, make_fedavg  # noqa: E402
 from repro_torch.launch import ranks  # noqa: E402
 from repro_torch.sim import latency as lat_mod  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 N = 16
 SMALL = dict(name="paper-cnn-mnist-cohort", image_size=8, conv_channels=(4, 8),

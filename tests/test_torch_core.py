@@ -18,6 +18,7 @@ from repro_torch.core import load_metric as pt_lm  # noqa: E402
 from repro_torch.core import selection as pt_sel  # noqa: E402
 from repro_torch.core.draws import GeneratorDraws, ReplayDraws  # noqa: E402
 from repro_torch.engine import registry as pt_registry  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 
 def _stream(rounds, n, p, seed):

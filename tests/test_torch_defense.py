@@ -53,6 +53,7 @@ from repro_torch.defense import DefenseConfig  # noqa: E402
 from repro_torch.engine import RunConfig  # noqa: E402
 from repro_torch.engine.aggregators import acc_stats  # noqa: E402
 from repro_torch.engine.registry import make_aggregator  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 SCORE_TOL = dict(rtol=1e-5, atol=1e-5)

@@ -74,6 +74,7 @@ from repro_torch.data.synthetic import make_image_dataset  # noqa: E402
 from repro_torch.engine import AsyncEngine, RunConfig, make_engine, run_engine  # noqa: E402
 from repro_torch.fl import make_cnn_task  # noqa: E402
 from repro_torch.sim import events as pt_events  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 N, SEED, EPOCHS = 16, 0, 1
 SMALL = dict(name="paper-cnn-mnist-defense", image_size=8, conv_channels=(4, 8),

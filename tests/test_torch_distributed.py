@@ -36,6 +36,7 @@ from repro_torch.core import load_metric  # noqa: E402
 from repro_torch.kernels.event_topk import next_k_plain  # noqa: E402
 from repro_torch.launch import ranks  # noqa: E402
 from repro_torch.sim import events as pt_events  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 WORLDS = (2, 4)
 MARKOV = dict(n=400, k=40, m=10, rounds=400)

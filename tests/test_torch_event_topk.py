@@ -15,6 +15,7 @@ from repro.kernels import ops as ref_ops  # noqa: E402
 from repro.sim import events as ref_events  # noqa: E402
 from repro_torch.kernels import event_topk, radix_topk, ref  # noqa: E402
 from repro_torch.sim import events as pt_events  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 
 def _times(n, pending_frac, seed):

@@ -16,6 +16,7 @@ from repro_torch.convert import state_from_jax, state_to_jax  # noqa: E402
 from repro_torch.core.draws import GeneratorDraws, ReplayDraws  # noqa: E402
 from repro_torch.sim import events as pt_ev  # noqa: E402
 from repro_torch.sim import latency as pt_lat  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 KEY = jax.random.PRNGKey(0)
 

@@ -54,6 +54,7 @@ from repro_torch.data.synthetic import make_image_dataset  # noqa: E402
 from repro_torch.engine import RunConfig, SyncEngine, make_engine, run_engine  # noqa: E402
 from repro_torch.fl import make_cnn_task  # noqa: E402
 from repro_torch.sim import events as pt_events  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 N, K, M, STEPS, EPOCHS, SEED = 48, 8, 10, 3, 2, 0
 SMALL = dict(name="paper-cnn-mnist-faults", image_size=8, conv_channels=(4, 8),

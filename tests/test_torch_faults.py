@@ -28,6 +28,7 @@ from repro_torch.core.draws import ReplayDraws  # noqa: E402
 from repro_torch.core.tree import tree_paths  # noqa: E402
 from repro_torch.engine import RunConfig  # noqa: E402
 from repro_torch.faults import inject as pt_inject  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 N, B = 24, 8
 ENGINE_FAULTS = ("collude", "corrupt", "dropout", "scale_attack", "sign_flip",

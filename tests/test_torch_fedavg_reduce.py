@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import fedavg_reduce as k1  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 RTOL, ATOL = 1e-5, 1e-6
 

@@ -17,6 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.fl import server as ref_server  # noqa: E402
 from repro_torch.fl import server  # noqa: E402
 from repro_torch.kernels import fedavg_reduce as k1  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 
 def _mask(n, count, seed):

@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as k4  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 CASES = [
     (1, 2, 2, 256, 64, "full", 0),

@@ -25,6 +25,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as k4  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 MASKS = [("full", 0), ("sliding", 100), ("sliding", 128), ("chunked", 100), ("chunked", 128)]
 SMEM_LIMIT = 232448  # dynamic shared memory a block can use on an H100

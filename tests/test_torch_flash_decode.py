@@ -22,6 +22,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_decode as k5  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 CASES = [
     (2, 2, 4, 512, 64, 512, 128),

@@ -10,6 +10,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import event_topk, radix_topk  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 
 def _times(n, pending_frac, seed):

@@ -34,6 +34,7 @@ from repro.models import factory as ref_factory  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.models import factory  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 KEY = jax.random.PRNGKey(0)

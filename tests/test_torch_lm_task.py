@@ -41,6 +41,7 @@ from repro_torch.core.tree import tree_leaves  # noqa: E402
 from repro_torch.engine import make_engine  # noqa: E402
 from repro_torch.fl import make_lm_task  # noqa: E402
 from repro_torch.launch import _fl_cli, fl_async, fl_train, train  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 ARCH = "tinyllama-1.1b"
 N, K, M, ROUNDS, EPOCHS, BS, SEED = 12, 3, 4, 3, 1, 4, 0

@@ -43,6 +43,7 @@ from repro_torch.kernels import flash_attention as k4  # noqa: E402
 from repro_torch.kernels import ssd_scan as k6  # noqa: E402
 from repro_torch.launch.train import build_sized  # noqa: E402
 from repro_torch.models import factory  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 ARCH = "tinyllama-1.1b"
 MASKS = [("full", 0), ("sliding", 24), ("chunked", 32)]

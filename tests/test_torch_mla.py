@@ -31,6 +31,7 @@ from repro_torch.configs.base import AttentionSpec  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import factory  # noqa: E402
 from repro_torch.models.common import rope_frequencies  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 KEY = jax.random.PRNGKey(0)

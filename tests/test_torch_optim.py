@@ -33,6 +33,7 @@ from repro_torch.optim import (  # noqa: E402
     sgd,
     warmup_cosine,
 )
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 STEPS = 5
 SCHEDULES = [

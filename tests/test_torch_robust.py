@@ -25,6 +25,7 @@ from repro.engine.registry import make_aggregator as ref_make  # noqa: E402
 from repro_torch.engine import aggregator_names  # noqa: E402
 from repro_torch.engine.registry import make_aggregator  # noqa: E402
 from repro_torch.kernels import fedavg_reduce as k1  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 B = 9
 

@@ -49,6 +49,7 @@ from repro_torch.faults import make_fault  # noqa: E402
 from repro_torch.launch import serve_fleet  # noqa: E402
 from repro_torch.models import factory  # noqa: E402
 from repro_torch.serve import ReplicaPool, Request, VersionStore, run_serve_loop  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ATOL_LOGITS = 1e-4

@@ -39,6 +39,7 @@ from repro_torch.serve import (  # noqa: E402
     slot_decode_fn,
     write_slot,
 )
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 ARCH = get_arch("tinyllama-1.1b").reduced()
 S, CTX = 4, 16

@@ -26,6 +26,7 @@ from repro_torch.core import load_metric, selection  # noqa: E402
 from repro_torch.core.draws import GeneratorDraws, ReplayDraws  # noqa: E402
 from repro_torch.serve import router as pt_router  # noqa: E402
 from repro_torch.serve import make_router, penalized_load, router_names  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 BUILTINS = {"round_robin", "least_loaded", "markov"}
 

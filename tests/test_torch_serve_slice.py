@@ -25,6 +25,7 @@ from repro_torch.core.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.models import factory  # noqa: E402
 from repro_torch.serve.batching import prefill_tokens  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 ARCH = "tinyllama-1.1b"
 B, PROMPT, GEN = 4, 8, 32

@@ -28,6 +28,7 @@ from repro_torch.engine import AsyncEngine, RunConfig  # noqa: E402
 from repro_torch.fl import make_cnn_task  # noqa: E402
 from repro_torch.models import factory  # noqa: E402
 from repro_torch.serve import VersionStore  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 ARCH = "tinyllama-1.1b"
 

@@ -36,6 +36,7 @@ from repro.fl import make_cnn_task as ref_make_cnn_task  # noqa: E402
 from repro_torch.engine import AsyncEngine, RunConfig, make_engine  # noqa: E402
 from repro_torch.engine.sharded import FLEET_STATE_KEYS, ShardedAsyncEngine  # noqa: E402
 from repro_torch.launch import ranks  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 N = 16
 SMALL = dict(name="paper-cnn-mnist-sharded", image_size=8, conv_channels=(4, 8),

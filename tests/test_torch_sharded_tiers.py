@@ -23,6 +23,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.launch import ranks  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 SMALL = dict(name="paper-cnn-mnist-tiers", image_size=8, conv_channels=(4, 8),
              fc_width=32)

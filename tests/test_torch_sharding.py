@@ -31,6 +31,7 @@ from repro_torch import configs, sharding  # noqa: E402
 from repro_torch.core.tree import tree_paths  # noqa: E402
 from repro_torch.launch.mesh import Mesh, make_production_mesh  # noqa: E402
 from repro_torch.models import factory, pshard  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 MESHES = {"16x16": {"data": 16, "model": 16},
           "2x16x16": {"pod": 2, "data": 16, "model": 16},

@@ -24,6 +24,7 @@ torch = pytest.importorskip("torch")
 from repro_torch import convert  # noqa: E402
 from repro_torch.kernels import ops, ref, ssd_scan  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 CASES = [(2, 128, 3, 32, 16, 32), (1, 256, 2, 64, 128, 64), (1, 64, 4, 16, 8, 64)]
 

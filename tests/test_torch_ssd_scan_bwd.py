@@ -23,6 +23,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ssd_scan  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 GRADS = ("dx", "ddt", "dA", "dB", "dC", "dh0")
 # the kernel against the plain backward, of each gradient's max: f32 inputs;

@@ -15,6 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ssd_scan  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 SMEM_CAP = 232448  # bytes of shared memory a block may use on an H100
 # (B, S, nh, hd, ds, chunk): every (hd, ds) of the route, chunks of 16, 64,

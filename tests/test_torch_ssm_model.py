@@ -32,6 +32,7 @@ from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.models import factory  # noqa: E402
 from repro_torch.models import ssm as S  # noqa: E402
 from repro_torch.serve.batching import prefill_tokens  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 ARCH = "mamba2-370m"

@@ -66,6 +66,8 @@ from repro_torch.fl import FLConfig, make_cnn_task, make_round_fn, run_training 
 from repro_torch.kernels import fedavg_reduce as k1  # noqa: E402
 from repro_torch.sim import AsyncConfig, get_profile, run_async_training  # noqa: E402
 from repro_torch.sim.latency import simulate_sync_duration  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
+
 
 N, K, M, ROUNDS, EPOCHS, SEED, SCALE = 48, 8, 10, 6, 2, 0, 0.02
 WIDTH = 19  # default_cohort_width(48, 8): k + 4 sigma of Binomial(48, 1/6)
@@ -460,8 +462,8 @@ def test_fl_train_driver_runs_on_cpu(capsys):
             fl_train.main(["--device", "cpu", "--clients", "12", "--k", "4",
                            "--rounds", "1", "--data-scale", "0.02", *flags])
     for flags in (["--defense", "--arch", "gemma3-27b"], ["--arch", "gemma3-27b"]):
-        g3 = fl_train.main(["--device", "cpu", "--clients", "12", "--k", "4",
-                            "--rounds", "1", "--data-scale", "0.02", *flags])
+        g3 = fl_train.main(["--device", "cpu", "--clients", "12", "--k", "4", "--rounds", "1",
+                            "--local-epochs", "1", "--batch-size", "4", *flags])
         assert np.isfinite(g3.records[-1].eval_loss)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):

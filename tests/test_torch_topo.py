@@ -43,6 +43,7 @@ from repro_torch.engine import robust as pt_robust  # noqa: E402
 from repro_torch.kernels import fedavg_reduce as k1  # noqa: E402
 from repro_torch.topo import heartbeat as pt_hb  # noqa: E402
 from repro_torch.topo import reduce as pt_reduce  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 N = 16
 RTOL, ATOL = 1e-5, 1e-6

@@ -59,6 +59,7 @@ from repro_torch.fl import make_cnn_task  # noqa: E402
 from repro_torch.launch import fl_async, fl_train  # noqa: E402
 from repro_torch.launch._fl_cli import topology_args  # noqa: E402
 from repro_torch.sim import events as pt_events  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 N, K, M, EPOCHS, SEED = 48, 8, 10, 2, 0
 SMALL = dict(name="paper-cnn-mnist-topo", image_size=8, conv_channels=(4, 8),

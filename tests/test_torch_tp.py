@@ -22,8 +22,16 @@ Also: a world of one is the unsharded model bit for bit; two runs of a
 sharded case repeat bit for bit; decode on weights gathered whole over
 data once matches; ``explicit_tp`` halves the MLP's counted
 collective bytes in bf16; ``shard_tree`` then ``unshard_tree`` is the
-identity on live ranks. K4 and K5 at ``tp_main``'s rank-local shapes on
-the card: ``tests/test_torch_tp_kernels.py`` (no JAX there).
+identity on live ranks; six heads at model 4 over positions that do not
+split (the context route pads its rows) match. K4 and K5 at ``tp_main``'s
+rank-local shapes on the card: ``tests/test_torch_tp_kernels.py`` (no JAX
+there).
+
+The dry-run (``launch.dryrun``, slice I2): each sharded case run again on
+the meta device under a dry mesh of its shape (``launch.mesh.make_dry_mesh``,
+no ranks, no process groups) counts the collectives, by kind, calls and
+bytes, that the live rank 0 counted, exactly; other coordinates count the
+same. It spawns no world of its own: it reads the live runs' counts.
 """
 import contextlib
 import dataclasses
@@ -41,6 +49,8 @@ from repro_torch import configs, convert  # noqa: E402
 from repro_torch.core.tree import tree_paths  # noqa: E402
 from repro_torch.launch import tp_cases  # noqa: E402
 from repro_torch.models import attention, factory  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
+
 
 FAMILIES = ["tinyllama-1.1b", "gemma3-27b", "deepseek-v2-236b", "jamba-v0.1-52b",
             "mamba2-370m", "whisper-tiny", "six-heads"]
@@ -147,6 +157,11 @@ def runs(tmp_path_factory):
     cases = {name: _case(name) for name in FAMILIES}
     cases["softcap"] = dict(cases["gemma3-27b"], name="softcap", cfg=dataclasses.replace(
         cases["gemma3-27b"]["cfg"], logits_softcap=30.0))
+    six = cases["six-heads"]  # 126 and 30 positions: the context route's rows padded
+    pre = _inputs(six["cfg"], S_PREFILL - 2, 2)
+    pre.pop("labels")
+    cases["six-odd"] = dict(six, name="six-odd", batch=_t(_inputs(six["cfg"], S_LOSS - 2, 1)),
+                            prefill=_t(pre))
     one_row = cases["tinyllama-1.1b"]  # batch 1: the cache's L over data, gathered at use
     cases["batch1"] = dict(one_row, name="batch1", train=False,
                            prefill={"tokens": one_row["prefill"]["tokens"][:1],
@@ -169,6 +184,8 @@ def runs(tmp_path_factory):
                                     name="batch1"))
             todo[world].append(dict(cases["six-heads"], mesh=MESHES["model4"][1],
                                     name="flags/six-heads-seq", build={"seq_parallel": True}))
+            todo[world].append(dict(cases["six-odd"], mesh=MESHES["model4"][1],
+                                    name="six-odd"))
         else:
             todo[world].append(mlp_case)
             todo[world] += [dict(cases[n], mesh=MESHES["model2"][1], name=f"flags/{n}-{k}",
@@ -189,7 +206,7 @@ def runs(tmp_path_factory):
         refs = {name: _reference(name, cases[name]) for name in FAMILIES}
         with _one_thread():
             one = {name: tp_cases.run_case(cases[name], sharded=False)
-                   for name in FAMILIES + ["softcap", "batch1"]}
+                   for name in FAMILIES + ["softcap", "batch1", "six-odd"]}
     finally:
         for t in threads:
             t.join()
@@ -197,7 +214,8 @@ def runs(tmp_path_factory):
         raise errors[0]
     sharded = {c.get("name", "mlp_counts"): r
                for w in (2, 4) for c, r in zip(todo[w], got[w])}
-    return {"cases": cases, "refs": refs, "one": one, "sharded": sharded}
+    live = {c["name"]: c for w in (2, 4) for c in todo[w] if "name" in c}
+    return {"cases": cases, "refs": refs, "one": one, "sharded": sharded, "live": live}
 
 
 def _check(got, want, name, what):
@@ -319,3 +337,48 @@ def test_unsplit_layers_raise_under_a_model_axis():
         mla = configs.get_arch("deepseek-v2-236b").reduced().pattern[0].attn
         with pytest.raises(NotImplementedError, match="MLA attention"):
             attention.tp_route(mla, 8)
+
+
+def test_context_rows_that_do_not_split_over_the_model_axis_are_padded(runs):
+    """Six query heads over two kv heads at model 4 take the context route;
+    at 126 loss and 30 prefill positions (not multiples of 4) each rank's
+    rows are padded to 32 and 8, and the padding is cut after the gather."""
+    from repro_torch.models import attention
+
+    six = runs["cases"]["six-odd"]["cfg"].pattern[0].attn
+    assert attention.tp_route(six, 4) == "context"
+    _check(runs["sharded"]["six-odd"], runs["one"]["six-odd"], "six-heads", "port")
+
+
+DRY = sorted(f"{m}/{n}" for m in MESHES for n in FAMILIES) + [
+    "whole_decode", "batch1", "six-odd", "flags/softcap"] + [
+    f"flags/{n}-{k}" for n, k in FLAG_CASES] + ["flags/six-heads-seq"]
+
+
+@pytest.mark.parametrize("name", DRY)
+def test_the_dry_run_counts_the_collectives_the_live_rank_counts(runs, name):
+    """The case's calls on the meta device under a dry mesh of its shape, at
+    rank 0's coordinates: every collective, by kind, calls and bytes,
+    equal to the live rank 0's (its training step with the gathered
+    gradients; then the prefill, the decode steps and the gathered
+    results)."""
+    from repro_torch.launch.mesh import make_dry_mesh
+
+    case = runs["live"][name]
+    dry = tp_cases.run_case(case, sharded=True, mesh=make_dry_mesh(case["mesh"], 0))
+    live = runs["sharded"][name]
+    assert dry.get("counts_train") == live.get("counts_train")
+    assert dry["counts"] == live["counts"] and dry["counts"]
+    assert all(t.is_meta for t in dry["decode_logits"])
+
+
+def test_other_coordinates_of_a_dry_mesh_count_the_same():
+    """jamba (mamba heads, MoE, FSDP gathers) on data 2 x model 2 from ranks
+    1 and 3: the counts of rank 0."""
+    from repro_torch.launch.mesh import make_dry_mesh
+
+    case = dict(_case("jamba-v0.1-52b"), mesh=MESHES["data2xmodel2"][1])
+    got = [tp_cases.run_case(case, sharded=True, mesh=make_dry_mesh(case["mesh"], r))
+           for r in (0, 1, 3)]
+    assert [g["counts"] for g in got[1:]] == [got[0]["counts"]] * 2
+    assert [g["counts_train"] for g in got[1:]] == [got[0]["counts_train"]] * 2

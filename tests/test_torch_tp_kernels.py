@@ -8,6 +8,7 @@ elsewhere.
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 
 # (B/dp, Hk/tp, G, S, D) of tinyllama-1.1b at (4, 2048) on model 4 and on

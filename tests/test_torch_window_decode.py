@@ -25,6 +25,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs.base import AttentionSpec  # noqa: E402
 from repro_torch.kernels import flash_decode as k5  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
+from _torch_threads import _worker_threads  # noqa: E402,F401
 
 # (kind, window, L): the routes K5 takes
 PREFIX_CASES = [("full", 0, 8), ("sliding", 8, 8), ("sliding", 8, 5), ("sliding", 8, 1),
